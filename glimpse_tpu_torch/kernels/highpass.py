@@ -1,0 +1,62 @@
+"""The median high-pass kernel (``csrc/highpass.cu``) and its wrapper.
+
+Replaces the TPU kernel ``glimpse_tpu/kernels/highpass_pallas.py``
+(``median_highpass``). The wrapper picks by device alone: a CPU tensor runs
+the plain version, :func:`glimpse_tpu_torch.ops.imageproc.highpass`; a CUDA
+tensor launches the kernel, or raises.
+"""
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from ..ops.imageproc import highpass as median_highpass_plain
+from . import _build
+
+MAX_TAPS = 49
+_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+
+
+@functools.cache
+def _entry():
+    lib = _build.load("highpass")
+    fn = lib.glimpse_median_highpass
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torch.Tensor:
+    """``tile - median_{kh x kw}(tile)`` over a stack (N, h, w) of float32 tiles.
+
+    Symmetric padding that repeats the edge pixel; odd ``kh`` and ``kw`` with
+    at most 49 taps. Bit-equal on both devices for finite input.
+    """
+    kh, kw = size
+    if kh % 2 == 0 or kw % 2 == 0 or kh * kw > MAX_TAPS:
+        raise ValueError(f"median_highpass takes odd taps, at most {MAX_TAPS}, got {size}")
+    if tiles.ndim != 3 or tiles.dtype != torch.float32:
+        raise ValueError(f"median_highpass takes (N, h, w) float32, got {tuple(tiles.shape)} {tiles.dtype}")
+    if not tiles.is_contiguous():
+        raise ValueError("median_highpass takes a contiguous tensor")
+    N, h, w = tiles.shape
+    if h < kh // 2 + 1 or w < kw // 2 + 1:
+        raise ValueError(f"tiles {h}x{w} are too small for {kh}x{kw} taps")
+    if (h + kh - 1) * (w + kw - 1) * 4 > _SMEM_LIMIT:
+        raise ValueError(f"a padded {h}x{w} tile does not fit one block's shared memory")
+    if tiles.device.type == "cpu":
+        return median_highpass_plain(tiles, size)
+    if tiles.device.type != "cuda":
+        raise ValueError(f"median_highpass runs on cpu or cuda, got {tiles.device}")
+    lib, fn = _entry()
+    out = torch.empty_like(tiles)
+    with torch.cuda.device(tiles.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(tiles.data_ptr(), out.data_ptr(), N, h, w, kh, kw, stream)
+    _build.check(lib, code, "median_highpass")
+    median_highpass.launches += 1
+    return out
+
+
+median_highpass.launches = 0

@@ -1,0 +1,77 @@
+"""The systematic resample kernel (``csrc/resample.cu``) and its wrapper.
+
+Replaces the TPU kernel ``glimpse_tpu/kernels/resample_pallas.py``
+(``systematic_resample_gather``, all four of its layouts). The wrapper
+picks by device alone: a CPU tensor runs :func:`systematic_resample_plain`;
+a CUDA tensor launches the kernel, or raises.
+"""
+import ctypes
+import functools
+
+import torch
+
+from ..ops import resampling
+from . import _build
+
+MAX_PARTICLES = 232448 // 4  # one float32 threshold row per block's shared memory
+
+
+@functools.cache
+def _entry():
+    lib = _build.load("resample")
+    fn = lib.glimpse_systematic_resample
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def systematic_resample_plain(t, particles, weights):
+    """searchsorted-left on ``t``, clamped to P - 1, then a row gather."""
+    idx = resampling.systematic_indices(t)
+    new_particles = particles.gather(1, idx[..., None].expand(-1, -1, particles.shape[-1]))
+    return new_particles, weights.gather(1, idx)
+
+
+def systematic_resample(t: torch.Tensor, particles: torch.Tensor, weights: torch.Tensor):
+    """Resample particles (N, P, 6) and weights (N, P) by a threshold table t (N, P).
+
+    ``t`` comes from :func:`glimpse_tpu_torch.ops.resampling.systematic_thresholds`.
+    Slot j of point n copies source row ``min(#{i : t[n, i] < j}, P - 1)``:
+    exact row copies, left tie rule. Returns (particles, weights).
+    """
+    if t.ndim != 2 or particles.shape != (*t.shape, 6) or weights.shape != t.shape:
+        raise ValueError(
+            f"systematic_resample takes t (N, P), particles (N, P, 6) and weights"
+            f" (N, P), got {tuple(t.shape)}, {tuple(particles.shape)}, {tuple(weights.shape)}"
+        )
+    tensors = (t, particles, weights)
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise ValueError("systematic_resample takes float32 tensors")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("systematic_resample takes contiguous tensors")
+    if len({x.device for x in tensors}) != 1:
+        raise ValueError("systematic_resample takes tensors on one device")
+    N, P = t.shape
+    if P > MAX_PARTICLES:
+        raise ValueError(
+            f"{P} particles do not fit one block's shared memory (at most {MAX_PARTICLES})"
+        )
+    if t.device.type == "cpu":
+        return systematic_resample_plain(t, particles, weights)
+    if t.device.type != "cuda":
+        raise ValueError(f"systematic_resample runs on cpu or cuda, got {t.device}")
+    lib, fn = _entry()
+    out_particles = torch.empty_like(particles)
+    out_weights = torch.empty_like(weights)
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(
+            t.data_ptr(), particles.data_ptr(), weights.data_ptr(),
+            out_particles.data_ptr(), out_weights.data_ptr(), N, P, stream,
+        )
+    _build.check(lib, code, "systematic_resample")
+    systematic_resample.launches += 1
+    return out_particles, out_weights
+
+
+systematic_resample.launches = 0

@@ -1,0 +1,25 @@
+"""Batched sum-of-squared-error (SSE) template matching on tensors.
+
+The counterpart of :func:`glimpse_tpu.ops.ncc.sse_map_batched` (its 'conv'
+form): SSE(u, v) = sum_patch S^2 - 2 (S * T)(u, v) + sum T^2.
+"""
+import torch
+import torch.nn.functional as F
+
+
+def sse_map_batched(search, templates):
+    """SSE maps of search tiles (N, sh, sw) against templates (N, th, tw).
+
+    Returns (N, sh - th + 1, sw - tw + 1). Both window sums are grouped
+    convolutions, one group per point. A float32 convolution on the card
+    goes through cuDNN in TF32 by default, which keeps about three decimal
+    digits; they run here with TF32 off.
+    """
+    N = search.shape[0]
+    th, tw = templates.shape[-2:]
+    ones = torch.ones((N, 1, th, tw), dtype=search.dtype, device=search.device)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        s2 = F.conv2d((search * search)[None], ones, groups=N)[0]
+        corr = F.conv2d(search[None], templates[:, None], groups=N)[0]
+    t2 = torch.sum(templates * templates, dim=(-2, -1))
+    return s2 - 2 * corr + t2[:, None, None]

@@ -1,0 +1,132 @@
+"""Grid sampling on tensors: bilinear and exact cubic B-spline.
+
+The counterpart of :mod:`glimpse_tpu.ops.sampling` for the tracker's path.
+Samples are read by plain gathers at any grid size.
+"""
+import functools
+
+import numpy as np
+import torch
+
+
+def bilinear_sample(values, rows, cols):
+    """Sample a grid (H, W) at fractional indices, bilinearly.
+
+    Out-of-bounds indices extrapolate linearly from the edge cells. A NaN
+    cell reaches only the samples whose four-cell stencil holds it.
+    """
+    H, W = values.shape[-2], values.shape[-1]
+    r0f = torch.clamp(torch.floor(rows), 0, max(H - 2, 0))
+    c0f = torch.clamp(torch.floor(cols), 0, max(W - 2, 0))
+    r0 = r0f.long()
+    c0 = c0f.long()
+    r1 = torch.clamp(r0 + 1, max=H - 1)
+    c1 = torch.clamp(c0 + 1, max=W - 1)
+    fr = rows - r0f
+    fc = cols - c0f
+    v00 = values[..., r0, c0]
+    v01 = values[..., r0, c1]
+    v10 = values[..., r1, c0]
+    v11 = values[..., r1, c1]
+    top = v00 + (v01 - v00) * fc
+    bot = v10 + (v11 - v10) * fc
+    return top + (bot - top) * fr
+
+
+@functools.lru_cache(maxsize=128)
+def bspline_prefilter_matrix(n: int) -> np.ndarray:
+    """Inverse (float64) of the cubic B-spline collocation matrix for n nodes.
+
+    Natural boundary conditions: the ghost coefficients c[-1] = 2 c[0] - c[1]
+    and c[n] = 2 c[n-1] - c[n-2] are folded into the end columns.
+    """
+    if n == 1:
+        return np.ones((1, 1))
+    A = np.zeros((n, n))
+    for i in range(n):
+        A[i, i] = 4 / 6
+        if i > 0:
+            A[i, i - 1] += 1 / 6
+        if i < n - 1:
+            A[i, i + 1] += 1 / 6
+    A[0, 0] += 2 * (1 / 6)
+    A[0, 1] -= 1 / 6
+    A[n - 1, n - 1] += 2 * (1 / 6)
+    A[n - 1, n - 2] -= 1 / 6
+    return np.linalg.inv(A)
+
+
+def bspline_prefilter_2d(values):
+    """Cubic B-spline coefficients of a (..., H, W) grid: Ar @ values @ Ac^T.
+
+    The inverses are built in float64 on the host and cast to the values'
+    type. On the card a float32 matmul runs in full float32 unless the
+    caller has enabled TF32 for matmuls.
+    """
+    H, W = values.shape[-2], values.shape[-1]
+    Ar = _prefilter_tensor(H, values.device, values.dtype)
+    Ac = _prefilter_tensor(W, values.device, values.dtype)
+    return torch.matmul(torch.matmul(Ar, values), Ac.T)
+
+
+@functools.lru_cache(maxsize=16)
+def _prefilter_tensor(n: int, device, dtype) -> torch.Tensor:
+    # Kept on the device: a fresh host-to-device copy each step would make
+    # the host wait for the card.
+    return torch.as_tensor(bspline_prefilter_matrix(n)).to(device, dtype)
+
+
+def _cubic_bspline_weights(t):
+    """Basis values for nodes at offsets (-1, 0, 1, 2) of fractional offset t."""
+    t2 = t * t
+    t3 = t2 * t
+    w0 = (1 - 3 * t + 3 * t2 - t3) / 6
+    w1 = (4 - 6 * t2 + 3 * t3) / 6
+    w2 = (1 + 3 * t + 3 * t2 - 3 * t3) / 6
+    w3 = t3 / 6
+    return w0, w1, w2, w3
+
+
+def _natural_index(i, n: int):
+    """Coefficient index with natural-BC ghosts: c_i = w0 c[i0] + w1 c[i1]."""
+    below = i < 0
+    above = i > n - 1
+    ghost = below | above
+    i0 = torch.where(below, 0, torch.where(above, n - 1, i))
+    i1 = torch.where(below, min(1, n - 1), torch.where(above, max(n - 2, 0), i))
+    w0 = torch.where(ghost, 2.0, 1.0)
+    w1 = torch.where(ghost, -1.0, 0.0)
+    return i0, w0, i1, w1
+
+
+def bspline_sample(coeffs, rows, cols):
+    """Evaluate cubic B-splines at fractional indices: 16 taps per sample.
+
+    ``coeffs`` (B, H, W) from :func:`bspline_prefilter_2d`; ``rows`` and
+    ``cols`` (B, Q). Returns (B, Q).
+    """
+    B, H, W = coeffs.shape
+    flat = coeffs.reshape(B, H * W)
+    rb = torch.floor(rows)
+    cb = torch.floor(cols)
+    wr = _cubic_bspline_weights(rows - rb)
+    wc = _cubic_bspline_weights(cols - cb)
+    rb = rb.long()
+    cb = cb.long()
+
+    def tap(r, c):
+        return flat.gather(1, r * W + c)
+
+    out = torch.zeros_like(rows)
+    for dr in range(4):
+        ri0, rw0, ri1, rw1 = _natural_index(rb + (dr - 1), H)
+        for dc in range(4):
+            ci0, cw0, ci1, cw1 = _natural_index(cb + (dc - 1), W)
+            val = (
+                rw0 * cw0 * tap(ri0, ci0)
+                + rw0 * cw1 * tap(ri0, ci1)
+                + rw1 * cw0 * tap(ri1, ci0)
+                + rw1 * cw1 * tap(ri1, ci1)
+            )
+            out = out + wr[dr] * wc[dc] * val
+    return out

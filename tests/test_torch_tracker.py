@@ -1,0 +1,155 @@
+"""The port's batched tracker in lockstep with the reference's, on the CPU.
+
+Both trackers get the same scene, motion and injected draws. The reference
+runs its XLA high-pass (bit-equal to its Pallas one) and its merge-rank
+resample (ties to the right, the port's to the left; no threshold lands on
+a slot in these runs). What differs is float32 rounding in sums and
+transcendental functions, so the first step is held to 1e-3 and the
+trajectory to 1e-2, the tolerance of the reference's own Pallas-against-XLA
+test (tests/test_batch_tracker.py:141).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+from glimpse_tpu.track import batch as jax_batch
+from glimpse_tpu_torch.track import batch, convert
+from test_batch_tracker import make_motion, make_scene
+
+N, P, T = 8, 256, 6
+SIZES = dict(template_size=(15, 15), search_size=(41, 41))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    cam, frames, _ = make_scene(n_frames=T, velocity=(2.0, 1.0))
+    points_xy = np.random.default_rng(1).uniform(180, 320, size=(N, 2))
+    rng = np.random.default_rng(5)
+    noise = {
+        "init": {
+            "xy": rng.normal(size=(N, P, 2)).astype(np.float32),
+            "v": rng.normal(size=(N, P, 3)).astype(np.float32),
+        },
+        "a": rng.normal(size=(T - 1, N, P, 3)).astype(np.float32),
+        "resample_u": rng.random((T - 1, N)).astype(np.float32),
+    }
+    jax_motion = make_motion(points_xy)
+    reference = jax_batch.BatchTracker(
+        cam.to_array()[None], [None], [0.15], jax_motion, jax_batch.BatchConfig(n_particles=P, **SIZES)
+    )
+    port = batch.BatchTracker(
+        cam.to_array()[None], [None], [0.15],
+        convert.motion_from_numpy(dataclasses.asdict(jax_motion), "cpu"),
+        batch.BatchConfig(n_particles=P, **SIZES),
+    )
+    return frames[:, None], noise, reference, port
+
+
+def test_track_lockstep_with_reference(scene) -> None:
+    images, noise, reference, port = scene
+    dts = np.ones(T - 1)
+    ref_state, ref_out = reference.track(jax.random.PRNGKey(0), images, dts, noise=noise)
+    state, out = port.track(torch.Generator().manual_seed(0), images, dts, noise=noise)
+    ref_mean = np.asarray(ref_out["mean"])
+    mean = out["mean"].numpy()
+    assert mean.shape == (T - 1, N, 6)
+    np.testing.assert_allclose(state.templates.numpy(), np.asarray(ref_state.templates), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(state.template_table.numpy(), np.asarray(ref_state.template_table), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(state.template_duv.numpy(), np.asarray(ref_state.template_duv), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(mean[0], ref_mean[0], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(mean, ref_mean, atol=1e-2, rtol=0)
+    np.testing.assert_allclose(out["sigma"].numpy(), np.asarray(ref_out["sigma"]), atol=1e-2, rtol=0)
+    np.testing.assert_array_equal(out["valid"].numpy(), np.asarray(ref_out["valid"]))
+
+
+def test_step_from_carried_reference_state(scene) -> None:
+    """One step from the reference's own initial state, carried across by
+    convert.state_from_numpy: the same moments, resampled particles and
+    weights."""
+    images, noise, reference, port = scene
+    ref_state = jax.jit(reference.initialize)(jax.random.PRNGKey(0), images[0], noise=noise["init"])
+    step_noise = {"a": noise["a"][0], "resample_u": noise["resample_u"][0]}
+    ref_next, ref_out = jax.jit(reference.step)(ref_state, images[1], np.float32(1.0), noise=step_noise)
+    leaves = {f.name: np.asarray(getattr(ref_state, f.name)) for f in dataclasses.fields(ref_state) if f.name != "key"}
+    state = convert.state_from_numpy(**leaves, device="cpu")
+    nxt, out = port.step(state, torch.from_numpy(images[1]), torch.tensor(1.0), noise=step_noise)
+    np.testing.assert_allclose(out["mean"].numpy(), np.asarray(ref_out["mean"]), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(nxt.particles.numpy(), np.asarray(ref_next.particles), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(nxt.weights.numpy(), np.asarray(ref_next.weights), rtol=1e-3, atol=1e-30)
+    assert nxt.step == 1
+
+
+def test_port_recovers_velocity() -> None:
+    """Without injected draws, the port recovers a known texture velocity
+    (as tests/test_batch_tracker.py:82-93 asks of the reference)."""
+    velocity = (2.0, 1.0)
+    cam, frames, _ = make_scene(n_frames=6, velocity=velocity)
+    points_xy = np.random.default_rng(1).uniform(180, 320, size=(8, 2))
+    motion = convert.motion_from_numpy(dataclasses.asdict(make_motion(points_xy)), "cpu")
+    tracker = batch.BatchTracker(
+        cam.to_array()[None], [None], [0.15], motion, batch.BatchConfig(n_particles=512, **SIZES)
+    )
+    _, out = tracker.track(torch.Generator().manual_seed(0), frames[:, None], np.ones(5))
+    means = out["mean"].numpy()
+    sigmas = out["sigma"].numpy()
+    assert np.median(np.abs(means[-1, :, 3:5] - np.asarray(velocity))) < 0.5, means[-1, :, 3:5]
+    dx = means[-1, :, 0] - points_xy[:, 0]
+    assert np.median(np.abs(dx - velocity[0] * 5)) < 2.0, dx
+    assert np.median(sigmas[-1, :, 0]) < 1.5
+
+
+def test_motion_with_dem_sigma_matches_reference() -> None:
+    """initialize (with "z" draws), evolve and the DEM-distance prior on a
+    sloped DEM with a DEM sigma, against the reference: the same float32
+    operations in the same order, so within a few ulps (rtol 1e-6)."""
+    rng = np.random.default_rng(7)
+    n, p = 6, 64
+    yy, xx = np.mgrid[0:20, 0:30]
+    raster = dict(x0=np.float32(0.0), y0=np.float32(200.0), dx=np.float32(10.0), dy=np.float32(-10.0))
+    dem = dict(array=(0.5 * xx + 0.2 * yy + rng.normal(size=xx.shape)).astype(np.float32), **raster)
+    dem_sigma = dict(array=rng.uniform(0.5, 2.0, xx.shape).astype(np.float32), **raster)
+    fields = dict(
+        kind="cartesian",
+        xy=np.column_stack([rng.uniform(50, 250, n), rng.uniform(50, 150, n)]).astype(np.float32),
+        xy_sigma=np.full((n, 2), 3.0, np.float32),
+        v_mean=rng.normal(size=(n, 3)).astype(np.float32),
+        v_sigma=np.full((n, 3), 0.5, np.float32),
+        a_mean=np.zeros((n, 3), np.float32),
+        a_sigma=np.full((n, 3), 0.1, np.float32),
+        slope_sigma=np.zeros(n, np.float32),
+        use_dem_sigma=True,
+    )
+    reference = jax_batch.BatchMotion(
+        dem=jax_batch.DeviceRaster(**dem), dem_sigma=jax_batch.DeviceRaster(**dem_sigma), **fields
+    )
+    port = convert.motion_from_numpy(dict(fields, dem=dem, dem_sigma=dem_sigma), "cpu")
+    init = {k: rng.normal(size=(n, p) + s).astype(np.float32) for k, s in (("xy", (2,)), ("z", ()), ("v", (3,)))}
+    a = rng.normal(size=(n, p, 3)).astype(np.float32)
+    ref_particles = reference.initialize(jax.random.PRNGKey(0), p, noise=init)
+    particles = port.initialize(None, p, noise=init)
+    np.testing.assert_allclose(particles.numpy(), np.asarray(ref_particles), atol=0, rtol=1e-6)
+    ref_evolved = reference.evolve(jax.random.PRNGKey(1), ref_particles, np.float32(2.0), noise={"a": a})
+    evolved = port.evolve(None, particles, torch.tensor(2.0), noise={"a": a})
+    np.testing.assert_allclose(evolved.numpy(), np.asarray(ref_evolved), atol=0, rtol=1e-6)
+    ll = port.log_likelihoods(evolved).numpy()
+    assert (ll > 0).all()
+    np.testing.assert_allclose(ll, np.asarray(reference.log_likelihoods(ref_evolved)), atol=0, rtol=1e-6)
+
+
+def test_config_refuses_unported_settings() -> None:
+    for settings in [
+        dict(interpolation_order=1), dict(resample_method="residual"),
+        dict(resample_threshold=0.5), dict(dtype=torch.bfloat16),
+    ]:
+        with pytest.raises(NotImplementedError):
+            batch.BatchConfig(**settings)
+    with pytest.raises(ValueError):
+        batch.BatchConfig(highpass_size=(4, 5))
+    motion = make_motion(np.zeros((2, 2)))
+    leaves = dataclasses.asdict(motion) | {"kind": "cylindrical"}
+    with pytest.raises(NotImplementedError):
+        convert.motion_from_numpy(leaves, "cpu")
