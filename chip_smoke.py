@@ -19,11 +19,25 @@ each:
    for 10 steps (best of two passes after a warm-up);
 7. the same small run on the card and on the CPU with the same injected
    draws: each step from a shared state within 1e-3, the free runs within
-   the bounds stated there.
+   the bounds stated there;
+8. the Columbia-scale recipe of ``benchmarks/columbia_scale.py`` at full
+   width: 10,240 points x 2,048 particles, two observers (the second
+   starting late at step 10 and masked on every 7th step after that), a
+   viewshed test on every step, 33 frames made on the host as
+   ``track_stream(chunk=8)`` consumes them; a warm-up pass, then the best
+   of two timed passes, in each of which the high-pass must launch once per
+   step plus the templates and the resample once per step; the final RMSE
+   against the scene's truth at most 0.5 px;
+9. the new paths on the card against the CPU, 16 x 256 x 8: two observers,
+   the second late and masked, viewshed, ``resample_threshold=0.5`` and
+   covariances, with the same injected draws; bounds as phase 7;
+10. a checkpoint on the card: save after step 3, load, run 3 more steps;
+    outputs and particles bit-equal to the uninterrupted run.
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
 """
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -83,20 +97,94 @@ def make_scene(n_frames: int, img: int = 512, seed: int = 0):
     return frames, camera, rng
 
 
-def make_tracker(camera, points_xy, n_particles, device):
+COLUMBIA_IMG = 512
+COLUMBIA_VELOCITY = (0.06, 0.04)  # px per frame, (cols, rows)
+COLUMBIA_OFFSETS = ((0, 0), (5, 3))  # each observer's extra crop offset, (rows, cols)
+
+
+def columbia_scene(n_frames: int, seed: int = 0):
+    """benchmarks/columbia_scale.py's scene with two observers, rebuilt on
+    numpy: a smooth random canvas cropped bilinearly, moving 0.06 px right
+    and 0.04 px down per frame; observer 2 crops it 5 rows and 3 columns
+    further, its principal point c = (-3, -5) absorbing the offset, so both
+    see the same world track. Nadir cameras at 1 px per world unit; an
+    all-visible 64x64 viewshed over three times the canvas.
+
+    Returns (frame(i) -> (2, 512, 512) float32, camera vectors (2, 20),
+    viewshed fields, the generator that drew the canvas)."""
+    import scipy.ndimage
+
+    img = COLUMBIA_IMG
+    vx, vy = COLUMBIA_VELOCITY
+    rng = np.random.default_rng(seed)
+    pad = int(np.ceil(max(abs(vx), abs(vy)) * n_frames)) + 8
+    canvas = scipy.ndimage.gaussian_filter(rng.normal(size=(img + pad, img + pad)), 0.8).astype(np.float32) * 100
+
+    def crop(r0: float, c0: float) -> np.ndarray:
+        ri, ci = int(np.floor(r0)), int(np.floor(c0))
+        fr, fc = r0 - ri, c0 - ci
+        win = canvas[ri : ri + img + 1, ci : ci + img + 1]
+        top = win[:-1, :-1] * (1 - fc) + win[:-1, 1:] * fc
+        bot = win[1:, :-1] * (1 - fc) + win[1:, 1:] * fc
+        return top * (1 - fr) + bot * fr
+
+    def frame(i: int) -> np.ndarray:
+        return np.stack([crop(vy * i + dr, vx * i + dc) for dr, dc in COLUMBIA_OFFSETS]).astype(np.float32)
+
+    cams = np.zeros((len(COLUMBIA_OFFSETS), 20), np.float32)
+    for o, (dr, dc) in enumerate(COLUMBIA_OFFSETS):
+        cams[o, 0:3] = (img / 2, img / 2, img)  # xyz
+        cams[o, 3:6] = (0, -90, 0)  # viewdir: looking straight down
+        cams[o, 6:8] = (img, img)  # imgsz
+        cams[o, 8:10] = (img, img)  # f
+        cams[o, 10:12] = (-dc, -dr)  # c
+    side = img + pad
+    viewshed = {
+        "array": np.ones((64, 64), np.float32), "x0": -side, "y0": 2 * side,
+        "dx": 3 * side / 64, "dy": -3 * side / 64,
+    }
+    return frame, cams, viewshed, rng
+
+
+def columbia_masks(n_steps: int, first: int, every: int):
+    """(obs_masks (n_steps, 2), obs_mask0 (2,)): observer 2 has no image at
+    the template frame, fires first at step ``first`` (1-based) and misses
+    every ``every``-th step after that."""
+    masks = np.ones((n_steps, 2), np.float32)
+    masks[: first - 1, 1] = 0.0
+    masks[first - 1 + every :: every, 1] = 0.0
+    return masks, np.array([1.0, 0.0], np.float32)
+
+
+def columbia_tracker(cams, viewshed, points_xy, n_particles, device, **settings):
+    """columbia_scale.py's tracker: cartesian motion on a flat DEM, 15x15
+    templates, 31x31 search boxes, sigma 0.3 px per observer, the viewshed
+    test on."""
     from glimpse_tpu_torch.track import batch, convert
+
+    motion = cartesian_motion(points_xy, 1.0, (0.5, 0.5, 0.0), (0.05, 0.05, 0.0), device)
+    config = batch.BatchConfig(n_particles=n_particles, template_size=(15, 15), search_size=(31, 31), **settings)
+    return batch.BatchTracker(
+        cams, [None] * len(cams), [0.3] * len(cams), motion, config, device=device,
+        viewshed=convert.raster_from_numpy(viewshed, device),
+    )
+
+
+def cartesian_motion(points_xy, xy_sigma, v_sigma, a_sigma, device):
+    """Cartesian motion from rest on a flat DEM at z = 0, without a DEM sigma."""
+    from glimpse_tpu_torch.track import convert
 
     n = len(points_xy)
     dem = {"array": [[0.0]], "x0": 0.0, "y0": 0.0, "dx": 1e30, "dy": 1e30}
-    motion = convert.motion_from_numpy(
+    return convert.motion_from_numpy(
         {
             "kind": "cartesian",
             "xy": points_xy,
-            "xy_sigma": np.full((n, 2), 1.5),
+            "xy_sigma": np.full((n, 2), xy_sigma),
             "v_mean": np.zeros((n, 3)),
-            "v_sigma": np.tile([3.0, 3.0, 0.0], (n, 1)),
+            "v_sigma": np.tile(v_sigma, (n, 1)),
             "a_mean": np.zeros((n, 3)),
-            "a_sigma": np.tile([0.2, 0.2, 0.0], (n, 1)),
+            "a_sigma": np.tile(a_sigma, (n, 1)),
             "slope_sigma": np.zeros(n),
             "dem": dem,
             "dem_sigma": dem,
@@ -104,6 +192,12 @@ def make_tracker(camera, points_xy, n_particles, device):
         },
         device,
     )
+
+
+def make_tracker(camera, points_xy, n_particles, device):
+    from glimpse_tpu_torch.track import batch
+
+    motion = cartesian_motion(points_xy, 1.5, (3.0, 3.0, 0.0), (0.2, 0.2, 0.0), device)
     config = batch.BatchConfig(
         n_particles=n_particles, template_size=(15, 15), search_size=(41, 41)
     )
@@ -146,21 +240,27 @@ def main() -> None:
         flush=True,
     )
 
-    # Phase 2: build from the checkout's sources.
-    built = {}
-    for name in ("highpass", "resample"):
+    # Phase 2: build from the checkout's sources, one nvcc per source, all at once.
+    def build(name):
         start = time.perf_counter()
         _build.load(name)
         seconds = time.perf_counter() - start
         log = _build.library_path(name).with_suffix(".log")
         registers = re.findall(r"Used (\d+) registers", log.read_text()) if log.exists() else []
-        built[name] = f"{seconds:.1f} s, registers {'/'.join(registers) or 'cached'}"
+        return f"{seconds:.1f} s, registers {'/'.join(registers) or 'cached'}"
+
+    names = ("highpass", "resample")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build, names)))
     print("phase 2 build: " + "; ".join(f"{k} {v}" for k, v in built.items()), flush=True)
 
     # Phase 3: the high-pass kernel at the main path's shapes (search tiles
     # every step, templates once), plus 3x3 and 7x7 taps.
     rng = np.random.default_rng(1)
-    cases = [((1024, 41, 41), (5, 5)), ((1024, 15, 15), (5, 5)), ((1024, 41, 41), (3, 3)), ((1024, 41, 41), (7, 7))]
+    cases = [
+        ((1024, 41, 41), (5, 5)), ((1024, 15, 15), (5, 5)), ((1024, 41, 41), (3, 3)), ((1024, 41, 41), (7, 7)),
+        ((20480, 31, 31), (5, 5)),  # phase 8's stacked search tiles: 2 observers x 10,240 points
+    ]
     hp_err = 0.0
     hp_times = {}
     for shape, size in cases:
@@ -313,21 +413,161 @@ def main() -> None:
         flush=True,
     )
 
-    main_hp = hp_times[((1024, 41, 41), (5, 5))]
-    main_rs = rs_times[(1024, 1024)]
+    # Phase 8: the Columbia-scale recipe at full width, frames made on the
+    # host while the card steps.
+    from glimpse_tpu_torch.track import checkpoint
+
+    n8, p8, t8, chunk = 10240, 2048, 33, 8
+    frame, cams, viewshed, columbia_rng = columbia_scene(t8)
+    starts = columbia_rng.uniform(COLUMBIA_IMG // 4, COLUMBIA_IMG - COLUMBIA_IMG // 4, size=(n8, 2))
+    masks8, mask0 = columbia_masks(t8 - 1, first=10, every=7)
+    columbia = columbia_tracker(cams, viewshed, starts, p8, cuda)
+
+    def stream(seed):
+        generator = torch.Generator(device=cuda).manual_seed(seed)
+        start = time.perf_counter()
+        state, outputs = columbia.track_stream(
+            generator, frame(0), (frame(i) for i in range(1, t8)), np.ones(t8 - 1, np.float32),
+            obs_masks=masks8, obs_mask0=mask0, chunk=chunk,
+        )
+        torch.cuda.synchronize()
+        return outputs, time.perf_counter() - start
+
+    stream(0)
+    torch.cuda.reset_peak_memory_stats()
+    seconds8 = float("inf")
+    for seed in (1, 2):
+        median_highpass.launches = 0
+        systematic_resample.launches = 0
+        outputs8, elapsed = stream(seed)
+        launches8 = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
+        # One high-pass per step for both observers' stacked tiles, plus
+        # observer 1's templates at the start and observer 2's at step 10.
+        if launches8["median_highpass"] < t8 - 1 + 2 or launches8["systematic_resample"] != t8 - 1:
+            raise AssertionError(f"the kernels did not carry the Columbia run: launches {launches8}")
+        seconds8 = min(seconds8, elapsed)
+    peak8 = torch.cuda.max_memory_allocated()
+    mean8 = torch.cat([o["mean"] for o in outputs8]).cpu().numpy()
+    valid8 = torch.cat([o["valid"] for o in outputs8]).cpu().numpy()
+    if mean8.shape != (t8 - 1, n8, 6) or not np.isfinite(mean8).all():
+        raise AssertionError(f"Columbia means: shape {mean8.shape}, finite {np.isfinite(mean8).all()}")
+    if not (valid8 == 1).all():
+        raise AssertionError("a point left the all-visible viewshed")
+    # The canvas moves +v in the crop, so features move -vx in x and, with
+    # image rows running against world y, +vy in y.
+    truth = starts + np.array([-COLUMBIA_VELOCITY[0], COLUMBIA_VELOCITY[1]]) * (t8 - 1)
+    rmse8 = float(np.sqrt(np.mean(np.sum((mean8[-1, :, 0:2] - truth) ** 2, axis=-1))))
+    if rmse8 > 0.5:
+        raise AssertionError(f"Columbia final RMSE {rmse8} px is above 0.5 px")
+    print(
+        f"phase 8 columbia {n8}x{p8}x2 observers x{t8 - 1} steps streamed (chunk {chunk}, viewshed on):"
+        f" {n8 * (t8 - 1) / seconds8:.1f} point-steps/s ({seconds8:.3f} s), peak {peak8 / 2**30:.2f} GiB,"
+        f" final RMSE {rmse8:.4f} px, launches {launches8}, {len(outputs8)} output entries",
+        flush=True,
+    )
+
+    # Phase 9: the new paths, card against CPU with the same injected draws.
+    n9, p9, t9 = 16, 256, 9
+    frames9 = np.stack([frame(i) for i in range(t9)])
+    masks9, mask0_9 = columbia_masks(t9 - 1, first=3, every=3)
+    draws = np.random.default_rng(4)
+    noise9 = {
+        "init": {
+            "xy": draws.normal(size=(n9, p9, 2)).astype(np.float32),
+            "v": draws.normal(size=(n9, p9, 3)).astype(np.float32),
+        },
+        "a": draws.normal(size=(t9 - 1, n9, p9, 3)).astype(np.float32),
+        "resample_u": draws.random((t9 - 1, n9)).astype(np.float32),
+    }
+    settings9 = dict(resample_threshold=0.5, return_covariances=True)
+    small9 = {k: columbia_tracker(cams, viewshed, starts[:n9], p9, d, **settings9) for k, d in devices.items()}
+    images9 = {k: torch.from_numpy(frames9).to(d) for k, d in devices.items()}
+    free9 = {}
+    for kind, tracker_ in small9.items():
+        generator = torch.Generator(device=tracker_.device).manual_seed(0)
+        dts = torch.ones(t9 - 1, device=tracker_.device)
+        out9 = tracker_.track(generator, images9[kind], dts, noise=noise9, obs_masks=masks9, obs_mask0=mask0_9)[1]
+        free9[kind] = {k: v.cpu().numpy() for k, v in out9.items()}
+    _, plan9 = small9["cpu"]._template_plan(masks9, mask0_9)
+    state = small9["cpu"].initialize(torch.Generator().manual_seed(0), images9["cpu"][0], noise=noise9["init"], obs_mask0=mask0_9)
+    carried9 = 0.0
+    for i in range(t9 - 1):
+        kwargs = dict(
+            noise={"a": noise9["a"][i], "resample_u": noise9["resample_u"][i]}, obs_mask=masks9[i],
+            init_template_for=plan9.get(i + 1, ()),
+        )
+        on_card = dataclasses.replace(
+            state, generator=torch.Generator(device=cuda),
+            **{k: getattr(state, k).to(cuda) for k in ("particles", "weights", "templates", "template_table", "template_duv", "valid")},
+        )
+        _, card_out = small9["card"].step(on_card, images9["card"][i + 1], torch.tensor(1.0, device=cuda), **kwargs)
+        state, cpu_out = small9["cpu"].step(state, images9["cpu"][i + 1], torch.tensor(1.0), **kwargs)
+        if not torch.equal(card_out["valid"].cpu(), cpu_out["valid"]):
+            raise AssertionError(f"card and CPU validity differ at step {i + 1}")
+        carried9 = max(carried9, *(float((card_out[k].cpu() - cpu_out[k]).abs().max()) for k in ("mean", "sigma", "covariance")))
+    per_point9 = np.abs(free9["card"]["mean"] - free9["cpu"]["mean"]).max(axis=(0, 2))
+    step1_9 = float(np.abs(free9["card"]["mean"][0] - free9["cpu"]["mean"][0]).max())
+    if carried9 > 1e-3 or step1_9 > 1e-3 or np.median(per_point9) > 1e-2 or per_point9.max() > 0.5:
+        raise AssertionError(
+            f"card and CPU part on the new paths: carried steps {carried9}, free step 1 {step1_9},"
+            f" per point {per_point9.tolist()}"
+        )
+    print(
+        f"phase 9 lockstep {n9}x{p9}x{t9 - 1}, 2 observers (the second from step 3, masked at step 6),"
+        f" viewshed, resample_threshold 0.5, covariances: each step from a shared state max |diff| {carried9:.3g}"
+        f" (limit 1e-3); free runs step 1 {step1_9:.3g} (limit 1e-3), median point {np.median(per_point9):.3g}"
+        f" (limit 1e-2), worst point {per_point9.max():.3g} (limit 0.5)",
+        flush=True,
+    )
+
+    # Phase 10: checkpoint on the card, generator draws, resumed bit for bit.
+    card9 = small9["card"]
+
+    def steps(state, lo, hi):
+        outs = []
+        for i in range(lo, hi):
+            state, out = card9.step(
+                state, images9["card"][i + 1], torch.tensor(1.0, device=cuda), obs_mask=masks9[i],
+                init_template_for=plan9.get(i + 1, ()),
+            )
+            outs.append(out)
+        return state, outs
+
+    def fresh():
+        return card9.initialize(torch.Generator(device=cuda).manual_seed(7), images9["card"][0], obs_mask0=mask0_9)
+
+    whole, whole_outs = steps(fresh(), 0, 6)
+    half, _ = steps(fresh(), 0, 3)
+    path = os.path.join(REPO, "build", "chip_smoke", "state.npz")
+    checkpoint.save_state(half, path)
+    resumed, resumed_outs = steps(checkpoint.load_state(path), 3, 6)
+    equal = torch.equal(resumed.particles, whole.particles) and all(
+        torch.equal(a[k], b[k]) for a, b in zip(resumed_outs, whole_outs[3:]) for k in a
+    )
+    if not equal:
+        raise AssertionError("the run resumed from the checkpoint differs from the uninterrupted run")
+    print(
+        f"phase 10 checkpoint on {resumed.generator.device}: saved after step 3, resumed for 3 steps,"
+        " outputs and particles bit-equal to the uninterrupted run",
+        flush=True,
+    )
+
+    # The kernels at phase 8's shapes, with phase 8's launches.
+    main_hp = hp_times[((20480, 31, 31), (5, 5))]
+    main_rs = rs_times[(10240, 2048)]
     print(json.dumps({"kernels": [
         {
             "name": "median_highpass", "route": "cuda",
             "source": "glimpse_tpu_torch/csrc/highpass.cu",
             "replaces": "glimpse_tpu/kernels/highpass_pallas.py:95",
-            "launches": launches["median_highpass"], "max_abs_err": hp_err,
+            "launches": launches8["median_highpass"], "max_abs_err": hp_err,
             "ms": main_hp[0], "plain_ms": main_hp[1],
         },
         {
             "name": "systematic_resample", "route": "cuda",
             "source": "glimpse_tpu_torch/csrc/resample.cu",
             "replaces": "glimpse_tpu/kernels/resample_pallas.py:556",
-            "launches": launches["systematic_resample"], "max_abs_err": rs_err,
+            "launches": launches8["systematic_resample"], "max_abs_err": rs_err,
             "ms": main_rs[0], "plain_ms": main_rs[1],
         },
     ]}))

@@ -1,11 +1,18 @@
-"""Systematic particle resampling on tensors.
+"""Particle resampling on tensors: systematic, stratified, residual, choice.
 
-The counterpart of :func:`glimpse_tpu.ops.resampling.systematic_jax`, in the
-threshold form the resample kernel takes: with ``t = P * cumsum(w / sum(w))
-- u``, particle slot j draws source ``min(#{i : t[i] < j}, P - 1)``. The
-count is ``torch.searchsorted(t, j, side='left')``: a threshold equal to j
-does not count (left tie rule, as the TPU kernel's), where the reference's
-merge-rank search resolves such ties to the right.
+The counterparts of :mod:`glimpse_tpu.ops.resampling`'s JAX versions, batched
+over the points axis: weights (N, P) give source indices (N, P).
+
+Systematic resampling is in the threshold form the resample kernel takes:
+with ``t = P * cumsum(w / sum(w)) - u``, particle slot j draws source
+``min(#{i : t[i] < j}, P - 1)``. The count is ``torch.searchsorted(t, j,
+side='left')``: a threshold equal to j does not count (left tie rule, as the
+TPU kernel's), where the reference's merge-rank search resolves such ties to
+the right.
+
+The other three take their uniform draws ``u`` (N, P) explicitly, or draw
+them from a ``torch.Generator``, and search as the reference's merge rank
+does: ties to the right, clamped to P - 1.
 """
 import torch
 
@@ -31,3 +38,57 @@ def systematic_indices(t):
 def systematic(weights, u):
     """Systematic resampling indices (N, P) for comb offsets u (N,) in [0, 1)."""
     return systematic_indices(systematic_thresholds(weights, u))
+
+
+def _search_right(table, values):
+    """Insertion index of each value in its row of table, ties to the
+    right, clamped to [0, P - 1]: the reference's ``_batched_searchsorted``."""
+    P = table.shape[-1]
+    return torch.clamp(torch.searchsorted(table, values.contiguous(), side="right"), max=P - 1)
+
+
+def _uniforms(weights, u, generator):
+    if u is not None:
+        return u.to(device=weights.device, dtype=weights.dtype)
+    return torch.rand(weights.shape, generator=generator, device=weights.device, dtype=weights.dtype)
+
+
+def _normalized(weights):
+    return weights / torch.sum(weights, dim=-1, keepdim=True)
+
+
+def stratified(weights, u=None, generator=None):
+    """One uniform draw in each of P equal strata: slot j takes position
+    (j + u[j]) / P of the weights' cumulative distribution."""
+    P = weights.shape[-1]
+    u = _uniforms(weights, u, generator)
+    positions = (torch.arange(P, dtype=weights.dtype, device=weights.device) + u) / P
+    return _search_right(torch.cumsum(_normalized(weights), dim=-1), positions)
+
+
+def residual(weights, u=None, generator=None):
+    """Particle i is copied floor(P w_i) times, in order; the remaining
+    slots draw from the normalized residuals with uniforms u (N, P), slot j
+    with u[:, j]."""
+    P = weights.shape[-1]
+    w = _normalized(weights)
+    counts = torch.floor(P * w)
+    total = torch.sum(counts, dim=-1, keepdim=True)
+    slots = torch.arange(P, dtype=weights.dtype, device=weights.device)
+    # Slot k belongs to the first particle whose cumulative count exceeds k.
+    det_idx = _search_right(torch.cumsum(counts, dim=-1), slots.expand_as(w))
+    residuals = w * P - counts
+    res_sum = torch.sum(residuals, dim=-1, keepdim=True)
+    res = residuals / torch.where(res_sum > 0, res_sum, 1.0)
+    extra_idx = _search_right(torch.cumsum(res, dim=-1), _uniforms(weights, u, generator))
+    return torch.where(slots < total, det_idx, extra_idx)
+
+
+def choice(weights, u=None, generator=None):
+    """P independent draws from the weights. The draws are sorted first:
+    resampled particles are exchangeable, and the reference sorts them too."""
+    u = torch.sort(_uniforms(weights, u, generator), dim=-1).values
+    return _search_right(torch.cumsum(_normalized(weights), dim=-1), u)
+
+
+METHODS = {"stratified": stratified, "residual": residual, "choice": choice}

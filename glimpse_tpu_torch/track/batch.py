@@ -1,25 +1,31 @@
 """Batched particle-filter tracker on tensors: N points x P particles per step.
 
-The counterpart of :mod:`glimpse_tpu.track.batch` for one observer,
-cartesian motion and systematic resampling every step. One step:
+The counterpart of :mod:`glimpse_tpu.track.batch` on one device. One step:
 
-1. evolve the particles and latch each point's validity (all finite);
-2. project the particles through the camera and cut a search tile at each
-   point's weighted-mean projection;
-3. normalize the tile, match its histogram to the template's quantile table
-   and take the median high-pass (kernel ``median_highpass``);
-4. SSE map against the template, then the cubic B-spline of the SSE
-   surface at every particle gives its negative log likelihood;
-5. weights, moments, then systematic resampling (kernel
-   ``systematic_resample``).
+1. evolve the particles (cartesian, cylindrical, tangent or
+   tangent-cylindrical motion) and latch each point's validity (all finite,
+   and on visible viewshed cells when there is a viewshed);
+2. per observer, project the particles through its camera and cut a search
+   tile at each point's weighted-mean projection;
+3. on the (O*N) tiles stacked observer-major: normalize, match each tile's
+   histogram to its template's quantile table and take the median high-pass
+   (kernel ``median_highpass``, one launch for all observers);
+4. SSE map against the template, then the cubic B-spline (or bilinear
+   interpolation) of the SSE surface at every particle gives its negative
+   log likelihood; an observation mask zeroes the observers without an
+   image this step;
+5. weights (fresh each step, or accumulated under an effective-sample-size
+   threshold), moments, then resampling: systematic through the kernel
+   ``systematic_resample``, the other methods by a row gather.
 
 The time loop is a Python loop. Randomness comes from an explicit
 ``torch.Generator``; ``noise=`` takes injected draws with the reference's
-keys and shapes, so both packages can run in lockstep.
+keys and shapes, so both packages can run in lockstep. Nothing in a step
+waits for the device, so a host that streams frames runs ahead of it.
 """
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,16 +34,28 @@ from ..kernels.highpass import median_highpass
 from ..kernels.resample import systematic_resample
 from ..ops import imageproc, ncc, projection, resampling, sampling
 
+MOTION_KINDS = ("cartesian", "cylindrical", "tangent", "tangent_cylindrical")
+RESAMPLE_METHODS = ("systematic",) + tuple(resampling.METHODS)
+
 
 def _as_tensor(x, device) -> torch.Tensor:
     """A float32 tensor on ``device``; arrays are copied (JAX hands over
     read-only ones)."""
+    if x is None:
+        raise TypeError("expected an array, got None")
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
 
 
-# ---- Device raster (DEM) ---- #
+def _host_flags(mask) -> Tuple[bool, ...]:
+    """A mask (O,) read on the host as a tuple of bools (nonzero is True)."""
+    if isinstance(mask, torch.Tensor):
+        mask = mask.cpu().numpy()
+    return tuple(bool(v) for v in np.asarray(mask) > 0)
+
+
+# ---- Device raster (DEM, viewshed) ---- #
 
 
 @dataclasses.dataclass
@@ -80,23 +98,59 @@ class DeviceRaster:
         return DeviceRaster(*(getattr(self, f.name).to(device) for f in dataclasses.fields(self)))
 
 
+def _check_start_visible(viewshed: DeviceRaster, xy) -> None:
+    """Refuse points (N, 2) outside the viewshed's extent or on a cell that
+    is not visible (value <= 0). Runs on the host, once, as the reference's
+    ``Raster.sample(order=0)`` check does."""
+    array = viewshed.array.cpu().numpy()
+    x0, y0, dx, dy = (float(getattr(viewshed, k)) for k in ("x0", "y0", "dx", "dy"))
+    xy = xy.cpu().numpy().astype(np.float64)
+    H, W = array.shape
+    if (H, W) == (1, 1):
+        visible = np.full(len(xy), array[0, 0] > 0)
+    else:
+        xs, ys = sorted((x0, x0 + W * dx)), sorted((y0, y0 + H * dy))
+        inside = (xy[:, 0] >= xs[0]) & (xy[:, 0] <= xs[1]) & (xy[:, 1] >= ys[0]) & (xy[:, 1] <= ys[1])
+        if not inside.all():
+            raise ValueError(f"Points outside the viewshed raster: {np.flatnonzero(~inside).tolist()}")
+        cols = np.clip(np.floor((xy[:, 0] - x0) / dx).astype(np.int64), 0, W - 1)
+        rows = np.clip(np.floor((xy[:, 1] - y0) / dy).astype(np.int64), 0, H - 1)
+        visible = array[rows, cols] > 0
+    if not visible.all():
+        raise ValueError(f"Points on non-visible viewshed cells: {np.flatnonzero(~visible).tolist()}")
+
+
 # ---- Motion model ---- #
+
+
+def _zero_z(v):
+    """(..., 3) with the last component set to 0."""
+    return torch.cat([v[..., 0:2], torch.zeros_like(v[..., 2:3])], dim=-1)
+
+
+def _normal(noise, key, shape, generator, device):
+    """The injected draws ``noise[key]``, or standard normals from the generator."""
+    if noise.get(key) is not None:
+        return _as_tensor(noise[key], device)
+    return torch.randn(shape, generator=generator, device=device)
 
 
 @dataclasses.dataclass
 class BatchMotion:
-    """Per-point cartesian motion parameters for N points.
+    """Per-point motion parameters for N points, of one kind.
 
-    The reference's other kinds ('cylindrical', 'tangent',
-    'tangent_cylindrical') are not ported yet (ROADMAP.md, queue A).
+    ``cartesian`` draws velocities and accelerations in (x, y, z);
+    ``cylindrical`` in (speed, heading, z); the tangent kinds keep z on the
+    DEM plus an offset that takes a slope-scaled random walk, and have no
+    z velocity.
     """
 
     kind: str
     xy: torch.Tensor  # (N, 2) initial position means
     xy_sigma: torch.Tensor  # (N, 2)
-    v_mean: torch.Tensor  # (N, 3)
+    v_mean: torch.Tensor  # (N, 3) cartesian: vxyz; cylindrical: (vr, theta, vz)
     v_sigma: torch.Tensor  # (N, 3)
-    a_mean: torch.Tensor  # (N, 3)
+    a_mean: torch.Tensor  # (N, 3) accelerations, in the same convention
     a_sigma: torch.Tensor  # (N, 3)
     slope_sigma: torch.Tensor  # (N,) used by the tangent kinds only
     dem: DeviceRaster
@@ -104,15 +158,25 @@ class BatchMotion:
     use_dem_sigma: bool = True
 
     def __post_init__(self) -> None:
-        if self.kind != "cartesian":
-            raise NotImplementedError(
-                f"motion kind {self.kind!r} is not ported yet; glimpse_tpu_torch"
-                " runs kind='cartesian' (see ROADMAP.md, queue A)"
-            )
+        if self.kind not in MOTION_KINDS:
+            raise ValueError(f"motion kind must be one of {MOTION_KINDS}, got {self.kind!r}")
 
     @property
     def n_points(self) -> int:
         return self.xy.shape[0]
+
+    @property
+    def polar(self) -> bool:
+        return self.kind in ("cylindrical", "tangent_cylindrical")
+
+    @property
+    def tangent(self) -> bool:
+        return self.kind in ("tangent", "tangent_cylindrical")
+
+    @property
+    def informative(self) -> bool:
+        """Whether :meth:`log_likelihoods` can be nonzero."""
+        return self.kind in ("cartesian", "cylindrical") and self.use_dem_sigma
 
     def to(self, device) -> "BatchMotion":
         moved = {
@@ -128,36 +192,54 @@ class BatchMotion:
         N, P = self.n_points, n_particles
         noise = noise or {}
         device = self.xy.device
-
-        def normal(key, shape):
-            if noise.get(key) is not None:
-                return _as_tensor(noise[key], device)
-            return torch.randn(shape, generator=generator, device=device)
-
-        xy = self.xy[:, None, :] + self.xy_sigma[:, None, :] * normal("xy", (N, P, 2))
+        xy = self.xy[:, None, :] + self.xy_sigma[:, None, :] * _normal(noise, "xy", (N, P, 2), generator, device)
         z = self.dem.sample(xy)
         if self.use_dem_sigma:
-            z = z + self.dem_sigma.sample(xy) * normal("z", (N, P))
-        v = self.v_mean[:, None, :] + self.v_sigma[:, None, :] * normal("v", (N, P, 3))
+            z = z + self.dem_sigma.sample(xy) * _normal(noise, "z", (N, P), generator, device)
+        v = self.v_mean[:, None, :] + self.v_sigma[:, None, :] * _normal(noise, "v", (N, P, 3), generator, device)
+        if self.polar:
+            vx = v[..., 0] * torch.cos(v[..., 1])
+            vy = v[..., 0] * torch.sin(v[..., 1])
+            vz = v[..., 2] if self.kind == "cylindrical" else torch.zeros_like(vx)
+            v = torch.stack([vx, vy, vz], dim=-1)
+        if self.kind == "tangent":
+            v = _zero_z(v)
         return torch.cat([xy, z[..., None], v], dim=-1)
 
     def evolve(self, generator, particles, dt, noise=None):
-        """One motion step (N, P, 6) -> (N, P, 6); ``noise`` may inject "a" (N, P, 3)."""
+        """One motion step (N, P, 6) -> (N, P, 6); ``noise`` may inject "a"
+        (N, P, 3) and, for the tangent kinds, "zwalk" (N, P)."""
         noise = noise or {}
-        a_noise = noise.get("a")
-        if a_noise is None:
-            a_noise = torch.randn(
-                particles.shape[:2] + (3,), generator=generator, device=particles.device
-            )
-        a = self.a_mean[:, None, :] + self.a_sigma[:, None, :] * _as_tensor(a_noise, particles.device)
+        N, P = particles.shape[:2]
+        a_noise = _normal(noise, "a", (N, P, 3), generator, particles.device)
+        a = self.a_mean[:, None, :] + self.a_sigma[:, None, :] * a_noise
+        if self.polar:
+            # Radial and tangential acceleration about the current heading.
+            vx, vy = particles[..., 3], particles[..., 4]
+            vr = torch.sqrt(vx * vx + vy * vy)
+            vr_safe = torch.where(vr > 0, vr, 1.0)
+            ax = a[..., 0] * (vx / vr_safe) - vy * a[..., 1]
+            ay = a[..., 0] * (vy / vr_safe) + vx * a[..., 1]
+            az = a[..., 2] if self.kind == "cylindrical" else torch.zeros_like(ax)
+            a = torch.stack([ax, ay, az], dim=-1)
+        if self.tangent:
+            a = _zero_z(a)
         dxyz = dt * particles[..., 3:6] + 0.5 * a * dt ** 2
-        pos = particles[..., 0:3] + dxyz
         v = particles[..., 3:6] + dt * a
-        return torch.cat([pos, v], dim=-1)
+        if not self.tangent:
+            return torch.cat([particles[..., 0:3] + dxyz, v], dim=-1)
+        # The z offset from the DEM survives resampling: rebuild it from z.
+        z_offsets = particles[..., 2] - self.dem.sample(particles[..., 0:2])
+        step_len = torch.sqrt(torch.sum(dxyz[..., 0:2] ** 2, dim=-1))
+        walk = _normal(noise, "zwalk", (N, P), generator, particles.device)
+        z_offsets = z_offsets + self.slope_sigma[:, None] * walk * step_len
+        xy = particles[..., 0:2] + dxyz[..., 0:2]
+        z = self.dem.sample(xy) + z_offsets
+        return torch.cat([xy, z[..., None], v], dim=-1)
 
     def log_likelihoods(self, particles):
-        """DEM-distance prior (N, P), or zeros without a DEM sigma."""
-        if not self.use_dem_sigma:
+        """DEM-distance prior (N, P), or zeros where it does not apply."""
+        if not self.informative:
             return torch.zeros(particles.shape[:2], dtype=particles.dtype, device=particles.device)
         xy = particles[..., 0:2]
         z = self.dem.sample(xy)
@@ -174,8 +256,10 @@ class BatchMotion:
 class BatchConfig:
     """The settings of the batched tracker that change its results.
 
-    ``interpolation_order``, ``resample_method`` and ``resample_threshold``
-    take only the values of the ported path; ``dtype`` only float32, the
+    ``resample_threshold`` None resamples every step and overwrites the
+    weights with the step's likelihood; a fraction accumulates weights and
+    resamples only the points whose effective sample size falls below
+    ``resample_threshold * n_particles``. ``dtype`` takes only float32, the
     kernels' type.
     """
 
@@ -187,19 +271,18 @@ class BatchConfig:
     interpolation_order: int = 3
     resample_method: str = "systematic"
     resample_threshold: Optional[float] = None
+    return_covariances: bool = False
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self) -> None:
-        ported = {
-            "interpolation_order": 3, "resample_method": "systematic",
-            "resample_threshold": None, "dtype": torch.float32,
-        }
-        for name, value in ported.items():
-            if getattr(self, name) != value:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet; only"
-                    f" {value!r} (see ROADMAP.md, queue A)"
-                )
+        if self.dtype != torch.float32:
+            raise NotImplementedError(
+                f"dtype={self.dtype!r} is not ported yet; only torch.float32 (see ROADMAP.md)"
+            )
+        if self.resample_method not in RESAMPLE_METHODS:
+            raise ValueError(f"resample_method must be one of {RESAMPLE_METHODS}, got {self.resample_method!r}")
+        if self.interpolation_order not in (1, 3):
+            raise ValueError(f"interpolation_order must be 1 or 3, got {self.interpolation_order!r}")
         kh, kw = self.highpass_size
         if kh % 2 == 0 or kw % 2 == 0 or kh * kw > 49:
             raise ValueError(f"highpass_size takes odd taps, at most 49, got {self.highpass_size}")
@@ -218,15 +301,27 @@ class BatchState:
     template_table: torch.Tensor  # (O, N, K) quantile table of pre-highpass values
     template_duv: torch.Tensor  # (O, N, 2) subpixel offsets
     step: int
-    valid: torch.Tensor  # (N,) 1.0 while every particle of the point is finite
+    valid: torch.Tensor  # (N,) 1.0 while every particle of the point passes
 
 
 # ---- Observation ---- #
 
 
-def _particle_validity(particles):
-    """(N,) True where all of a point's particles are finite."""
-    return torch.isfinite(particles).flatten(1).all(dim=1)
+def _particle_validity(particles, viewshed: Optional[DeviceRaster] = None):
+    """(N,) True where all of a point's particles are finite and, with a
+    viewshed, lie on visible cells (nearest-cell sample > 0)."""
+    ok = torch.isfinite(particles).flatten(1).all(dim=1)
+    if viewshed is not None:
+        ok = ok & (viewshed.sample_nearest(particles[..., 0:2]) > 0).all(dim=-1)
+    return ok
+
+
+def _gather_rows(particles, weights, idx):
+    """Particles (N, P, 6) and weights (N, P) at source indices idx (N, P),
+    in one (N, P, 7) row gather."""
+    pw = torch.cat([particles, weights[..., None]], dim=-1)
+    pw = pw.gather(1, idx[..., None].expand(-1, -1, 7))
+    return pw[..., :6].contiguous(), pw[..., 6].contiguous()
 
 
 def _extract_tiles(image, corners, size: Tuple[int, int]):
@@ -251,11 +346,19 @@ def _quantile_taps(n: int, K: int, device):
     )
 
 
-def _template_quantile_index(n: int, K: int) -> np.ndarray:
+@functools.lru_cache(maxsize=8)
+def _template_quantile_index(n: int, K: int, device) -> torch.Tensor:
     """Sorted-value index of quantile (k + 0.5) / K, computed in float32 as
-    the reference does."""
+    the reference does; cached on the device."""
     q = (np.arange(K, dtype=np.float32) + np.float32(0.5)) * np.float32(n) / np.float32(K)
-    return np.clip(np.floor(q).astype(np.int64), 0, n - 1)
+    return torch.as_tensor(np.clip(np.floor(q).astype(np.int64), 0, n - 1)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _inverse_two_sigma_squared(sigmas: Tuple[float, ...], device) -> torch.Tensor:
+    """(O,) float32 1 / (2 sigma^2), each computed in float64 and rounded
+    once, as the reference does; cached on the device."""
+    return torch.tensor([1.0 / (2.0 * s ** 2) for s in sigmas], dtype=torch.float32).to(device)
 
 
 def _prepare_search_tiles(tiles, table, highpass_size):
@@ -283,17 +386,15 @@ def _prepare_template_tiles(tiles, highpass_size, n_quantiles: int):
     value at quantile (k + 0.5) / K.
     """
     N, h, w = tiles.shape
-    n = h * w
     t = imageproc.normalize(tiles, dim=(-2, -1), eps=1e-12)
-    values = torch.sort(t.reshape(N, n), dim=-1).values
-    idx = torch.as_tensor(_template_quantile_index(n, n_quantiles), device=tiles.device)
-    return median_highpass(t, highpass_size), values[:, idx]
+    values = torch.sort(t.reshape(N, h * w), dim=-1).values
+    return median_highpass(t, highpass_size), values[:, _template_quantile_index(h * w, n_quantiles, tiles.device)]
 
 
 def _project_and_extract(image, camera_vector, correction, particles, template_duv, w_norm,
                          cfg: BatchConfig):
-    """Project the particles, cut each point's search tile around its
-    weighted-mean projection.
+    """One observer's front end: project the particles, cut each point's
+    search tile around its weighted-mean projection.
 
     Returns (search tiles (N, sh, sw), fractional SSE-surface indices cols
     and rows (N, P)). A particle behind the camera projects far outside
@@ -322,32 +423,54 @@ def _project_and_extract(image, camera_vector, correction, particles, template_d
     return search, cols, rows
 
 
-def _sample_sse_surface(sse, rows_c, cols_c):
-    """Exact cubic B-spline of the SSE surfaces (B, oh, ow) at clamped indices (B, P)."""
+def _sample_sse_surface(sse, rows_c, cols_c, order: int = 3):
+    """SSE surfaces (B, oh, ow) at clamped indices (B, P): the exact cubic
+    B-spline (order 3) or bilinear interpolation (order 1)."""
+    if order == 1:
+        return torch.vmap(sampling.bilinear_sample)(sse, rows_c, cols_c)
     return sampling.bspline_sample(sampling.bspline_prefilter_2d(sse), rows_c, cols_c)
 
 
-def observer_log_likelihoods(image, camera_vector, correction, sigma, particles, templates,
-                             template_table, template_duv, weights, cfg: BatchConfig):
-    """Per-particle negative log likelihood (N, P) from one observer's image.
+def observer_log_likelihoods_multi(images, camera_vectors, corrections, sigmas, particles, templates,
+                                   template_table, template_duv, weights, cfg: BatchConfig,
+                                   obs_mask=None):
+    """Sum over observers of the per-particle negative log likelihood (N, P).
 
-    Particles whose SSE index falls outside the surface are clamped to it
-    and pay a quadratic distance penalty.
+    The front end (projection, search corners, tile extraction) runs per
+    observer; the tile pipeline (histogram match, high-pass, SSE, spline)
+    runs once on the (O*N) tiles stacked observer-major. Particles whose
+    SSE index falls outside the surface are clamped to it and pay a
+    quadratic distance penalty. ``obs_mask`` (O,) multiplies each observer's
+    term: 0 for an observer without an image this step.
+
+    Shapes: images (O, H, W), camera_vectors (O, 20), corrections and
+    sigmas of length O, templates (O, N, th, tw), template_table (O, N, K),
+    template_duv (O, N, 2).
     """
+    O = images.shape[0]
+    N, P = particles.shape[0], particles.shape[1]
     th, tw = cfg.template_size
     sh, sw = cfg.search_size
     oh, ow = sh - th + 1, sw - tw + 1
     w_norm = weights / torch.sum(weights, dim=-1, keepdim=True)
-    search, cols, rows = _project_and_extract(
-        image, camera_vector, correction, particles, template_duv, w_norm, cfg
-    )
-    search = _prepare_search_tiles(search, template_table, cfg.highpass_size)
-    sse = ncc.sse_map_batched(search, templates) * (1.0 / (th * tw))
+    fronts = [
+        _project_and_extract(
+            images[o], camera_vectors[o], corrections[o], particles, template_duv[o], w_norm, cfg
+        )
+        for o in range(O)
+    ]
+    search, cols, rows = (torch.cat(parts, dim=0) for parts in zip(*fronts))
+    search = _prepare_search_tiles(search, template_table.reshape(O * N, -1), cfg.highpass_size)
+    sse = ncc.sse_map_batched(search, templates.reshape(O * N, th, tw)) * (1.0 / (th * tw))
     cols_c = torch.clamp(cols, 0.0, ow - 1.0)
     rows_c = torch.clamp(rows, 0.0, oh - 1.0)
     oob_d2 = (cols - cols_c) ** 2 + (rows - rows_c) ** 2
-    sampled = _sample_sse_surface(sse, rows_c, cols_c)
-    return sampled * (1.0 / (2.0 * sigma ** 2)) + oob_d2
+    sampled = _sample_sse_surface(sse, rows_c, cols_c, cfg.interpolation_order)
+    inv_2s2 = _inverse_two_sigma_squared(tuple(float(s) for s in sigmas), particles.device)
+    ll = sampled.reshape(O, N, P) * inv_2s2[:, None, None] + oob_d2.reshape(O, N, P)
+    if obs_mask is not None:
+        ll = ll * obs_mask[:, None, None]
+    return torch.sum(ll, dim=0)
 
 
 def particle_moments(particles, weights):
@@ -359,6 +482,21 @@ def particle_moments(particles, weights):
     return mean, torch.sqrt(var)
 
 
+def particle_covariances(particles, weights):
+    """Weighted (biased) covariance over the particle axis: (N, 6, 6)."""
+    w = weights / torch.sum(weights, dim=-1, keepdim=True)
+    mean = torch.sum(particles * w[..., None], dim=-2)
+    centered = particles - mean[..., None, :]
+    return torch.einsum("npi,npj,np->nij", centered, centered, w)
+
+
+def masks_from_frame_table(frame_table) -> np.ndarray:
+    """Observation masks (T, O) float32 from a frame-index table (T, O) of
+    image-index-or-None: 1 where the observer has an image. Row 0 is the
+    template frame (``obs_mask0``); rows 1: are ``obs_masks``."""
+    return np.not_equal(np.asarray(frame_table, dtype=object), None).astype(np.float32)
+
+
 # ---- The tracker ---- #
 
 
@@ -366,27 +504,39 @@ class BatchTracker:
     """Track N points x P particles through an image sequence on one device.
 
     Arguments:
-        camera_vectors: (1, 20) camera vector of the one observer.
-        corrections: [None] or [(radius, refraction)].
-        sigmas: [expected pixel noise].
+        camera_vectors: (O, 20) camera vectors, one per observer.
+        corrections: per observer, None or (radius, refraction).
+        sigmas: per observer, the expected pixel noise.
         motion: :class:`BatchMotion`.
         config: :class:`BatchConfig`.
         device: where state, images and every step live.
+        viewshed: optional :class:`DeviceRaster` (see
+            ``convert.raster_from_numpy``); a point whose particles leave
+            its visible cells (value > 0) is marked invalid from that step
+            on. Every point must start inside it on a visible cell.
     """
 
     def __init__(self, camera_vectors, corrections, sigmas, motion: BatchMotion,
-                 config: BatchConfig = None, device="cpu") -> None:
+                 config: BatchConfig = None, device="cpu", viewshed: Optional[DeviceRaster] = None) -> None:
         self.device = torch.device(device)
         self.camera_vectors = _as_tensor(camera_vectors, self.device)
-        if self.camera_vectors.shape[0] != 1:
-            raise NotImplementedError(
-                "glimpse_tpu_torch tracks with one observer; more are not"
-                " ported yet (see ROADMAP.md, queue A)"
-            )
+        self.n_observers = self.camera_vectors.shape[0]
         self.corrections = list(corrections)
         self.sigmas = tuple(float(s) for s in sigmas)
+        if not len(self.corrections) == len(self.sigmas) == self.n_observers:
+            raise ValueError(
+                f"{self.n_observers} camera vectors need as many corrections and sigmas,"
+                f" got {len(self.corrections)} and {len(self.sigmas)}"
+            )
         self.motion = motion.to(self.device)
         self.config = config or BatchConfig()
+        self.viewshed = None
+        if viewshed is not None:
+            _check_start_visible(viewshed, motion.xy)
+            self.viewshed = viewshed.to(self.device)
+
+    def _cameras(self, camera_vectors):
+        return self.camera_vectors if camera_vectors is None else _as_tensor(camera_vectors, self.device)
 
     def _make_template(self, image, cam_vec, correction, xyz_mean):
         """Template tiles at each point's projected mean: (tiles (N, th, tw),
@@ -404,84 +554,270 @@ class BatchTracker:
         duv = uv - (corners.flip(-1).to(cfg.dtype) + offset)
         return hp, table, duv
 
-    def initialize(self, generator: torch.Generator, images0, noise=None) -> BatchState:
-        """Particles, uniform weights and templates from the first frame (O, H, W)."""
+    def initialize(self, generator: torch.Generator, images0, noise=None, camera_vectors=None,
+                   obs_mask0=None) -> BatchState:
+        """Particles, uniform weights and templates from the first frame (O, H, W).
+
+        ``camera_vectors`` (O, 20) overrides the constructor's cameras for
+        this frame. ``obs_mask0`` (O,) marks the observers with an image
+        here; the others start late, with zero templates, tables and
+        offsets until ``step(init_template_for=...)`` makes theirs.
+        """
         cfg = self.config
+        th, tw = cfg.template_size
+        cams = self._cameras(camera_vectors)
+        present = (True,) * self.n_observers if obs_mask0 is None else _host_flags(obs_mask0)
         particles = self.motion.initialize(generator, cfg.n_particles, noise=noise)
         N = particles.shape[0]
-        hp, table, duv = self._make_template(
-            images0[0], self.camera_vectors[0], self.corrections[0],
-            torch.mean(particles[..., 0:3], dim=1),
-        )
+        xyz_mean = torch.mean(particles[..., 0:3], dim=1)
+        templates, tables, duvs = [], [], []
+        for o in range(self.n_observers):
+            if present[o]:
+                hp, table, duv = self._make_template(images0[o], cams[o], self.corrections[o], xyz_mean)
+            else:
+                hp = torch.zeros((N, th, tw), dtype=cfg.dtype, device=self.device)
+                table = torch.zeros((N, cfg.n_quantiles), dtype=cfg.dtype, device=self.device)
+                duv = torch.zeros((N, 2), dtype=cfg.dtype, device=self.device)
+            templates.append(hp)
+            tables.append(table)
+            duvs.append(duv)
         return BatchState(
             particles=particles,
             weights=torch.ones((N, cfg.n_particles), dtype=cfg.dtype, device=self.device),
             generator=generator,
-            templates=hp[None],
-            template_table=table[None],
-            template_duv=duv[None],
+            templates=torch.stack(templates),
+            template_table=torch.stack(tables),
+            template_duv=torch.stack(duvs),
             step=0,
-            valid=_particle_validity(particles).to(cfg.dtype),
+            valid=_particle_validity(particles, self.viewshed).to(cfg.dtype),
         )
 
-    def step(self, state: BatchState, images, dt, noise=None) -> Tuple[BatchState, dict]:
-        """One update: evolve, weight by the observer, record moments, resample.
+    def step(self, state: BatchState, images, dt, noise=None, camera_vectors=None, obs_mask=None,
+             init_template_for: Sequence[int] = ()) -> Tuple[BatchState, dict]:
+        """One update: evolve, weight by the observers, record moments, resample.
 
-        ``images`` (O, H, W); ``dt`` the time step in motion time units;
-        ``noise`` may inject "a" (N, P, 3) and "resample_u" (N,). Returns
-        (new state, {"mean", "sigma", "valid"}).
+        Arguments:
+            images: (O, H, W), one frame per observer (masked ones may hold
+                anything finite).
+            dt: the time step in motion time units.
+            noise: may inject "a" (N, P, 3), "zwalk" (N, P) and
+                "resample_u": (N,) comb offsets for the systematic method,
+                (N, P) uniforms for the others.
+            camera_vectors: (O, 20) cameras for this frame.
+            obs_mask: (O,) 1 for an observer with an image this step, 0
+                without; with no informative term, the weights carry over.
+            init_template_for: observers whose template is cut from this
+                frame, at the weighted mean of the evolved particles, before
+                they weigh this step.
+
+        Returns (new state, {"mean", "sigma", "valid"} and, with
+        ``return_covariances``, "covariance").
         """
         cfg = self.config
         noise = noise or {}
         generator = state.generator
+        cams = self._cameras(camera_vectors)
         particles = self.motion.evolve(generator, state.particles, dt, noise=noise)
-        valid = state.valid * _particle_validity(particles).to(cfg.dtype)
-        ll = self.motion.log_likelihoods(particles) + observer_log_likelihoods(
-            images[0], self.camera_vectors[0], self.corrections[0], self.sigmas[0],
-            particles, state.templates[0], state.template_table[0],
-            state.template_duv[0], state.weights, cfg,
+        valid = state.valid * _particle_validity(particles, self.viewshed).to(cfg.dtype)
+        templates, template_table, template_duv = state.templates, state.template_table, state.template_duv
+        if init_template_for:
+            w_norm = state.weights / torch.sum(state.weights, dim=-1, keepdim=True)
+            xyz_mean = torch.sum(particles[..., 0:3] * w_norm[..., None], dim=1)
+            templates, template_table, template_duv = (
+                x.clone() for x in (templates, template_table, template_duv)
+            )
+            for o in init_template_for:
+                templates[o], template_table[o], template_duv[o] = self._make_template(
+                    images[o], cams[o], self.corrections[o], xyz_mean
+                )
+        if obs_mask is not None:
+            obs_mask = _as_tensor(obs_mask, self.device)
+        ll = self.motion.log_likelihoods(particles) + observer_log_likelihoods_multi(
+            images, cams, self.corrections, self.sigmas, particles, templates, template_table,
+            template_duv, state.weights, cfg, obs_mask=obs_mask,
         )
         # A per-point shift keeps exp() in range whatever the absolute scale.
         ll = ll - torch.min(ll, dim=-1, keepdim=True).values
-        weights = torch.exp(-ll) + 1e-30
-        # Moments come from the fresh likelihood weights, before resampling.
+        if cfg.resample_threshold is None:
+            weights = torch.exp(-ll) + 1e-30
+        else:
+            weights = state.weights * torch.exp(-ll) + 1e-30
+            weights = weights / torch.mean(weights, dim=-1, keepdim=True)
+        if obs_mask is not None and not self.motion.informative:
+            # No observer and no motion prior informed this step: carry the
+            # weights (a select, so the host does not wait for the mask).
+            weights = torch.where(torch.sum(obs_mask) > 0, weights, state.weights)
+        # Moments come from the fresh weights, before resampling.
         mean, sigma = particle_moments(particles, weights)
-        u = noise.get("resample_u")
-        if u is None:
-            u = torch.rand(particles.shape[0], generator=generator, device=particles.device)
-        t = resampling.systematic_thresholds(weights, _as_tensor(u, particles.device))
-        # The resampled weights are the gathered likelihood weights: they
-        # center the next step's search boxes.
-        particles, weights = systematic_resample(t, particles, weights)
+        outputs = {"mean": mean, "sigma": sigma, "valid": valid}
+        if cfg.return_covariances:
+            outputs["covariance"] = particle_covariances(particles, weights)
+        new_particles, new_weights = self._resample(generator, particles, weights, noise.get("resample_u"))
+        if cfg.resample_threshold is None:
+            # The resampled weights are the gathered likelihood weights:
+            # they center the next step's search boxes.
+            particles, weights = new_particles, new_weights
+        else:
+            # Only points whose effective sample size degraded take the
+            # resampled rows, with uniform weights.
+            ess = torch.sum(weights, dim=-1) ** 2 / torch.sum(weights * weights, dim=-1)
+            degraded = ess < cfg.resample_threshold * particles.shape[1]
+            particles = torch.where(degraded[:, None, None], new_particles, particles)
+            weights = torch.where(degraded[:, None], torch.ones_like(weights), weights)
         new_state = dataclasses.replace(
-            state, particles=particles, weights=weights, step=state.step + 1, valid=valid
+            state, particles=particles, weights=weights, templates=templates,
+            template_table=template_table, template_duv=template_duv, step=state.step + 1, valid=valid,
         )
-        return new_state, {"mean": mean, "sigma": sigma, "valid": valid}
+        return new_state, outputs
 
-    def track(self, generator: torch.Generator, images, dts, noise=None) -> Tuple[BatchState, dict]:
-        """Track through a sequence.
+    def _resample(self, generator, particles, weights, u=None):
+        """Resampled (particles, weights) of every point by the configured method."""
+        method = self.config.resample_method
+        if method == "systematic":
+            if u is None:
+                u = torch.rand(particles.shape[0], generator=generator, device=particles.device)
+            t = resampling.systematic_thresholds(weights, _as_tensor(u, particles.device))
+            return systematic_resample(t, particles, weights)
+        if u is not None:
+            u = _as_tensor(u, particles.device)
+        idx = resampling.METHODS[method](weights, u=u, generator=generator)
+        return _gather_rows(particles, weights, idx)
+
+    def _template_plan(self, obs_masks, obs_mask0):
+        """The late-template plan, from the host's masks.
+
+        Returns (mask0, {step: observers}): ``mask0`` the O flags of the
+        template frame, or None; each late observer's template is cut at
+        its first unmasked step (1-based, aligned with ``images[1:]``). An
+        observer that never fires keeps its zero template.
+        """
+        if obs_mask0 is None:
+            return None, {}
+        mask0 = _host_flags(obs_mask0)
+        if all(mask0):
+            return mask0, {}
+        if obs_masks is None:
+            raise ValueError("obs_mask0 marks late-starting observers but obs_masks was not provided")
+        if isinstance(obs_masks, torch.Tensor):
+            obs_masks = obs_masks.cpu().numpy()
+        masks = np.asarray(obs_masks) > 0
+        plan: dict = {}
+        for o, present in enumerate(mask0):
+            fires = np.flatnonzero(masks[:, o])
+            if not present and fires.size:
+                plan.setdefault(int(fires[0]) + 1, []).append(o)
+        return mask0, {b: tuple(obs) for b, obs in plan.items()}
+
+    def _empty_outputs(self, n_points: int) -> dict:
+        """Outputs with a leading time axis of 0."""
+        shapes = {"mean": (0, n_points, 6), "sigma": (0, n_points, 6), "valid": (0, n_points)}
+        if self.config.return_covariances:
+            shapes["covariance"] = (0, n_points, 6, 6)
+        return {k: torch.zeros(s, dtype=self.config.dtype, device=self.device) for k, s in shapes.items()}
+
+    def track(self, generator: torch.Generator, images, dts, noise=None, obs_masks=None,
+              obs_mask0=None) -> Tuple[BatchState, dict]:
+        """Track through a sequence held in device memory.
 
         Arguments:
             generator: source of every random draw not injected.
             images: (T, O, H, W); frame 0 makes the templates.
             dts: (T-1,) time steps in motion time units.
             noise: injected draws {"init": {"xy", "z", "v"}, "a": (T-1, N, P, 3),
-                "resample_u": (T-1, N)}, each optional.
+                "zwalk": (T-1, N, P), "resample_u": (T-1, N) or (T-1, N, P)},
+                each optional.
+            obs_masks: (T-1, O) flags, 0 for an observer without an image at
+                that step (see :func:`masks_from_frame_table`).
+            obs_mask0: (O,) flags of the template frame; an observer without
+                an image there starts late, its template cut at its first
+                unmasked step.
 
         Returns (final state, outputs) with outputs "mean" and "sigma"
-        (T-1, N, 6) and "valid" (T-1, N).
+        (T-1, N, 6), "valid" (T-1, N) and, with ``return_covariances``,
+        "covariance" (T-1, N, 6, 6).
         """
+        mask0, plan = self._template_plan(obs_masks, obs_mask0)
         images = _as_tensor(images, self.device)
         dts = _as_tensor(dts, self.device)
+        masks = None if obs_masks is None else _as_tensor(obs_masks, self.device)
         noise = noise or {}
         step_noise = {
-            k: _as_tensor(noise[k], self.device) for k in ("a", "resample_u") if k in noise
+            k: _as_tensor(noise[k], self.device) for k in ("a", "zwalk", "resample_u") if k in noise
         }
-        state = self.initialize(generator, images[0], noise=noise.get("init"))
+        state = self.initialize(generator, images[0], noise=noise.get("init"), obs_mask0=mask0)
         outs = []
         for i in range(dts.shape[0]):
             state, out = self.step(
-                state, images[1 + i], dts[i], noise={k: x[i] for k, x in step_noise.items()}
+                state, images[1 + i], dts[i], noise={k: x[i] for k, x in step_noise.items()},
+                obs_mask=None if masks is None else masks[i], init_template_for=plan.get(i + 1, ()),
             )
             outs.append(out)
+        if not outs:
+            return state, self._empty_outputs(state.particles.shape[0])
         return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def _upload(self, frames) -> torch.Tensor:
+        """Host frames, stacked, in one copy to the device (pinned and
+        asynchronous on a card)."""
+        host = torch.from_numpy(np.stack([np.asarray(f, dtype=np.float32) for f in frames]))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    def track_stream(self, generator: torch.Generator, first_frame, frame_iter, dts,
+                     camera_vectors_seq=None, obs_masks=None, obs_mask0=None,
+                     chunk: int = 1) -> Tuple[BatchState, list]:
+        """Track a sequence streamed from the host, frame by frame or chunk by chunk.
+
+        ``first_frame`` (O, H, W) makes the templates; ``frame_iter`` yields
+        the next frames (O, H, W) as host arrays, read as the steps need
+        them, so a sequence need not fit the device. ``camera_vectors_seq``
+        (T, O, 20) gives per-frame cameras (index 0 the template frame);
+        ``obs_masks`` (T-1, O) and ``obs_mask0`` (O,) are as in
+        :meth:`track`.
+
+        With ``chunk`` 1 the returned list holds one output dict per step.
+        With ``chunk`` > 1 the frames go to the device ``chunk`` at a time,
+        each chunk in one copy, and each entry covers a chunk with a leading
+        time axis; a chunk that holds a late observer's template step runs
+        step by step, each entry with a leading axis of 1.
+        """
+        mask0, plan = self._template_plan(obs_masks, obs_mask0)
+        dts = _as_tensor(dts, self.device)
+        n_steps = dts.shape[0]
+        cams = None if camera_vectors_seq is None else _as_tensor(camera_vectors_seq, self.device)
+        masks = None if obs_masks is None else _as_tensor(obs_masks, self.device)
+        state = self.initialize(
+            generator, self._upload([first_frame])[0],
+            camera_vectors=None if cams is None else cams[0], obs_mask0=mask0,
+        )
+
+        def one(state, t, frame):
+            return self.step(
+                state, frame, dts[t - 1], camera_vectors=None if cams is None else cams[t],
+                obs_mask=None if masks is None else masks[t - 1], init_template_for=plan.get(t, ()),
+            )
+
+        outputs = []
+        it = iter(frame_iter)
+        if chunk <= 1:
+            for t, frame in enumerate(it, start=1):
+                if t > n_steps:
+                    break
+                state, out = one(state, t, self._upload([frame])[0])
+                outputs.append(out)
+            return state, outputs
+        t = 1
+        while t <= n_steps:
+            t_end = min(t + chunk - 1, n_steps)
+            frames = self._upload([next(it) for _ in range(t_end - t + 1)])
+            outs = []
+            for k in range(len(frames)):
+                state, out = one(state, t + k, frames[k])
+                outs.append(out)
+            if any(b in plan for b in range(t, t_end + 1)):
+                outputs.extend({key: x[None] for key, x in out.items()} for out in outs)
+            else:
+                outputs.append({key: torch.stack([o[key] for o in outs]) for key in outs[0]})
+            t = t_end + 1
+        return state, outputs

@@ -4,7 +4,8 @@
 of arrays; handed over as numpy (for example ``dataclasses.asdict`` of a
 motion, arrays through ``numpy.asarray``), they become the port's objects
 here, so both packages can compute from the same state. Camera vectors pass
-through as (O, 20) float32 tensors.
+through as (O, 20) float32 tensors. A raster (DEM, DEM sigma or viewshed)
+is a mapping of its fields.
 """
 from typing import Mapping
 
@@ -20,7 +21,8 @@ def raster_from_numpy(leaves: Mapping, device) -> DeviceRaster:
 
 
 def motion_from_numpy(leaves: Mapping, device) -> BatchMotion:
-    """A :class:`BatchMotion` from the reference motion's fields.
+    """A :class:`BatchMotion` of any of the four kinds from the reference
+    motion's fields.
 
     ``dem`` and ``dem_sigma`` are mappings of raster fields (see
     :func:`raster_from_numpy`).
@@ -39,17 +41,23 @@ def state_from_numpy(particles, weights, templates, template_table, template_duv
                      valid, device, seed: int = 0) -> BatchState:
     """A :class:`BatchState` from the reference state's arrays.
 
-    The reference's PRNG key does not carry over: draws after this state come
+    ``valid`` None (a state from before the reference carried validity)
+    means every point valid, as the reference's step reads it. The
+    reference's PRNG key does not carry over: draws after this state come
     from a new ``torch.Generator`` seeded with ``seed``, unless injected.
     """
     device = torch.device(device)
+    particles = _tensor(particles, device)
     return BatchState(
-        particles=_tensor(particles, device),
+        particles=particles,
         weights=_tensor(weights, device),
         generator=torch.Generator(device=device).manual_seed(seed),
         templates=_tensor(templates, device),
         template_table=_tensor(template_table, device),
         template_duv=_tensor(template_duv, device),
         step=int(step),
-        valid=_tensor(valid, device),
+        valid=(
+            torch.ones(particles.shape[0], dtype=torch.float32, device=device)
+            if valid is None else _tensor(valid, device)
+        ),
     )

@@ -47,3 +47,61 @@ def test_resample_kernel_bit_exact(cuda, n, p) -> None:
     assert systematic_resample.launches == before + 1
     want = systematic_resample_plain(t, particles, weights)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_highpass_kernel_bit_exact_at_columbia_width(cuda) -> None:
+    """The stacked search tiles of two observers x 10,240 points, one launch."""
+    tiles = torch.from_numpy(np.random.default_rng(2).normal(size=(20480, 31, 31)).astype(np.float32)).to(cuda)
+    before = median_highpass.launches
+    got = median_highpass(tiles, (5, 5))
+    assert median_highpass.launches == before + 1
+    assert torch.equal(got, median_highpass_plain(tiles, (5, 5)))
+
+
+@pytest.mark.cuda
+def test_stream_equals_track_on_card(cuda) -> None:
+    """Two observers, the second late and masked, a viewshed and ESS
+    resampling: track_stream in chunks of 3 equals track bit for bit on the
+    card, and both kernels carry every step."""
+    import scipy.ndimage
+
+    from glimpse_tpu_torch.track import batch, convert
+
+    rng = np.random.default_rng(3)
+    T, size = 7, 128
+    base = scipy.ndimage.gaussian_filter(rng.normal(size=(size + 16, size + 16)), 0.8) * 100
+    frames = np.stack([[base[i : i + size, i : i + size], base[i + 2 : i + 2 + size, i : i + size]] for i in range(T)])
+    cam = np.zeros(20, np.float32)
+    cam[0:3], cam[3:6], cam[6:10] = (size / 2, size / 2, size), (0, -90, 0), size
+    flat = {"array": [[0.0]], "x0": 0.0, "y0": 0.0, "dx": 1e30, "dy": 1e30}
+    n = 6
+    motion = convert.motion_from_numpy(
+        {
+            "kind": "cartesian", "xy": rng.uniform(40, 88, size=(n, 2)), "xy_sigma": np.ones((n, 2)),
+            "v_mean": np.zeros((n, 3)), "v_sigma": np.tile([1.0, 1.0, 0.0], (n, 1)), "a_mean": np.zeros((n, 3)),
+            "a_sigma": np.tile([0.1, 0.1, 0.0], (n, 1)), "slope_sigma": np.zeros(n), "dem": flat, "dem_sigma": flat,
+            "use_dem_sigma": False,
+        },
+        cuda,
+    )
+    viewshed = convert.raster_from_numpy(
+        {"array": np.ones((8, 8)), "x0": -size, "y0": 2 * size, "dx": 3 * size / 8, "dy": -3 * size / 8}, cuda
+    )
+    config = batch.BatchConfig(n_particles=128, template_size=(11, 11), search_size=(25, 25), resample_threshold=0.5)
+    tracker = batch.BatchTracker(np.stack([cam, cam]), [None] * 2, [0.3] * 2, motion, config, device=cuda, viewshed=viewshed)
+    masks = np.ones((T - 1, 2), np.float32)
+    masks[[0, 3], 1] = 0.0
+    mask0 = np.array([1.0, 0.0])
+    before = (median_highpass.launches, systematic_resample.launches)
+    _, out = tracker.track(torch.Generator(device=cuda).manual_seed(0), frames, np.ones(T - 1), obs_masks=masks, obs_mask0=mask0)
+    assert median_highpass.launches - before[0] == T - 1 + 2
+    assert systematic_resample.launches - before[1] == T - 1
+    _, outputs = tracker.track_stream(
+        torch.Generator(device=cuda).manual_seed(0), frames[0], iter(frames[1:]), np.ones(T - 1),
+        obs_masks=masks, obs_mask0=mask0, chunk=3,
+    )
+    assert [len(o["mean"]) for o in outputs] == [1, 1, 1, 3]
+    for k in out:
+        assert torch.equal(torch.cat([o[k] for o in outputs]), out[k]), k
+    assert torch.isfinite(out["mean"]).all() and (out["valid"] == 1).all()

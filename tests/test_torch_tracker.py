@@ -141,15 +141,60 @@ def test_motion_with_dem_sigma_matches_reference() -> None:
 
 
 def test_config_refuses_unported_settings() -> None:
-    for settings in [
-        dict(interpolation_order=1), dict(resample_method="residual"),
-        dict(resample_threshold=0.5), dict(dtype=torch.bfloat16),
-    ]:
+    """What is still refused: any dtype but float32 (bfloat16 is a later
+    item). Values the reference refuses raise ValueError here too, and every
+    value it takes constructs."""
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
         with pytest.raises(NotImplementedError):
+            batch.BatchConfig(dtype=dtype)
+    for settings in [
+        dict(highpass_size=(4, 5)), dict(resample_method="multinomial"), dict(interpolation_order=2),
+    ]:
+        with pytest.raises(ValueError):
             batch.BatchConfig(**settings)
+    for method in ("systematic", "stratified", "residual", "choice"):
+        for order in (1, 3):
+            batch.BatchConfig(
+                resample_method=method, interpolation_order=order, resample_threshold=0.5, return_covariances=True
+            )
+    leaves = dataclasses.asdict(make_motion(np.zeros((2, 2))))
+    for kind in ("cartesian", "cylindrical", "tangent", "tangent_cylindrical"):
+        assert convert.motion_from_numpy(leaves | {"kind": kind}, "cpu").kind == kind
     with pytest.raises(ValueError):
-        batch.BatchConfig(highpass_size=(4, 5))
-    motion = make_motion(np.zeros((2, 2)))
-    leaves = dataclasses.asdict(motion) | {"kind": "cylindrical"}
-    with pytest.raises(NotImplementedError):
-        convert.motion_from_numpy(leaves, "cpu")
+        convert.motion_from_numpy(leaves | {"kind": "polar"}, "cpu")
+
+
+def test_state_without_validity_steps_as_valid(scene) -> None:
+    """A reference state with valid=None (a version-1 snapshot's) carries
+    across as all ones, and the step's validity equals the reference's, not
+    NaN."""
+    images, noise, reference, port = scene
+    ref_state = jax.jit(reference.initialize)(jax.random.PRNGKey(0), images[0], noise=noise["init"])
+    ref_state = dataclasses.replace(ref_state, valid=None)
+    step_noise = {"a": noise["a"][0], "resample_u": noise["resample_u"][0]}
+    _, ref_out = reference.step(ref_state, images[1], np.float32(1.0), noise=step_noise)
+    leaves = {
+        f.name: None if getattr(ref_state, f.name) is None else np.asarray(getattr(ref_state, f.name))
+        for f in dataclasses.fields(ref_state) if f.name != "key"
+    }
+    state = convert.state_from_numpy(**leaves, device="cpu")
+    np.testing.assert_array_equal(state.valid.numpy(), np.ones(N, np.float32))
+    _, out = port.step(state, torch.from_numpy(images[1]), torch.tensor(1.0), noise=step_noise)
+    np.testing.assert_array_equal(out["valid"].numpy(), np.asarray(ref_out["valid"]))
+    np.testing.assert_allclose(out["mean"].numpy(), np.asarray(ref_out["mean"]), atol=1e-3, rtol=0)
+
+
+def test_track_one_frame_returns_empty_outputs(scene) -> None:
+    """One frame: no step. The initial state comes back, with outputs whose
+    leading axis is 0, as the reference's zero-length scan gives."""
+    images, noise, reference, port = scene
+    init = {k: v for k, v in noise.items() if k == "init"}
+    ref_state, ref_out = reference.track(jax.random.PRNGKey(0), images[:1], np.ones(0), noise=init)
+    state, out = port.track(torch.Generator().manual_seed(0), images[:1], np.ones(0), noise=init)
+    assert state.step == 0
+    assert set(out) == set(ref_out)
+    for k in out:
+        assert tuple(out[k].shape) == np.asarray(ref_out[k]).shape, k
+    assert tuple(out["mean"].shape) == (0, N, 6) and tuple(out["valid"].shape) == (0, N)
+    np.testing.assert_allclose(state.particles.numpy(), np.asarray(ref_state.particles), atol=0, rtol=1e-6)
+    np.testing.assert_allclose(state.templates.numpy(), np.asarray(ref_state.templates), atol=1e-5, rtol=0)
