@@ -32,7 +32,19 @@ each:
    the second late and masked, viewshed, ``resample_threshold=0.5`` and
    covariances, with the same injected draws; bounds as phase 7;
 10. a checkpoint on the card: save after step 3, load, run 3 more steps;
-    outputs and particles bit-equal to the uninterrupted run.
+    outputs and particles bit-equal to the uninterrupted run;
+11. the stabilization recipe of ``benchmarks/columbia_pipeline.py`` at full
+    width: 1,000 frames of 512x512 rendered on the card (static terrain, a
+    moving glacier band, a camera wobbling by (0.1, 0.1, 0.03) deg), 2,048
+    keypoints a frame under the terrain mask, matching at offsets (1, 8, 64)
+    (ratio 0.75, at most 20 px), the device L-BFGS fit (frame 0 anchored),
+    correlation refinement of the matches and a second fit; every view
+    direction within 0.01 deg of the truth in both fits;
+12. each stabilization module on the card against the CPU at small size:
+    inverse projection through the three solvers within 1e-5; matching with
+    identical indices and ratios within 1e-5; at least 98 % of keypoints
+    within 1e-2 px, their descriptors within 1e-3; refinement within 1e-3
+    px; the fit within 2e-3 deg.
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
@@ -215,6 +227,271 @@ def run_tracker(tracker, frames, seed=0):
     _, out = tracker.track(generator, frames[:, None], dts)
     torch.cuda.synchronize()
     return out, time.perf_counter() - start
+
+
+STAB_IMG = 512
+STAB_CAM_XYZ = (256.0, -200.0, 400.0)
+STAB_VIEWDIR = (0.0, -35.0, 0.0)
+STAB_VELOCITY = (0.06, 0.04)  # the glacier band's motion, world units per frame
+STAB_BAND = (180.0, 360.0)  # the glacier band in world y
+STAB_JITTER = (0.1, 0.1, 0.03)  # per-frame view direction wobble, deg
+STAB_OFFSETS = (1, 8, 64)
+
+
+def stabilization_scene(n_frames: int, device, seed: int = 0):
+    """benchmarks/columbia_pipeline.py's scene, rendered on ``device``: a
+    textured plane (terrain) with a glacier band at world y 180-360 moving
+    (0.06, 0.04) per frame, seen from (256, -200, 400) looking down 35 deg
+    through a 512x512 camera with f = 512, whose view direction wobbles from
+    frame 1 on. Returns (frames (n, 512, 512) uint8 numpy, the true view
+    directions (n, 3), the nominal camera vector (20,), the terrain mask
+    (512, 512) uint8: 255 off the band, eroded 6 px)."""
+    import scipy.ndimage
+    import torch
+
+    from glimpse_tpu_torch.ops import projection, sampling
+
+    img, pad = STAB_IMG, 128
+    rng = np.random.default_rng(seed)
+    textures = [
+        torch.from_numpy(scipy.ndimage.gaussian_filter(rng.normal(size=(img + 2 * pad,) * 2), sigma) * 55 + 128).to(device)
+        for sigma in (1.2, 0.8)  # terrain, glacier
+    ]
+    truth = np.tile(STAB_VIEWDIR, (n_frames, 1))
+    truth[1:] += np.random.default_rng(42).normal(0, STAB_JITTER, size=(n_frames - 1, 3))
+    base = np.zeros(20)
+    base[0:3], base[3:6], base[6:8], base[8:10] = STAB_CAM_XYZ, STAB_VIEWDIR, img, img
+    u, v = np.meshgrid(np.arange(img) + 0.5, np.arange(img) + 0.5)
+    uv = torch.from_numpy(np.column_stack([u.ravel(), v.ravel()])).to(device)
+    cam = torch.tensor(STAB_CAM_XYZ, dtype=torch.float64, device=device)
+
+    def ground(vector):
+        """World (x, y) where each pixel's ray meets the plane z = 0."""
+        rays = projection.unproject(vector, uv)
+        down = rays[:, 2] < -1e-6
+        t = torch.where(down, -cam[2] / torch.where(down, rays[:, 2], -1.0), 1e6)
+        return cam[0] + t * rays[:, 0], cam[1] + t * rays[:, 1]
+
+    def sample(texture, x, y):  # bilinear, edges replicated
+        n = texture.shape[0]
+        return sampling.bilinear_sample(texture, (y + pad).clamp(0, n - 1), (x + pad).clamp(0, n - 1))
+
+    frames = torch.empty((n_frames, img, img), dtype=torch.uint8, device=device)
+    for i, viewdir in enumerate(truth):
+        vector = base.copy()
+        vector[3:6] = viewdir
+        wx, wy = (w.clamp(-pad, img + pad) for w in ground(vector))
+        terrain = sample(textures[0], wx, wy)
+        glacier = sample(textures[1], wx - STAB_VELOCITY[0] * i, wy - STAB_VELOCITY[1] * i)
+        value = torch.where((wy >= STAB_BAND[0]) & (wy <= STAB_BAND[1]), glacier, terrain)
+        frames[i] = torch.floor(value.clamp(0, 255)).to(torch.uint8).reshape(img, img)
+    _, wy = ground(base)
+    band = ((wy >= STAB_BAND[0] - 10) & (wy <= STAB_BAND[1] + 10)).reshape(img, img).cpu().numpy()
+    mask = (scipy.ndimage.binary_erosion(~band, iterations=6) * 255).astype(np.uint8)
+    return frames.cpu().numpy(), truth, base, mask
+
+
+def stabilization_pairs(n_frames: int) -> np.ndarray:
+    """(i, j) pairs at STAB_OFFSETS, in the order of KeypointMatcher's windows."""
+    return np.array([(i, i + s) for i in range(n_frames) for s in STAB_OFFSETS if i + s < n_frames])
+
+
+def matched_uvs(keypoints, pairs, found, max_distance=20.0):
+    """Matched pixel pairs per image pair, at most ``max_distance`` apart."""
+    out = []
+    for (i, j), (idx, _) in zip(pairs, found):
+        uva = keypoints[i][0][idx[:, 0]].astype(np.float64)
+        uvb = keypoints[j][0][idx[:, 1]].astype(np.float64)
+        ok = np.linalg.norm(uva - uvb, axis=1) < max_distance
+        out.append((uva[ok], uvb[ok]))
+    return out
+
+
+def ratio_tolerance(desc_a, desc_b, matches) -> np.ndarray:
+    """How far two float32 evaluations of each match's Lowe ratio may part:
+    1e-5, plus how far a rounding of the squared distances a^2 + b^2 - 2 ab
+    by 8 ulps of a^2 + b^2 moves d1 / d2 (the card and the CPU sum the 128
+    products in other orders, and a near-duplicate descriptor puts d1^2 at
+    that floor). ``matches`` (m, 2) indices into the two stacks."""
+    a = desc_a[matches[:, 0]].astype(np.float64)
+    b = desc_b.astype(np.float64)
+    a2, b2 = (a * a).sum(-1), (b * b).sum(-1)
+    d2 = np.maximum(a2[:, None] + b2[None, :] - 2 * a @ b.T, 0.0)
+    rows = np.arange(len(a))
+    first = d2[rows, matches[:, 1]]
+    d2[rows, matches[:, 1]] = np.inf
+    second = d2.min(axis=1)
+    delta = 8 * np.finfo(np.float32).eps * (a2 + b2[matches[:, 1]])
+    d1, dn = np.sqrt(first), np.sqrt(second)
+    ratio = d1 / dn
+    return 1e-5 + (np.sqrt(first + delta) - d1 + ratio * (np.sqrt(second + delta) - dn)) / dn
+
+
+def observer_matches(uvs, pairs, base, n_frames, device):
+    """The matches as a COO matrix of RotationMatchesXYZ, their camera
+    coordinates from one image_to_camera call on ``device``."""
+    import scipy.sparse
+    import torch
+
+    from glimpse_tpu_torch import optimize
+    from glimpse_tpu_torch.ops import projection
+
+    sizes = [len(a) for a, _ in uvs]
+    stacked = torch.from_numpy(np.concatenate([np.vstack([a, b]) for a, b in uvs])).to(device)
+    xy = projection.image_to_camera(stacked, base[6:8], base[8:10], base[10:12], base[12:18], base[18:20])
+    pieces = np.split(xy.cpu().numpy(), np.cumsum([2 * n for n in sizes])[:-1])
+    objs = [optimize.RotationMatchesXYZ(cams=(base, base), xys=np.split(p, 2)) for p in pieces]
+    matches = scipy.sparse.coo_matrix((np.ones(len(objs)), tuple(pairs.T)), shape=(n_frames, n_frames))
+    matches.data = np.array(objs, dtype=object)
+    return matches
+
+
+def observer_fit(matches, n_frames, device, **kwargs):
+    """ObserverCameras(anchors=[0]) on cameras at the nominal view direction."""
+    from types import SimpleNamespace
+
+    from glimpse_tpu_torch import optimize
+
+    observer = SimpleNamespace(images=[SimpleNamespace(cam=SimpleNamespace(viewdir=np.array(STAB_VIEWDIR)))] * n_frames)
+    return optimize.ObserverCameras(observer, matches=matches, anchors=[0], device=device).fit(**kwargs)
+
+
+def rotation_errors(recovered, truth) -> np.ndarray:
+    """Angle (deg) of the rotation between each recovered and true view."""
+    import torch
+
+    from glimpse_tpu_torch.ops import projection
+
+    R = [projection.rotation_matrix(torch.from_numpy(np.asarray(v, np.float64))).numpy() for v in (recovered, truth)]
+    traces = np.trace(np.einsum("nij,nkj->nik", *R), axis1=-2, axis2=-1)
+    return np.degrees(np.arccos(np.clip((traces - 1) / 2, -1, 1)))
+
+
+def stabilize(n_frames: int, device):
+    """Phase 11's recipe; returns (stage seconds, counts, fits, errors, the
+    scene and the intermediate results phase 12 reuses)."""
+    import torch
+
+    from glimpse_tpu_torch.ops import features, matching, refine
+
+    seconds = {}
+
+    def timed(name, fn):
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    frames, truth, base, mask = timed("render", lambda: stabilization_scene(n_frames, device))
+    keypoints = timed("detect", lambda: features.detect_and_describe(
+        list(frames), masks=[mask] * n_frames, nfeatures=2048, batch=16, refine="lattice", device=device
+    ))
+    pairs = stabilization_pairs(n_frames)
+    found = timed("match", lambda: matching.DescriptorMatcher(device=device).match_pairs(
+        [k[1] for k in keypoints], pairs, max_ratio=0.75, cross_check=False
+    ))
+    uvs = matched_uvs(keypoints, pairs, found)
+    fit1 = timed("fit", lambda: observer_fit(observer_matches(uvs, pairs, base, n_frames, device), n_frames, device,
+                                             method="lbfgs-device", maxiter=2000))
+    refined = timed("refine", lambda: refine.MatchRefiner(device=device).refine_pairs(
+        [tuple(p) for p in pairs], uvs, lambda k: frames[k].astype(np.float32)
+    ))
+    fit2 = timed("fit_refined", lambda: observer_fit(
+        observer_matches(refined, pairs, base, n_frames, device), n_frames, device, method="lbfgs-device", maxiter=2000
+    ))
+    errors = [rotation_errors(f.x.reshape(-1, 3), truth) for f in (fit1, fit2)]
+    return {
+        "seconds": seconds, "fits": (fit1, fit2), "errors": errors, "frames": frames, "truth": truth, "base": base,
+        "mask": mask, "keypoints": keypoints, "pairs": pairs, "uvs": uvs, "refined": refined,
+        "matches": sum(len(a) for a, _ in uvs),
+    }
+
+
+def compare_stabilization(stab, device) -> str:
+    """Phase 12: each stabilization module on ``device`` against the CPU on
+    the same inputs, at small size. Raises on a disagreement; returns the
+    line to print."""
+    import torch
+
+    from glimpse_tpu_torch.ops import features, matching, projection, refine
+
+    devices = {"card": device, "cpu": torch.device("cpu")}
+    report = []
+    # Inverse projection of a distorted camera (k and p nonzero), each
+    # solver, the intrinsics as tensors so no solver is skipped.
+    rng = np.random.default_rng(5)
+    vector = stab["base"].copy()
+    vector[12:18] = (-0.08, 0.02, -0.01, 0.01, 0.005, -0.002)
+    vector[18:20] = (4e-4, -3e-4)
+    uv = np.column_stack([rng.uniform(0, STAB_IMG, 4000), rng.uniform(0, STAB_IMG, 4000)]).astype(np.float32)
+    worst = 0.0
+    for method in ("k1", "oulu", "regulafalsi"):
+        out = {}
+        for name, d in devices.items():
+            v = torch.from_numpy(vector.astype(np.float32)).to(d)
+            u = torch.from_numpy(uv).to(d)
+            xy = projection.image_to_camera(u, v[6:8], v[8:10], v[10:12], v[12:18], v[18:20], method=method)
+            out[name] = torch.cat([xy, projection.unproject(v, u, method=method)], dim=-1).cpu().numpy()
+        worst = max(worst, float(np.abs(out["card"] - out["cpu"]).max()))
+    if worst > 1e-5:
+        raise AssertionError(f"inverse projection on the card and the CPU differ by {worst}")
+    report.append(f"inverse projection (k1, oulu, regulafalsi) max |diff| {worst:.3g} (limit 1e-5)")
+
+    # Matching: the first frames' descriptors at offsets 1 and 8.
+    descs = [k[1] for k in stab["keypoints"][:10]]
+    pairs = np.array([(0, 1), (1, 2), (0, 8), (2, 9)])
+    runs = {name: matching.DescriptorMatcher(device=d).match_pairs(descs, pairs, max_ratio=0.75) for name, d in devices.items()}
+    ratio_excess = 0.0
+    for (i, j), (gi, gr), (ci, cr) in zip(pairs, runs["card"], runs["cpu"]):
+        if not np.array_equal(gi, ci):
+            raise AssertionError("matching on the card and the CPU picks other neighbours")
+        ratio_excess = max(ratio_excess, float((np.abs(gr - cr) - ratio_tolerance(descs[i], descs[j], ci)).max(initial=0.0)))
+    if ratio_excess > 0.0:
+        raise AssertionError(f"match ratios on the card and the CPU differ by {ratio_excess} beyond their bound")
+    report.append(f"matching: {sum(len(i) for i, _ in runs['cpu'])} matches, indices identical, ratios within"
+                  " 1e-5 plus the float32 rounding bound of a^2 + b^2 - 2ab")
+
+    # Features: four frames cut to 256x256, 512 keypoints each.
+    crops = [f[128:384, 128:384] for f in stab["frames"][:4]]
+    kps = {name: features.detect_and_describe(crops, nfeatures=512, batch=4, device=d) for name, d in devices.items()}
+    found = total = 0
+    desc_diff = 0.0
+    for (gp, gd), (cp, cd) in zip(kps["card"], kps["cpu"]):
+        dist = np.linalg.norm(cp[:, None, :] - gp[None, :, :], axis=-1)
+        nearest = dist.argmin(axis=1)
+        close = dist[np.arange(len(cp)), nearest] < 1e-2
+        found += int(close.sum())
+        total += len(cp)
+        desc_diff = max(desc_diff, float(np.abs(cd[close] - gd[nearest[close]]).max(initial=0.0)))
+    if found < 0.98 * total or desc_diff > 1e-3:
+        raise AssertionError(f"features: {found} of {total} keypoints within 1e-2 px, descriptors {desc_diff}")
+    report.append(f"features: {found} of {total} keypoints within 1e-2 px, descriptors {desc_diff:.3g} (limit 1e-3)")
+
+    # Refinement: phase 11's first 8 pairs.
+    k = slice(0, 8)
+    pairs8 = [tuple(p) for p in stab["pairs"][k]]
+    refined = {
+        name: refine.MatchRefiner(device=d).refine_pairs(pairs8, stab["uvs"][k], lambda i: stab["frames"][i].astype(np.float32))
+        for name, d in devices.items()
+    }
+    refine_diff = max(float(np.abs(g[1] - c[1]).max(initial=0.0)) for g, c in zip(refined["card"], refined["cpu"]))
+    if refine_diff > 1e-3:
+        raise AssertionError(f"refinement on the card and the CPU differs by {refine_diff} px")
+    report.append(f"refine: {sum(len(a) for a, _ in stab['uvs'][k])} matches, max |diff| {refine_diff:.3g} px (limit 1e-3)")
+
+    # The fit on the first 24 frames' matches.
+    n = 24
+    keep = stab["pairs"][:, 1] < n
+    pairs_n = stab["pairs"][keep]
+    uvs_n = [uv for uv, ok in zip(stab["uvs"], keep) if ok]
+    fits = {name: observer_fit(observer_matches(uvs_n, pairs_n, stab["base"], n, d), n, d).x.reshape(-1, 3)
+            for name, d in devices.items()}
+    fit_diff = float(np.abs(fits["card"] - fits["cpu"]).max())
+    if fit_diff > 2e-3:
+        raise AssertionError(f"the fit on the card and the CPU differs by {fit_diff} deg")
+    report.append(f"fit ({n} frames): max |diff| {fit_diff:.3g} deg (limit 2e-3)")
+    return "; ".join(report)
 
 
 def main() -> None:
@@ -551,6 +828,29 @@ def main() -> None:
         " outputs and particles bit-equal to the uninterrupted run",
         flush=True,
     )
+
+    # Phase 11: stabilization at full width.
+    torch.cuda.reset_peak_memory_stats()
+    n11 = 1000
+    stab = stabilize(n11, cuda)
+    peak11 = torch.cuda.max_memory_allocated()
+    worst11 = [float(e.max()) for e in stab["errors"]]
+    if not all(np.isfinite(f.x).all() for f in stab["fits"]) or max(worst11) > 0.01:
+        raise AssertionError(f"stabilization: max view direction errors {worst11} deg (limit 0.01)")
+    times11 = ", ".join(f"{k} {v:.2f} s" for k, v in stab["seconds"].items())
+    fits11 = "; ".join(
+        f"{name}: {f.nit} iterations, |g| {f.grad_norm:.3g}, error max {e.max():.5f} mean {e.mean():.5f} deg"
+        for name, f, e in zip(("fit", "refined fit"), stab["fits"], stab["errors"])
+    )
+    print(
+        f"phase 11 stabilization {n11} frames of {STAB_IMG}x{STAB_IMG}, 2,048 keypoints, offsets {STAB_OFFSETS}:"
+        f" {times11}; {len(stab['pairs'])} image pairs, {stab['matches']} matched pairs;"
+        f" {fits11}; peak {peak11 / 2**30:.2f} GiB",
+        flush=True,
+    )
+
+    # Phase 12: the stabilization modules, card against CPU.
+    print("phase 12 card vs CPU: " + compare_stabilization(stab, cuda), flush=True)
 
     # The kernels at phase 8's shapes, with phase 8's launches.
     main_hp = hp_times[((20480, 31, 31), (5, 5))]

@@ -1,7 +1,7 @@
-"""Forward projection of world points through a distorted camera, on tensors.
+"""Projection through a distorted camera, on tensors: world to image and back.
 
-The counterpart of :mod:`glimpse_tpu.ops.projection` for the tracker's path.
-A camera is a 20-float vector (float32 on the tensors' device):
+The counterpart of :mod:`glimpse_tpu.ops.projection`. A camera is a 20-float
+vector (float32 on the tensors' device):
 
 ====== =========== ==========================================================
 Index  Name        Meaning
@@ -15,11 +15,17 @@ Index  Name        Meaning
 18:20  p           Tangential distortion coefficients (p1, p2)
 ====== =========== ==========================================================
 
-Points at or behind the camera plane project to NaN.
+Points at or behind the camera plane project to NaN. The inverse half
+(:func:`undistort`, :func:`image_to_camera`, :func:`unproject`) takes the
+camera's intrinsics either as tensors or as a host (numpy) copy; only a host
+copy lets :func:`undistort` pick the identity or the closed-form k1 solver,
+as the reference does from concrete coefficients, so nothing is read back
+from the card to decide.
 """
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 XYZ = slice(0, 3)
@@ -50,6 +56,17 @@ def rotation_matrix(viewdir: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def viewdir_from_rotation(R):
+    """(yaw, pitch, roll) in degrees from a :func:`rotation_matrix` (..., 3, 3).
+
+    Exact inverse for pitch in (-90, 90).
+    """
+    pitch = torch.asin(torch.clamp(R[..., 2, 2], -1.0, 1.0))
+    yaw = torch.atan2(R[..., 2, 0], R[..., 2, 1])
+    roll = torch.atan2(-R[..., 0, 2], -R[..., 1, 2])
+    return torch.stack([yaw, pitch, roll], dim=-1) * (180.0 / math.pi)
+
+
 def radial_distortion_factor(r2, k):
     """Rational radial multiplier (1 + k1 r2 + k2 r4 + k3 r6) / (1 + k4 r2 + k5 r4 + k6 r6)."""
     r4 = r2 * r2
@@ -73,6 +90,110 @@ def distort(xy, k, p):
     r2 = torch.sum(xy * xy, dim=-1)
     dr = radial_distortion_factor(r2, k)
     return xy * dr[..., None] + tangential_distortion(xy, r2, p)
+
+
+def _like(x, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` (array, number or tensor) as a tensor of ``ref``'s dtype and device."""
+    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+
+
+def undistort_k1(xy, k1):
+    """Closed-form undistortion when only k1 is nonzero: the cubic
+    r^3 + r/k1 - r'/k1 = 0 in polar coordinates, trigonometric or Cardano
+    branch.
+
+    The reference writes R = -x / (2 k1 cos(phi)); that is -r' / (2 k1),
+    which is taken here from r' directly: dividing by cos(phi) loses up to
+    6e-5 of float32 precision near phi = +-90 deg.
+    """
+    k1 = _like(k1, xy)
+    phi = torch.atan2(xy[..., 1], xy[..., 0])
+    Q = -1 / (3 * k1)
+    cos_phi = torch.cos(phi)
+    sin_phi = torch.sin(phi)
+    R = -torch.hypot(xy[..., 0], xy[..., 1]) / (2 * k1)
+    three_roots = (R * R) < (Q * Q * Q)
+    Qsafe = torch.where(Q > 0, Q, torch.ones_like(Q))
+    th = torch.acos(torch.clamp(R * Qsafe**-1.5, -1.0, 1.0))
+    r_three = -2 * torch.sqrt(torch.abs(Q)) * torch.cos((th - 2 * math.pi) / 3)
+    disc = torch.clamp(R * R - Q * Q * Q, min=0.0)
+    A = -torch.sign(R) * (torch.abs(R) + torch.sqrt(disc)) ** (1.0 / 3)
+    B = torch.where(A != 0, Q / torch.where(A != 0, A, torch.ones_like(A)), torch.zeros_like(A))
+    r = torch.where(three_roots, r_three, A + B)
+    return torch.stack([cos_phi, sin_phi], dim=-1) * r[..., None]
+
+
+def undistort_oulu(xy, k, p, iterations: int = 20):
+    """Fixed-point undistortion: uxy <- (xy - tangential(uxy)) / radial(|uxy|^2)."""
+    uxy = xy
+    for _ in range(iterations):
+        r2 = torch.sum(uxy * uxy, dim=-1)
+        uxy = (xy - tangential_distortion(uxy, r2, p)) / radial_distortion_factor(r2, k)[..., None]
+    return uxy
+
+
+def undistort_regulafalsi(xy, k, p, iterations: int = 100):
+    """Elementwise regula falsi undistortion, robust under extreme distortion.
+
+    The bracket starts at the image center and halfway to the distorted
+    coordinate; an element whose bracket stops moving (dy == 0 on both
+    coordinates) is frozen at that estimate. The reference's loop also stops
+    once every element is frozen; running all ``iterations`` gives the same
+    result, since a frozen element keeps its estimate, and needs no read of
+    the card to decide.
+
+    Where only one coordinate's bracket has stopped moving, that coordinate
+    keeps its estimate. The reference divides by 1 there instead, which
+    sends the coordinate to x1 y2 - x2 y1 (0 once it has converged): in
+    float32 about one point in a hundred of a moderately distorted frame
+    ends at 0 (ROADMAP.md C).
+    """
+    x1 = torch.zeros_like(xy)
+    y1 = -xy
+    x2 = xy / 2
+    y2 = distort(x2, k, p) - xy
+    uxy = torch.full_like(xy, math.nan)
+    frozen = torch.zeros(xy.shape[:-1], dtype=torch.bool, device=xy.device)
+    for _ in range(iterations):
+        dy = y2 - y1
+        newly = torch.all(dy == 0, dim=-1) & ~frozen
+        uxy = torch.where(newly[..., None], x2, uxy)
+        frozen = frozen | newly
+        still = dy == 0
+        x3 = torch.where(still, x2, (x1 * y2 - x2 * y1) / torch.where(still, torch.ones_like(dy), dy))
+        x3 = torch.where(frozen[..., None], x2, x3)
+        x1, y1, x2, y2 = x2, y2, x3, distort(x3, k, p) - xy
+    return torch.where(frozen[..., None], uxy, x2)
+
+
+def undistort(xy, k, p, method: str = "oulu", **kwargs):
+    """Remove distortion from normalized camera coordinates.
+
+    With ``k`` and ``p`` as numpy arrays (a host copy of the camera), the
+    identity is returned when the camera has no distortion and the
+    closed-form cubic is used when only k1 is nonzero, as in the reference's
+    host path; tensors go straight to the requested method, as on the
+    reference's device path. ``method="lookup"`` is host-only scipy code of
+    the reference's host API, which the port does not have yet.
+    """
+    if isinstance(k, np.ndarray) and isinstance(p, np.ndarray):
+        if not k.any() and not p.any():
+            return xy
+        if k[..., 0].all() and not k[..., 1:].any() and not p.any():
+            return undistort_k1(xy, k[..., 0])
+    k = _like(k, xy)
+    p = _like(p, xy)
+    if method == "k1":
+        return undistort_k1(xy, k[..., 0])
+    if method == "oulu":
+        return undistort_oulu(xy, k, p, **kwargs)
+    if method == "regulafalsi":
+        return undistort_regulafalsi(xy, k, p, **kwargs)
+    if method == "lookup":
+        raise NotImplementedError(
+            "lookup undistortion is host-only scipy code of the host API, not ported yet (ROADMAP.md A10)"
+        )
+    raise ValueError(f"Undistort method not supported: {method}")
 
 
 def elevation_correction(squared_distances, radius=EARTH_RADIUS, refraction=REFRACTION):
@@ -102,9 +223,32 @@ def world_to_camera(
     return xy.masked_fill(behind[..., None], math.nan)
 
 
+def camera_to_world(xy, R, cam_xyz=None, directions: bool = True, depth=1):
+    """Normalized camera coordinates (..., 2) -> world rays (..., 3) at unit
+    optical-axis depth (times ``depth``), relative to the camera
+    (``directions=True``) or absolute."""
+    xyz = torch.matmul(xy, R[..., 0:2, :]) + R[..., 2, :]
+    if not (isinstance(depth, (int, float)) and depth == 1):
+        depth = _like(depth, xyz)
+        xyz = xyz * (depth[..., None] if depth.ndim else depth)
+    if not directions:
+        xyz = xyz + cam_xyz
+    return xyz
+
+
 def camera_to_image(xy, imgsz, f, c, k, p):
     """Distort and scale camera coordinates to pixels."""
     return distort(xy, k, p) * f + (imgsz / 2 + c)
+
+
+def image_to_camera(uv, imgsz, f, c, k, p, method: str = "oulu", **kwargs):
+    """Pixels (..., 2) -> undistorted normalized camera coordinates.
+
+    The intrinsics may be tensors or numpy arrays; numpy ``k`` and ``p``
+    let :func:`undistort` specialize (see there).
+    """
+    xy = (uv - (_like(imgsz, uv) * 0.5 + _like(c, uv))) * (1 / _like(f, uv))
+    return undistort(xy, k, p, method=method, **kwargs)
 
 
 def project(vector, xyz, correction: Optional[Tuple[float, float]] = None):
@@ -154,3 +298,62 @@ def project_planes(
     u = (xn * dr + dtx) * f[..., 0] + (imgsz[..., 0] * 0.5 + c[..., 0])
     v = (yn * dr + dty) * f[..., 1] + (imgsz[..., 1] * 0.5 + c[..., 1])
     return u, v
+
+
+def unproject(vector, uv, directions: bool = True, depth=1, method: str = "oulu", **kwargs):
+    """Image coordinates (..., 2) -> world rays or points (..., 3).
+
+    ``vector`` may be a tensor or a host (numpy) copy of the camera; from a
+    host copy, :func:`undistort` specializes on the distortion coefficients.
+    """
+    host = vector if isinstance(vector, np.ndarray) else None
+    vector = _like(vector, uv)
+    k, p = (host[..., K], host[..., P]) if host is not None else (vector[..., K], vector[..., P])
+    xy = image_to_camera(uv, vector[..., IMGSZ], vector[..., F], vector[..., C], k, p, method=method, **kwargs)
+    R = rotation_matrix(vector[..., VIEWDIR])
+    return camera_to_world(xy, R, cam_xyz=vector[..., XYZ], directions=directions, depth=depth)
+
+
+def infront(vector, xyz, directions: bool = False):
+    """Whether world points (..., 3) lie in front of the camera."""
+    R = rotation_matrix(vector[..., VIEWDIR])
+    dxyz = xyz if directions else xyz - vector[..., XYZ]
+    return torch.sum(dxyz * R[..., 2, :], dim=-1) > 0
+
+
+def inframe(vector, uv):
+    """Whether image coordinates (..., 2) lie in (or on the edge of) the frame."""
+    ok = (uv >= 0) & (uv <= vector[..., IMGSZ])
+    return ok[..., 0] & ok[..., 1]
+
+
+def spherical_to_xyz(cam_xyz, angles):
+    """Spherical (azimuth clockwise from north, altitude, [distance]) in
+    degrees -> world; directions without a distance."""
+    azimuth_iso = (math.pi / 2 - angles[..., 0] * math.pi / 180) % (2 * math.pi)
+    altitude_iso = (math.pi / 2 - angles[..., 1] * math.pi / 180) % (2 * math.pi)
+    xyz = torch.stack(
+        [
+            torch.sin(altitude_iso) * torch.cos(azimuth_iso),
+            torch.sin(altitude_iso) * torch.sin(azimuth_iso),
+            torch.cos(altitude_iso),
+        ],
+        dim=-1,
+    )
+    if angles.shape[-1] > 2:
+        xyz = xyz * angles[..., 2:3] + cam_xyz
+    return xyz
+
+
+def xyz_to_spherical(cam_xyz, xyz, directions: bool = False):
+    """World -> spherical (azimuth clockwise from north, altitude, [distance])
+    in degrees."""
+    if not directions:
+        xyz = xyz - cam_xyz
+    r = torch.sqrt(torch.sum(xyz * xyz, dim=-1))
+    azimuth_iso = torch.atan2(xyz[..., 1], xyz[..., 0])
+    altitude_iso = torch.acos(xyz[..., 2] / r)
+    angles = torch.stack([(90 - azimuth_iso * (180 / math.pi)) % 360, 90 - altitude_iso * (180 / math.pi)], dim=-1)
+    if not directions:
+        angles = torch.cat([angles, r[..., None]], dim=-1)
+    return angles

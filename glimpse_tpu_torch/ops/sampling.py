@@ -1,7 +1,7 @@
 """Grid sampling on tensors: bilinear and exact cubic B-spline.
 
-The counterpart of :mod:`glimpse_tpu.ops.sampling` for the tracker's path.
-Samples are read by plain gathers at any grid size.
+The counterpart of :mod:`glimpse_tpu.ops.sampling` for the tracker's and the
+match refiner's paths. Samples are read by plain gathers at any grid size.
 """
 import functools
 
@@ -130,3 +130,47 @@ def bspline_sample(coeffs, rows, cols):
             )
             out = out + wr[dr] * wc[dc] * val
     return out
+
+
+def _cubic_bspline_slopes(t):
+    """First and second derivatives in t of :func:`_cubic_bspline_weights`."""
+    t2 = t * t
+    d = ((-3 + 6 * t - 3 * t2) / 6, (-12 * t + 9 * t2) / 6, (3 + 6 * t - 9 * t2) / 6, 3 * t2 / 6)
+    dd = (1 - t, -2 + 3 * t, 1 - 3 * t, t)
+    return d, dd
+
+
+def bspline_derivatives(coeffs, rows, cols):
+    """Value, gradient and Hessian of the cubic B-spline at fractional indices.
+
+    ``coeffs`` (B, H, W) from :func:`bspline_prefilter_2d`; ``rows`` and
+    ``cols`` (B, Q) within [0, H - 1] and [0, W - 1]. Returns six (B, Q)
+    tensors: value, d/drow, d/dcol, d2/drow2, d2/dcol2, d2/drow dcol. The 16
+    taps carry the natural-boundary ghosts of :func:`bspline_sample`, so at
+    the edges 0 and n - 1 they equal the reference's dense basis and its
+    derivatives; a tap beyond the ghost has weight and slopes 0 there.
+    """
+    B, H, W = coeffs.shape
+    # Fold the ghost coefficients c[-1] = 2 c[0] - c[1] and c[n] = 2 c[n-1] -
+    # c[n-2] into a one-cell border, so each tap is one gather.
+    c = torch.cat([2 * coeffs[:, :1] - coeffs[:, 1:2], coeffs, 2 * coeffs[:, -1:] - coeffs[:, -2:-1]], dim=1)
+    c = torch.cat([2 * c[:, :, :1] - c[:, :, 1:2], c, 2 * c[:, :, -1:] - c[:, :, -2:-1]], dim=2)
+    flat = c.reshape(B, (H + 2) * (W + 2))
+    rb = torch.floor(rows)
+    cb = torch.floor(cols)
+    tr = rows - rb
+    tc = cols - cb
+    wr, (dr_, ddr) = _cubic_bspline_weights(tr), _cubic_bspline_slopes(tr)
+    wc, (dc_, ddc) = _cubic_bspline_weights(tc), _cubic_bspline_slopes(tc)
+    rb = rb.long()
+    cb = cb.long()
+    out = [torch.zeros_like(rows) for _ in range(6)]
+    for i in range(4):
+        r = torch.clamp(rb + i, 0, H + 1)
+        for j in range(4):
+            v = flat.gather(1, r * (W + 2) + torch.clamp(cb + j, 0, W + 1))
+            for n, (a, b) in enumerate(
+                ((wr, wc), (dr_, wc), (wr, dc_), (ddr, wc), (wr, ddc), (dr_, dc_))
+            ):
+                out[n] = out[n] + a[i] * b[j] * v
+    return tuple(out)

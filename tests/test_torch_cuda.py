@@ -105,3 +105,93 @@ def test_stream_equals_track_on_card(cuda) -> None:
     for k in out:
         assert torch.equal(torch.cat([o[k] for o in outputs]), out[k]), k
     assert torch.isfinite(out["mean"]).all() and (out["valid"] == 1).all()
+
+
+def _textures(n_images, size, seed):
+    import scipy.ndimage
+
+    rng = np.random.default_rng(seed)
+    base = scipy.ndimage.gaussian_filter(rng.normal(size=(size + 8, size + 8)), 1.5)
+    base = 128 + 70 * base / np.abs(base).max()
+    return [np.clip(base[i : i + size, 2 * i : 2 * i + size], 0, 255).astype(np.uint8) for i in range(n_images)]
+
+
+@pytest.mark.cuda
+def test_detect_and_describe_on_card(cuda) -> None:
+    """Keypoints on the card against the CPU: at least 98 % within 1e-2 px,
+    their descriptors within 1e-3 (cuDNN and the CPU round differently)."""
+    from glimpse_tpu_torch.ops import features
+
+    images = _textures(3, 160, 4)
+    mask = np.ones((160, 160), np.uint8)
+    mask[60:90] = 0
+    kwargs = dict(masks=[mask, None, mask], nfeatures=256, batch=2, n_octaves=3)
+    card = features.detect_and_describe(images, device=cuda, **kwargs)
+    cpu = features.detect_and_describe(images, device="cpu", **kwargs)
+    for (gp, gd), (cp, cd) in zip(card, cpu):
+        assert len(cp) > 100
+        dist = np.linalg.norm(cp[:, None] - gp[None], axis=-1)
+        nearest = dist.argmin(axis=1)
+        close = dist[np.arange(len(cp)), nearest] < 1e-2
+        assert close.sum() >= 0.98 * len(cp)
+        np.testing.assert_allclose(gd[nearest[close]], cd[close], atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_match_pairs_on_card(cuda) -> None:
+    """Identical indices on the card and the CPU; ratios within 1e-5 plus
+    the float32 rounding bound of the expanded distance
+    (``chip_smoke.ratio_tolerance``): near-duplicate descriptors put the
+    nearest squared distance at the rounding floor, where the two devices'
+    summation orders part by up to 1e-3 in the ratio."""
+    from chip_smoke import ratio_tolerance
+    from glimpse_tpu_torch.ops import features, matching
+
+    keypoints = features.detect_and_describe(_textures(4, 160, 5), nfeatures=256, batch=4, n_octaves=3, device="cpu")
+    descs = [k[1] for k in keypoints]
+    pairs = np.array([[0, 1], [1, 2], [0, 3], [2, 3]])
+    for cross_check in (False, True):
+        card = matching.DescriptorMatcher(device=cuda).match_pairs(descs, pairs, max_ratio=0.75, cross_check=cross_check)
+        cpu = matching.DescriptorMatcher(device="cpu").match_pairs(descs, pairs, max_ratio=0.75, cross_check=cross_check)
+        for (i, j), (gi, gr), (ci, cr) in zip(pairs, card, cpu):
+            assert len(ci) > 10
+            np.testing.assert_array_equal(gi, ci)
+            assert (np.abs(gr - cr) <= ratio_tolerance(descs[i], descs[j], ci)).all()
+
+
+@pytest.mark.cuda
+def test_observer_fit_on_card(cuda) -> None:
+    """Six frames of exact matches under a wobbling camera: the device
+    L-BFGS on the card recovers the truth within 1e-2 deg and agrees with
+    the CPU within 2e-3 deg."""
+    from types import SimpleNamespace
+
+    import scipy.sparse
+    import torch
+
+    from glimpse_tpu_torch import optimize
+    from glimpse_tpu_torch.ops import projection
+
+    rng = np.random.default_rng(6)
+    n = 6
+    truth = np.array([10.0, -20.0, 1.0]) + np.vstack([np.zeros(3), rng.normal(0, 0.3, (n - 1, 3))])
+    cam = np.zeros(20)
+    cam[6:10] = (240, 160, 200, 200)
+    pairs, objs = [], []
+    for i in range(n):
+        for j in (i + 1, i + 2):
+            if j < n:
+                xy = rng.uniform(-0.5, 0.5, (60, 2))
+                ray = projection.camera_to_world(torch.from_numpy(xy), projection.rotation_matrix(torch.from_numpy(truth[i])))
+                rot = projection.rotation_matrix(torch.from_numpy(truth[j]))
+                cj = (ray @ rot.T).numpy()
+                objs.append(optimize.RotationMatchesXYZ(cams=(cam, cam), xys=[xy, cj[:, :2] / cj[:, 2:]]))
+                pairs.append((i, j))
+    matches = scipy.sparse.coo_matrix((np.ones(len(objs)), tuple(np.array(pairs).T)), shape=(n, n))
+    matches.data = np.array(objs, dtype=object)
+    fits = {}
+    for name, device in (("card", cuda), ("cpu", torch.device("cpu"))):
+        observer = SimpleNamespace(images=[SimpleNamespace(cam=SimpleNamespace(viewdir=truth[0].copy()))] * n)
+        fits[name] = optimize.ObserverCameras(observer, matches, anchors=[0], device=device).fit().x.reshape(-1, 3)
+    np.testing.assert_allclose(fits["card"], truth, atol=1e-2)
+    np.testing.assert_allclose(fits["card"], fits["cpu"], atol=2e-3)
