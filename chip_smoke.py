@@ -6,9 +6,14 @@ each:
 
 1. the card (name and power limit from nvidia-smi) and the torch and CUDA
    versions; no card, no run;
-2. build both CUDA kernels from ``glimpse_tpu_torch/csrc``;
+2. build both CUDA kernels from ``glimpse_tpu_torch/csrc``, and count the
+   5x5 high-pass kernel's SASS instructions per output pixel;
 3. the median high-pass kernel against its plain version on the card,
-   bit for bit, and both times;
+   bit for bit, and both times, at the main path's shapes; then, held with
+   rtol = atol = 0 and NaN where the plain version has NaN, tiles of tied
+   values with NaN and +-inf pixels, for every compiled separable window and
+   four that run the generic kernel, at 31x31 and at the smallest tiles each
+   window allows, each case named with the kernel variant that ran;
 4. the systematic resample kernel against its plain version, bit for bit,
    and both times;
 5. the tracker at ``bench.py``'s size (1,024 points x 1,024 particles x 50
@@ -86,6 +91,69 @@ def _cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# Windows phase 3 holds beyond the main path's 5x5: the other compiled
+# separable kernels and four that run the generic one.
+HIGHPASS_WINDOWS = ((3, 3), (5, 5), (7, 7), (3, 7), (9, 5), (1, 9), (3, 11), (7, 5), (1, 1), (1, 49))
+
+
+def highpass_tiles(shape, seed: int = 0, specials: bool = True) -> np.ndarray:
+    """Tiles (N, h, w) of what ``rng.normal`` never gives: values quantised
+    to a 64-value table, as histogram-matched search tiles take theirs from a
+    quantile table, so ties are many. With ``specials``, a NaN pixel at a
+    corner of tile 0, on an edge of tile 1 and inside tile 2, and +-inf in
+    1 % of the pixels of the other tiles."""
+    rng = np.random.default_rng(seed)
+    table = np.sort(rng.normal(size=64)).astype(np.float32)
+    tiles = table[rng.integers(0, 64, size=shape)]
+    if specials:
+        n, h, w = shape
+        for i, (r, c) in enumerate([(0, 0), (0, w // 2), (h // 2, w // 2)][:n]):
+            tiles[i, r, c] = np.nan
+        flip = rng.random(shape) < 0.01
+        flip[:3] = False
+        tiles[flip] = np.where(rng.random(int(flip.sum())) < 0.5, np.inf, -np.inf)
+    return tiles
+
+
+def highpass_check_cases():
+    """Phase 3's held cases beyond the timed normal tiles: (label, shape,
+    window, specials, misaligned). Ties at the main path's shapes; NaN, +-inf
+    and ties for every window of HIGHPASS_WINDOWS at 31x31 (N = 37, so the
+    last group of tiles a block takes is partial) and at the smallest tiles
+    the window allows; one stack that starts 4 bytes past a 16-byte line."""
+    cases = [
+        ("ties", (20480, 31, 31), (5, 5), False, False),
+        ("ties+nan+inf", (1024, 41, 41), (5, 5), True, False),
+        ("ties+nan+inf", (1024, 15, 15), (5, 5), True, False),
+        ("ties+nan+inf, misaligned", (37, 31, 31), (5, 5), True, True),
+    ]
+    for kh, kw in HIGHPASS_WINDOWS:
+        cases.append(("ties+nan+inf", (37, 31, 31), (kh, kw), True, False))
+        cases.append(("ties+nan+inf, smallest", (64, kh // 2 + 1, kw // 2 + 1), (kh, kw), True, False))
+    return cases
+
+
+def highpass_case_tiles(shape, specials: bool, misaligned: bool, device, seed: int = 0):
+    """A case's tiles on ``device``; misaligned ones start one float into
+    their storage."""
+    import torch
+
+    tiles = torch.from_numpy(highpass_tiles(shape, seed, specials))
+    if not misaligned:
+        return tiles.to(device)
+    storage = torch.empty(tiles.numel() + 1, device=device)
+    return storage[1:].view(shape).copy_(tiles)
+
+
+def highpass_mismatch(got, want) -> float:
+    """Largest |got - want| where the two are not the same value (NaN with
+    NaN and inf with inf count as the same); 0 when they agree everywhere."""
+    import torch
+
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    return float(torch.where(same, 0.0, (got - want).abs().nan_to_num(float("inf"))).max())
 
 
 def make_scene(n_frames: int, img: int = 512, seed: int = 0):
@@ -500,8 +568,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false")
     sys.path.insert(0, REPO)
-    from glimpse_tpu_torch.kernels import _build
-    from glimpse_tpu_torch.kernels.highpass import median_highpass, median_highpass_plain
+    from glimpse_tpu_torch.kernels import _build, sass
+    from glimpse_tpu_torch.kernels.bench_highpass import HBM_BYTES_PER_S
+    from glimpse_tpu_torch.kernels.highpass import kernel_variant, median_highpass, median_highpass_plain
     from glimpse_tpu_torch.kernels.resample import (
         systematic_resample,
         systematic_resample_plain,
@@ -529,10 +598,17 @@ def main() -> None:
     names = ("highpass", "resample")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build, names)))
-    print("phase 2 build: " + "; ".join(f"{k} {v}" for k, v in built.items()), flush=True)
+    main_kernel = next(r for r in sass.count_built("highpass") if r[0] == "separable_kernel<5,5,8>")
+    print(
+        "phase 2 build: " + "; ".join(f"{k} {v}" for k, v in built.items())
+        + f"; SASS of the 5x5 high-pass {sass.describe(main_kernel)}",
+        flush=True,
+    )
 
     # Phase 3: the high-pass kernel at the main path's shapes (search tiles
-    # every step, templates once), plus 3x3 and 7x7 taps.
+    # every step, templates once), plus 3x3 and 7x7 taps, timed; then ties,
+    # NaN, +-inf, other windows and the smallest tiles, each held exactly
+    # (NaN where the plain version has NaN).
     rng = np.random.default_rng(1)
     cases = [
         ((1024, 41, 41), (5, 5)), ((1024, 15, 15), (5, 5)), ((1024, 41, 41), (3, 3)), ((1024, 41, 41), (7, 7)),
@@ -551,12 +627,25 @@ def main() -> None:
             _cuda_ms(lambda: median_highpass(tiles, size)),
             _cuda_ms(lambda: median_highpass_plain(tiles, size)),
         )
+    held = []
+    for label, shape, size, specials, misaligned in highpass_check_cases():
+        tiles = highpass_case_tiles(shape, specials, misaligned, cuda)
+        got = median_highpass(tiles, size)
+        want = median_highpass_plain(tiles, size)
+        variant = kernel_variant(size)
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=0, equal_nan=True,
+            msg=lambda m: f"median_highpass ({variant}) on {label} {shape} {size}: {m}",
+        )
+        hp_err = max(hp_err, highpass_mismatch(got, want))
+        held.append(f"{label} {shape[1]}x{shape[2]} {size[0]}x{size[1]} {variant} ({int(torch.isnan(want).sum())} NaN)")
     print(
         "phase 3 median_highpass bit-equal: "
         + "; ".join(
             f"{s[1]}x{s[2]} {k[0]}x{k[1]} kernel {a:.4f} ms plain {b:.4f} ms"
             for (s, k), (a, b) in hp_times.items()
-        ),
+        )
+        + f"; held to rtol=atol=0 with equal NaN: {'; '.join(held)}",
         flush=True,
     )
 
@@ -852,23 +941,33 @@ def main() -> None:
     # Phase 12: the stabilization modules, card against CPU.
     print("phase 12 card vs CPU: " + compare_stabilization(stab, cuda), flush=True)
 
-    # The kernels at phase 8's shapes, with phase 8's launches.
+    # The kernels at phase 8's shapes, with phase 8's launches. Each bound is
+    # the bytes the function must move (every input read once, every output
+    # written once) over the device memory rate: the high-pass reads and
+    # writes 4 bytes a pixel; the resample reads a float32 threshold and 7
+    # float32 columns and writes 7 columns, 60 bytes a particle. Their
+    # arithmetic is a subtraction a pixel and none, so bytes bind. No single
+    # PyTorch call computes a median filter or this gather: library_ms null.
     main_hp = hp_times[((20480, 31, 31), (5, 5))]
     main_rs = rs_times[(10240, 2048)]
+    bound_hp = 2 * 20480 * 31 * 31 * 4 / HBM_BYTES_PER_S * 1e3
+    bound_rs = 10240 * 2048 * 60 / HBM_BYTES_PER_S * 1e3
     print(json.dumps({"kernels": [
         {
             "name": "median_highpass", "route": "cuda",
             "source": "glimpse_tpu_torch/csrc/highpass.cu",
             "replaces": "glimpse_tpu/kernels/highpass_pallas.py:95",
             "launches": launches8["median_highpass"], "max_abs_err": hp_err,
-            "ms": main_hp[0], "plain_ms": main_hp[1],
+            "ms": main_hp[0], "plain_ms": main_hp[1], "bound_ms": bound_hp, "bound_by": "bytes",
+            "bound_share": bound_hp / main_hp[0], "library_ms": None,
         },
         {
             "name": "systematic_resample", "route": "cuda",
             "source": "glimpse_tpu_torch/csrc/resample.cu",
             "replaces": "glimpse_tpu/kernels/resample_pallas.py:556",
             "launches": launches8["systematic_resample"], "max_abs_err": rs_err,
-            "ms": main_rs[0], "plain_ms": main_rs[1],
+            "ms": main_rs[0], "plain_ms": main_rs[1], "bound_ms": bound_rs, "bound_by": "bytes",
+            "bound_share": bound_rs / main_rs[0], "library_ms": None,
         },
     ]}))
     print(json.dumps({

@@ -2,57 +2,391 @@
 //
 // Replaces the TPU kernel glimpse_tpu/kernels/highpass_pallas.py
 // (median_highpass, body _median_hp_kernel). Same function, same domain:
-// float32 tiles (N, h, w), odd kh and kw with kh * kw <= 49, symmetric
-// padding that includes the edge pixel (row -1 reads row 0, row h reads
-// row h - 1), as numpy's mode="symmetric".
+// float32 tiles (N, h, w), odd kh and kw with kh * kw <= 49, h >= kh / 2 + 1,
+// w >= kw / 2 + 1, symmetric padding that includes the edge pixel (row -1
+// reads row 0, row h reads row h - 1), as numpy's mode="symmetric".
 //
-// What bounds it on the card: bytes. Each tile is read once and written once,
-// about 2 * N * h * w * 4 bytes; the selection network is register work
-// (300 min/max pairs for 5x5) that hides behind those loads at these sizes.
+// What bounds it on the card: the issue of min/max, not bytes. Each tile is
+// read once and written once (8 bytes a pixel: 157 MB, 47 us at 3.35 TB/s
+// for the (20,480, 31, 31) stack of the main path), but a median network
+// costs tens of min/max a pixel, and Hopper issues min.NaN.f32 (FMNMX) at 62
+// a clock per SM, half its FP32 add rate (bench_highpass.py measures both).
+// So the design spends its effort on the network and hides the loads behind
+// it:
 //
-// The simple design: one block per tile. The block stages the padded
-// (h + kh - 1) x (w + kw - 1) window in shared memory, computing the
-// reflection itself, so every pixel is read from device memory once. Each
-// thread then owns one output pixel at a time, pulls its taps from shared
-// memory into registers and sorts them with an odd-even transposition
-// network. The network is compiled for S = 9, 25 or 49 taps; a window with
-// fewer taps is padded with equal numbers of -inf and +inf, which leaves the
-// middle element where it was. Selection does no arithmetic, so for finite
-// input the result is bit-equal to the sort-based median. Later work: several
-// tiles per block, cp.async/TMA staging, a shorter selection network.
+// 1. A selection network shared between neighbours (A. Adams, "Fast median
+//    filters using separable sorting networks", ACM TOG 40(4), 2021). Each
+//    thread owns a strip of R rows x 2 columns of outputs. It sorts each row
+//    segment of its window once (the kw - 1 taps the two columns share are
+//    sorted once, then each column's extra tap is merged in), then merges the
+//    sorted segments down the strip in a binary tree whose inner nodes, the
+//    segments that several outputs share, are merged once. Every merged node
+//    keeps only the ranks that can still be the median of some window that
+//    holds it; the ranks it drops below the median shift the target rank.
+//    Each leaf selects its median from two sorted lists as min_i max(a_i,
+//    b_{t-i}). All sizes and ranks are template constants, so the network is
+//    straight-line register code and the compiler drops every half of a
+//    compare-exchange whose output is not kept. For 5x5 the compiled kernel
+//    does 63.8 FMNMX per output pixel (1,020 for a strip of 16; sass.py
+//    counts them), against 444 for an odd-even transposition sort of the 25
+//    taps (600 before the compiler prunes it). With the loads, the index
+//    work and the stores it issues 110 instructions a pixel; the min/max
+//    alone, at 62 a clock per SM, take three quarters of its time on the
+//    (20,480, 31, 31) stack, so their issue, not memory, sets it.
+// 2. Compile-time windows. separable_kernel<KH, KW, R> is instantiated for
+//    3x3, 5x5, 7x7, 3x7 and 9x5. Every other odd window (kh * kw <= 49) runs
+//    generic_kernel<S>, one output pixel a thread: its taps are padded to
+//    S = 9, 25 or 49 with equal numbers of -inf and +inf, which leaves the
+//    median where it was, read through a table of offsets built once a
+//    block, and reduced by Batcher's merge sort, of which the compiler keeps
+//    only what reaches the middle wire (202 min/max for S = 25).
+//    glimpse_median_highpass picks the kernel; glimpse_median_highpass_variant
+//    names the one it picks.
+// 3. NaN that propagates. Every min and max is PTX min.NaN.f32 / max.NaN.f32:
+//    if either input is NaN the result is NaN. In a selection network every
+//    input of a window reaches its median through some chain of min and max,
+//    so a window that holds a NaN yields NaN, as torch.median does; no input
+//    outside the window reaches it. Selection does no arithmetic, so every
+//    other result, ties and +-inf included, is bit-equal to the plain version.
+// 4. Staging. A block takes G tiles at once (G * per-tile threads ~ 128, so a
+//    pass over the tiles is not ragged) and loops over groups of G tiles, a
+//    persistent grid of as many blocks as fit on the card. The next group is
+//    copied into the other of two shared-memory buffers with cp.async (16
+//    bytes a copy where source and buffer line up) while the current group
+//    runs its network. A group of tiles is one contiguous range of the input,
+//    so the copies are coalesced. The symmetric padding is read, not stored:
+//    each thread reflects its strip's row and column indices once. TMA does
+//    not fit: a 31-float row (124 bytes) is not the multiple of 16 bytes a
+//    tensor map's stride needs.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-template <int S>
-__device__ __forceinline__ float median_of(float (&v)[S]) {
+// ---- Selection networks (host and device, so they can be tested anywhere) --
+
+__host__ __device__ __forceinline__ float min_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || b != b) ? NAN : (b < a ? b : a);
+#endif
+}
+
+__host__ __device__ __forceinline__ float max_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || b != b) ? NAN : (a < b ? b : a);
+#endif
+}
+
+// A list of N values held in registers (every index is a compile-time constant
+// once the networks below are unrolled).
+template <int N>
+struct Vec {
+  float v[N > 0 ? N : 1];
+  __host__ __device__ __forceinline__ float& operator[](int i) { return v[i]; }
+  __host__ __device__ __forceinline__ const float& operator[](int i) const { return v[i]; }
+};
+
+template <int K, int LO, int M>
+__host__ __device__ __forceinline__ Vec<K> slice(const Vec<M>& a) {
+  Vec<K> out;
 #pragma unroll
-  for (int round = 0; round < S; ++round) {
+  for (int i = 0; i < K; ++i) out[i] = a[LO + i];
+  return out;
+}
+
+// Batcher's odd-even merge of sorted a (M) and sorted b (N), any sizes.
+template <int M, int N>
+__host__ __device__ __forceinline__ Vec<M + N> merge(const Vec<M>& a, const Vec<N>& b) {
+  Vec<M + N> out;
+  if constexpr (M == 0) {
 #pragma unroll
-    for (int i = round & 1; i < S - 1; i += 2) {
-      const float lo = fminf(v[i], v[i + 1]);
-      const float hi = fmaxf(v[i], v[i + 1]);
-      v[i] = lo;
-      v[i + 1] = hi;
+    for (int i = 0; i < N; ++i) out[i] = b[i];
+  } else if constexpr (N == 0) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) out[i] = a[i];
+  } else if constexpr (M == 1 && N == 1) {
+    out[0] = min_nan(a[0], b[0]);
+    out[1] = max_nan(a[0], b[0]);
+  } else {
+    Vec<(M + 1) / 2> a_even;
+    Vec<M / 2> a_odd;
+    Vec<(N + 1) / 2> b_even;
+    Vec<N / 2> b_odd;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      if (i % 2 == 0) a_even[i / 2] = a[i]; else a_odd[i / 2] = a[i];
     }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i % 2 == 0) b_even[i / 2] = b[i]; else b_odd[i / 2] = b[i];
+    }
+    const Vec<(M + 1) / 2 + (N + 1) / 2> v = merge(a_even, b_even);
+    const Vec<M / 2 + N / 2> w = merge(a_odd, b_odd);
+    constexpr int V = (M + 1) / 2 + (N + 1) / 2;
+    constexpr int W = M / 2 + N / 2;
+    constexpr int P = W < V - 1 ? W : V - 1;  // compare-exchange w[i] with v[i + 1]
+    out[0] = v[0];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      out[1 + 2 * i] = min_nan(w[i], v[i + 1]);
+      out[2 + 2 * i] = max_nan(w[i], v[i + 1]);
+    }
+#pragma unroll
+    for (int i = P; i < W; ++i) out[1 + P + i] = w[i];
+#pragma unroll
+    for (int i = P + 1; i < V; ++i) out[P + i] = v[i];
   }
-  return v[S / 2];
+  return out;
 }
 
-__device__ __forceinline__ int reflect(int i, int n) {
-  return i < 0 ? -i - 1 : (i >= n ? 2 * n - i - 1 : i);
+// Batcher's merge sort.
+template <int N>
+__host__ __device__ __forceinline__ Vec<N> sort(const Vec<N>& a) {
+  if constexpr (N <= 1) {
+    return a;
+  } else {
+    constexpr int H = N / 2;
+    return merge(sort(slice<H, 0>(a)), sort(slice<N - H, H>(a)));
+  }
+}
+
+// Rank T (0-based) of the union of sorted a (M) and sorted b (N):
+// min over i + j = T + 1 of max(a[i - 1], b[j - 1]), an absent side left out.
+template <int M, int N, int T>
+__host__ __device__ __forceinline__ float select(const Vec<M>& a, const Vec<N>& b) {
+  float r = 0.0f;
+  bool first = true;
+#pragma unroll
+  for (int i = 0; i <= T + 1; ++i) {
+    const int j = T + 1 - i;
+    if (i > M || j > N) continue;
+    const float term = i == 0 ? b[j - 1] : (j == 0 ? a[i - 1] : max_nan(a[i - 1], b[j - 1]));
+    r = first ? term : min_nan(r, term);
+    first = false;
+  }
+  return r;
+}
+
+constexpr int max_of(int a, int b) { return a > b ? a : b; }
+
+// Merge blocks [E0, E1) of sorted lists of B values, in a balanced tree.
+constexpr int floor_pow2(int x) {
+  int p = 1;
+  while (2 * p <= x) p *= 2;
+  return p;
+}
+
+template <int B, int E0, int E1, int NB>
+__host__ __device__ __forceinline__ Vec<(E1 - E0) * B> merge_range(const Vec<B> (&blocks)[NB]) {
+  if constexpr (E1 - E0 <= 0) {
+    return Vec<0>{};
+  } else if constexpr (E1 - E0 == 1) {
+    return blocks[E0];
+  } else {
+    constexpr int MID = E0 + floor_pow2(E1 - E0 - 1);
+    return merge(merge_range<B, E0, MID>(blocks), merge_range<B, MID, E1>(blocks));
+  }
+}
+
+// Which ranks of a sorted node of m values can still be the median: the
+// windows that hold the node have n values left and want rank t of them.
+// Dropping `lo` values from below makes the target t - lo.
+struct Keep {
+  int lo, count, t, n;
+};
+
+constexpr Keep keep(int m, int t, int n) {
+  const int lo = t - (n - m) > 0 ? t - (n - m) : 0;
+  const int hi = m - 1 < t ? m - 1 : t;
+  return {lo, hi - lo + 1, t - lo, n - lo - (m - 1 - hi)};
+}
+
+// Outputs LO..HI of one column of a strip: output r takes the sorted row
+// segments r .. r + KH - 1 (each of B values). `core` holds the kept ranks
+// of the segments all of LO..HI share; the windows want rank T of N values.
+template <int KH, int R, int B, int LO, int HI, int M, int T, int N>
+__host__ __device__ __forceinline__ void tree(const Vec<B> (&rows)[R + KH - 1], const Vec<M>& core,
+                                              float (&med)[R]);
+
+template <int KH, int R, int B, int A, int Z, int E0, int E1, int M, int T, int N>
+__host__ __device__ __forceinline__ void child(const Vec<B> (&rows)[R + KH - 1], const Vec<M>& core,
+                                               float (&med)[R]) {
+  constexpr Keep kx = keep((E1 - E0) * B, T, N);
+  const Vec<kx.count> extra = slice<kx.count, kx.lo>(merge_range<B, E0, E1>(rows));
+  if constexpr (A == Z) {
+    static_assert(M + kx.count == kx.n, "a leaf holds its whole window");
+    med[A] = select<M, kx.count, kx.t>(core, extra);
+  } else {
+    constexpr Keep kc = keep(M + kx.count, kx.t, kx.n);
+    tree<KH, R, B, A, Z, kc.count, kc.t, kc.n>(rows, slice<kc.count, kc.lo>(merge(core, extra)), med);
+  }
+}
+
+template <int KH, int R, int B, int LO, int HI, int M, int T, int N>
+__host__ __device__ __forceinline__ void tree(const Vec<B> (&rows)[R + KH - 1], const Vec<M>& core,
+                                              float (&med)[R]) {
+  if constexpr (LO == HI) {
+    static_assert(M == N, "a leaf holds its whole window");
+    med[LO] = core[T];
+  } else {
+    constexpr int MID = (LO + HI) / 2;
+    // Each half's shared segments, less the ones `core` already holds
+    // (none, when the half is too long to share any).
+    constexpr int LEFT_END = max_of(MID, HI < LO + KH ? HI : LO + KH);
+    constexpr int RIGHT_BEGIN = HI > LO + KH ? HI : LO + KH;
+    constexpr int RIGHT_END = max_of(RIGHT_BEGIN, MID + 1 + KH);
+    child<KH, R, B, LO, MID, MID, LEFT_END, M, T, N>(rows, core, med);
+    child<KH, R, B, MID + 1, HI, RIGHT_BEGIN, RIGHT_END, M, T, N>(rows, core, med);
+  }
+}
+
+// The medians of an R x 2 strip of outputs from its (R + KH - 1) x (KW + 1)
+// window x: med[c][r] is the median of x[r .. r + KH - 1][c .. c + KW - 1].
+template <int KH, int KW, int R>
+__host__ __device__ __forceinline__ void strip_medians(const float (&x)[R + KH - 1][KW + 1], float (&med)[2][R]) {
+  Vec<KW> rows[2][R + KH - 1];
+#pragma unroll
+  for (int i = 0; i < R + KH - 1; ++i) {
+    Vec<1> e[KW + 1];
+#pragma unroll
+    for (int j = 0; j < KW + 1; ++j) e[j][0] = x[i][j];
+    const Vec<KW - 1> shared = merge_range<1, 1, KW>(e);
+    rows[0][i] = merge(shared, e[0]);
+    rows[1][i] = merge(shared, e[KW]);
+  }
+  constexpr int N = KH * KW;
+  constexpr int ROOT_END = KH > R - 1 ? KH : R - 1;  // segments R - 1 .. KH - 1 are in every window
+  constexpr Keep k = keep((ROOT_END - (R - 1)) * KW, N / 2, N);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const Vec<k.count> core = slice<k.count, k.lo>(merge_range<KW, R - 1, ROOT_END>(rows[c]));
+    tree<KH, R, KW, 0, R - 1, k.count, k.t, k.n>(rows[c], core, med[c]);
+  }
+}
+
+// ---- Kernels ---------------------------------------------------------------
+
+constexpr int kThreads = 128;
+constexpr int kSmemLimit = 232448;  // bytes of shared memory one block may use on Hopper
+
+// Symmetric reflection into [0, n): -i - 1 below 0, 2n - 1 - i from n on;
+// 0 from 2n on, where only rows that feed unstored outputs land.
+__device__ __forceinline__ int reflect(int i, int n) { return max(min(max(i, ~i), 2 * n - 1 - i), 0); }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
+}
+
+// Floats of one staging buffer for `elems` values: 3 of slack so a group can
+// sit at the same offset modulo 4 floats as in device memory, rounded to 4.
+__host__ __device__ __forceinline__ int buffer_floats(int elems) { return (elems + 3 + 3) & ~3; }
+
+// Copy `count` floats from src + start into the buffer at dst_base, shifted by
+// their address's offset modulo 16 bytes; returns that shift in floats.
+__device__ __forceinline__ int stage(float* dst_base, const float* src, long long start, int count) {
+  const float* from = src + start;
+  const int shift = static_cast<int>((reinterpret_cast<unsigned long long>(from) >> 2) & 3);
+  float* dst = dst_base + shift;
+  const int head = min((4 - shift) & 3, count);
+  const int body = (count - head) / 4;
+  for (int e = threadIdx.x; e < head; e += blockDim.x) cp_async4(dst + e, from + e);
+  for (int k = threadIdx.x; k < body; k += blockDim.x) cp_async16(dst + head + 4 * k, from + head + 4 * k);
+  for (int e = head + 4 * body + threadIdx.x; e < count; e += blockDim.x) cp_async4(dst + e, from + e);
+  return shift;
+}
+
+template <int KH, int KW, int R>
+__global__ void __launch_bounds__(kThreads) separable_kernel(const float* __restrict__ in, float* __restrict__ out,
+                                                             int n, int h, int w, int per_block, int groups) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = h * w;
+  const int strips = (h + R - 1) / R;
+  const int pairs = (w + 1) / 2;
+  const int per_tile = strips * pairs;
+  const long long total = static_cast<long long>(n) * tile;
+  const int stride = buffer_floats(per_block * tile);
+  auto count_of = [&](int g) {
+    const long long start = static_cast<long long>(g) * per_block * tile;
+    return static_cast<int>(min(static_cast<long long>(per_block) * tile, total - start));
+  };
+
+  int shift[2];
+  shift[0] = stage(smem, in, static_cast<long long>(blockIdx.x) * per_block * tile, count_of(blockIdx.x));
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  int buf = 0;
+  for (int g = blockIdx.x; g < groups; g += gridDim.x, buf ^= 1) {
+    const int next = g + gridDim.x;
+    if (next < groups) {
+      shift[buf ^ 1] = stage(smem + (buf ^ 1) * stride, in, static_cast<long long>(next) * per_block * tile,
+                             count_of(next));
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncthreads();
+
+    const float* group = smem + buf * stride + shift[buf];
+    for (int item = threadIdx.x; item < per_block * per_tile; item += blockDim.x) {
+      const int local = item / per_tile;
+      const long long t = static_cast<long long>(g) * per_block + local;
+      if (t >= n) break;
+      const int rest = item - local * per_tile;
+      const int s = rest / pairs;
+      const int y0 = s * R;
+      const int x0 = 2 * (rest - s * pairs);
+      const float* src = group + local * tile;
+      int cols[KW + 1];
+#pragma unroll
+      for (int j = 0; j < KW + 1; ++j) cols[j] = reflect(x0 - KW / 2 + j, w);
+      float x[R + KH - 1][KW + 1];
+#pragma unroll
+      for (int i = 0; i < R + KH - 1; ++i) {
+        const float* row = src + reflect(y0 - KH / 2 + i, h) * w;
+#pragma unroll
+        for (int j = 0; j < KW + 1; ++j) x[i][j] = row[cols[j]];
+      }
+      float med[2][R];
+      strip_medians<KH, KW, R>(x, med);
+      float* dst = out + t * tile;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int y = y0 + r;
+        if (y >= h) break;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (x0 + c < w) dst[y * w + x0 + c] = x[r + KH / 2][c + KW / 2] - med[c][r];
+        }
+      }
+    }
+    __syncthreads();  // the next pass copies into the buffer just read
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 template <int S>
-__global__ void median_highpass_kernel(const float* __restrict__ in,
-                                       float* __restrict__ out, int h, int w,
-                                       int kh, int kw) {
-  extern __shared__ float window[];
+__global__ void __launch_bounds__(kThreads) generic_kernel(const float* __restrict__ in, float* __restrict__ out,
+                                                           int h, int w, int kh, int kw) {
+  extern __shared__ __align__(16) float smem[];
+  int* offsets = reinterpret_cast<int*>(smem);
+  float* window = smem + S;
   const int ph = kh / 2;
   const int pw = kw / 2;
   const int ih = h + kh - 1;
   const int iw = w + kw - 1;
+  const int taps = kh * kw;
   const size_t base = static_cast<size_t>(blockIdx.x) * h * w;
   const float* tile = in + base;
   for (int k = threadIdx.x; k < ih * iw; k += blockDim.x) {
@@ -60,57 +394,95 @@ __global__ void median_highpass_kernel(const float* __restrict__ in,
     const int c = reflect(k % iw - pw, w);
     window[k] = tile[r * w + c];
   }
+  for (int q = threadIdx.x; q < taps; q += blockDim.x) offsets[q] = (q / kw) * iw + q % kw;
   __syncthreads();
 
-  const int taps = kh * kw;
-  const int lo_pad = (S - taps) / 2;
   for (int p = threadIdx.x; p < h * w; p += blockDim.x) {
     const int y = p / w;
     const int x = p - y * w;
-    float v[S];
+    const float* corner = window + y * iw + x;
+    Vec<S> v;
 #pragma unroll
     for (int t = 0; t < S; ++t) {
-      const int q = t - lo_pad;
-      if (q < 0) {
-        v[t] = -INFINITY;
-      } else if (q < taps) {
-        const int dy = q / kw;
-        const int dx = q - dy * kw;
-        v[t] = window[(y + dy) * iw + x + dx];
-      } else {
-        v[t] = INFINITY;
-      }
+      // Past the taps: -inf, +inf, -inf, ... (an even count: S and taps are odd).
+      v[t] = t < taps ? corner[offsets[t]] : ((t - taps) % 2 ? INFINITY : -INFINITY);
     }
-    const float med = median_of<S>(v);
-    out[base + p] = window[(y + ph) * iw + x + pw] - med;
+    out[base + p] = corner[ph * iw + pw] - sort(v)[S / 2];
   }
 }
 
-template <int S>
-cudaError_t launch(const float* in, float* out, int n, int h, int w, int kh,
-                   int kw, cudaStream_t stream) {
-  const int smem = (h + kh - 1) * (w + kw - 1) * static_cast<int>(sizeof(float));
+// ---- Dispatch --------------------------------------------------------------
+
+// How many blocks of `kernel` the card holds at once.
+int blocks_per_card(const void* kernel, int threads, int smem) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  return (per_sm > 0 ? per_sm : 1) * sms;
+}
+
+// The windows separable_kernel is compiled for, each with its strip height R
+// (8 rows where the registers allow, 4 for the larger windows).
+#define GLIMPSE_SEPARABLE_WINDOWS(X) X(3, 3, 8) X(5, 5, 8) X(7, 7, 4) X(3, 7, 8) X(9, 5, 4)
+
+template <int KH, int KW, int R>
+cudaError_t launch_separable(const float* in, float* out, int n, int h, int w, cudaStream_t stream) {
+  const int per_tile = ((h + R - 1) / R) * ((w + 1) / 2);
+  int per_block = per_tile >= kThreads ? 1 : kThreads / per_tile;
+  auto smem_of = [&](int g) { return 2 * buffer_floats(g * h * w) * static_cast<int>(sizeof(float)); };
+  while (per_block > 1 && smem_of(per_block) > kSmemLimit) --per_block;
+  const int smem = smem_of(per_block);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  const auto kernel = separable_kernel<KH, KW, R>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        median_highpass_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  median_highpass_kernel<S><<<n, 256, smem, stream>>>(in, out, h, w, kh, kw);
+  const int threads = per_block * per_tile < kThreads ? per_block * per_tile : kThreads;
+  const int groups = (n + per_block - 1) / per_block;
+  const int card = blocks_per_card(reinterpret_cast<const void*>(kernel), threads, smem);
+  kernel<<<groups < card ? groups : card, threads, smem, stream>>>(in, out, n, h, w, per_block, groups);
+  return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t launch_generic(const float* in, float* out, int n, int h, int w, int kh, int kw, cudaStream_t stream) {
+  const int smem = (S + (h + kh - 1) * (w + kw - 1)) * static_cast<int>(sizeof(float));
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(generic_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  generic_kernel<S><<<n, kThreads, smem, stream>>>(in, out, h, w, kh, kw);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int glimpse_median_highpass(const float* in, float* out, int n,
-                                       int h, int w, int kh, int kw,
+// The kernel glimpse_median_highpass runs for a kh x kw window.
+extern "C" const char* glimpse_median_highpass_variant(int kh, int kw) {
+#define GLIMPSE_NAME(KH, KW, R) \
+  if (kh == KH && kw == KW) return "separable<" #KH "," #KW "," #R ">";
+  GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_NAME)
+#undef GLIMPSE_NAME
+  const int taps = kh * kw;
+  return taps <= 9 ? "generic<9>" : (taps <= 25 ? "generic<25>" : "generic<49>");
+}
+
+extern "C" int glimpse_median_highpass(const float* in, float* out, int n, int h, int w, int kh, int kw,
                                        void* stream) {
   if (n == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GLIMPSE_LAUNCH(KH, KW, R) \
+  if (kh == KH && kw == KW) return static_cast<int>(launch_separable<KH, KW, R>(in, out, n, h, w, s));
+  GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_LAUNCH)
+#undef GLIMPSE_LAUNCH
   const int taps = kh * kw;
-  if (taps <= 9) return static_cast<int>(launch<9>(in, out, n, h, w, kh, kw, s));
-  if (taps <= 25) return static_cast<int>(launch<25>(in, out, n, h, w, kh, kw, s));
-  return static_cast<int>(launch<49>(in, out, n, h, w, kh, kw, s));
+  if (taps <= 9) return static_cast<int>(launch_generic<9>(in, out, n, h, w, kh, kw, s));
+  if (taps <= 25) return static_cast<int>(launch_generic<25>(in, out, n, h, w, kh, kw, s));
+  return static_cast<int>(launch_generic<49>(in, out, n, h, w, kh, kw, s));
 }
 
 extern "C" const char* glimpse_error_string(int code) {

@@ -1,0 +1,168 @@
+"""Time high-pass kernels built from several sources on the same card.
+
+Run on a machine with a CUDA card and the toolkit, from the root of a
+checkout: ``python -m glimpse_tpu_torch.kernels.bench_highpass A.cu B.cu``
+(default: the checkout's ``csrc/highpass.cu``). Each source must export
+``glimpse_median_highpass`` with the signature the wrapper calls; each is
+built with the library's nvcc flags (the checkout's own source as the
+library itself, others into ``build/glimpse_tpu_torch/bench``).
+At each shape of the main path (5x5 taps) the sources are timed in turns,
+A B ... B A, with CUDA events (mean of 20 launches after 3 warm-ups), and
+every output is checked against the plain version. One line per shape gives
+each source's times, in order, beside the bound: 8 bytes a pixel over
+3.35 TB/s. A line before them gives the card's issue rate, per clock per SM,
+of min.NaN.f32, min.f32 and add.f32, from clock64() in a kernel that runs
+each in 8 independent chains per thread, and the SM clock during each.
+"""
+import ctypes
+import hashlib
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from . import _build, highpass
+from .highpass import median_highpass_plain
+
+SHAPES = ((20480, 31, 31), (1024, 41, 41), (1024, 15, 15))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
+
+
+def _load(source: Path):
+    if source.resolve() == (_build.SOURCE_DIR / "highpass.cu").resolve():
+        return highpass._entry()[1]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = _build.BUILD_DIR / "bench" / f"lib{source.stem}-{digest}.so"
+    if not lib.exists():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    fn = ctypes.CDLL(str(lib)).glimpse_median_highpass
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _time(fn, tiles, out, reps: int = 20) -> float:
+    n, h, w = tiles.shape
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        code = fn(tiles.data_ptr(), out.data_ptr(), n, h, w, 5, 5, stream)
+        if code != 0:
+            raise RuntimeError(f"CUDA error {code}")
+
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# Issue rate of one instruction: a kernel of 1,024 threads on every SM runs
+# it in 8 independent chains; instructions per clock per SM, from clock64().
+_PIPE_SOURCE = r"""
+#include <cuda_runtime.h>
+#define CHAIN(NAME, OP)                                                          \
+  __global__ void NAME(float* data, long long* cycles, int iters) {             \
+    float a[8], b[8];                                                           \
+    for (int i = 0; i < 8; ++i) { a[i] = data[i]; b[i] = data[8 + i]; }         \
+    __syncthreads();                                                            \
+    const long long start = clock64();                                          \
+    for (int k = 0; k < iters; ++k) {                                           \
+      _Pragma("unroll") for (int i = 0; i < 8; ++i)                             \
+        asm volatile(OP " %0, %0, %1;" : "+f"(a[i]) : "f"(b[i]));               \
+    }                                                                           \
+    __syncthreads();                                                            \
+    if (threadIdx.x == 0) cycles[blockIdx.x] = clock64() - start;               \
+    float s = 0.0f;                                                             \
+    for (int i = 0; i < 8; ++i) s += a[i];                                      \
+    if (s == 1.2345f) data[16 + threadIdx.x] = s;                               \
+  }
+CHAIN(chain_min_nan, "min.NaN.f32")
+CHAIN(chain_min, "min.f32")
+CHAIN(chain_add, "add.f32")
+
+extern "C" int pipe_run(int kind, float* data, long long* cycles, int iters, int blocks) {
+  void (*kernels[])(float*, long long*, int) = {chain_min_nan, chain_min, chain_add};
+  kernels[kind]<<<blocks, 1024>>>(data, cycles, iters);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  return static_cast<int>(err);
+}
+"""
+_PIPE_KINDS = ("min.NaN.f32", "min.f32", "add.f32")
+
+
+def pipe_rates(iters: int = 4096) -> dict:
+    """Instructions per clock per SM of each of _PIPE_KINDS, one block of
+    1,024 threads on every SM, the median over the SMs; and the SM clock
+    during each, the median block's cycles over the launch's event time (a
+    lower bound: the launch's own time is in the denominator)."""
+    source = _build.BUILD_DIR / "bench" / "pipe.cu"
+    lib = source.with_name("libpipe.so")
+    source.parent.mkdir(parents=True, exist_ok=True)
+    source.write_text(_PIPE_SOURCE)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)], check=True, capture_output=True)
+    run = ctypes.CDLL(str(lib)).pipe_run
+    run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    data = torch.rand(16 + 1024, device="cuda")
+    cycles = torch.zeros(sms, dtype=torch.int64, device="cuda")
+    rates = {}
+    for kind, name in enumerate(_PIPE_KINDS):
+        for _ in range(2):  # the first launch warms up
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            code = run(kind, data.data_ptr(), cycles.data_ptr(), iters, sms)
+            end.record()
+            if code != 0:
+                raise RuntimeError(f"pipe_run({name}) failed: CUDA error {code}")
+        end.synchronize()
+        median = float(cycles.double().median())
+        rates[name] = 1024 * 8 * iters / median
+        rates[f"SM GHz during {name}"] = median / (start.elapsed_time(end) * 1e6)
+    return rates
+
+
+def main(argv) -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_highpass needs a CUDA card")
+    sources = [Path(a) for a in argv] or [_build.SOURCE_DIR / "highpass.cu"]
+    fns = [_load(s) for s in sources]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"{card}; sources in order: {', '.join(map(str, sources))}", flush=True)
+    rates = pipe_rates()
+    print("issue rate, instructions per clock per SM: " + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()), flush=True)
+    rng = np.random.default_rng(0)
+    for shape in SHAPES:
+        tiles = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+        want = median_highpass_plain(tiles, (5, 5))
+        order = list(range(len(fns))) + list(reversed(range(len(fns))))
+        times = [[] for _ in fns]
+        for i in order:
+            out = torch.empty_like(tiles)
+            times[i].append(_time(fns[i], tiles, out))
+            if not torch.equal(out, want):
+                raise AssertionError(f"{sources[i]} differs from the plain version at {shape}")
+        bound = 2 * tiles.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        print(
+            f"{shape} 5x5: bound {bound:.4f} ms; "
+            + "; ".join(f"source {i + 1} {' '.join(f'{t:.4f}' for t in ts)} ms ({bound / min(ts):.3f} of bound)"
+                        for i, ts in enumerate(times)),
+            flush=True,
+        )
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

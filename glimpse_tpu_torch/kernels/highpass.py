@@ -16,6 +16,10 @@ from . import _build
 
 MAX_TAPS = 49
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+# The windows with a kernel of their own (GLIMPSE_SEPARABLE_WINDOWS in
+# csrc/highpass.cu); the other windows run the generic kernel with their taps
+# padded to 9, 25 or 49.
+SEPARABLE = frozenset({(3, 3), (5, 5), (7, 7), (3, 7), (9, 5)})
 
 
 @functools.cache
@@ -24,14 +28,35 @@ def _entry():
     fn = lib.glimpse_median_highpass
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.glimpse_median_highpass_variant.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.glimpse_median_highpass_variant.restype = ctypes.c_char_p
     return lib, fn
+
+
+def kernel_variant(size: Tuple[int, int]) -> str:
+    """The name of the compiled kernel a CUDA call with this window runs
+    (builds the library on first use)."""
+    lib, _ = _entry()
+    return lib.glimpse_median_highpass_variant(*size).decode()
+
+
+def _shared_bytes(h: int, w: int, kh: int, kw: int) -> int:
+    """Shared memory the kernel needs for one tile: two cp.async staging
+    buffers for a separable window, the padded tile and its tap offsets for
+    the generic kernel."""
+    if (kh, kw) in SEPARABLE:
+        return 2 * ((h * w + 6) & ~3) * 4
+    padded_taps = next(s for s in (9, 25, MAX_TAPS) if kh * kw <= s)
+    return 4 * (padded_taps + (h + kh - 1) * (w + kw - 1))
 
 
 def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torch.Tensor:
     """``tile - median_{kh x kw}(tile)`` over a stack (N, h, w) of float32 tiles.
 
     Symmetric padding that repeats the edge pixel; odd ``kh`` and ``kw`` with
-    at most 49 taps. Bit-equal on both devices for finite input.
+    at most 49 taps. Bit-equal on both devices for every input: a window that
+    holds a NaN gives NaN, as ``torch.median`` does; ties and +-inf select
+    the same value.
     """
     kh, kw = size
     if kh % 2 == 0 or kw % 2 == 0 or kh * kw > MAX_TAPS:
@@ -43,8 +68,8 @@ def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torc
     N, h, w = tiles.shape
     if h < kh // 2 + 1 or w < kw // 2 + 1:
         raise ValueError(f"tiles {h}x{w} are too small for {kh}x{kw} taps")
-    if (h + kh - 1) * (w + kw - 1) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"a padded {h}x{w} tile does not fit one block's shared memory")
+    if _shared_bytes(h, w, kh, kw) > _SMEM_LIMIT:
+        raise ValueError(f"a {h}x{w} tile does not fit one block's shared memory")
     if tiles.device.type == "cpu":
         return median_highpass_plain(tiles, size)
     if tiles.device.type != "cuda":

@@ -86,7 +86,7 @@ class DeviceRaster:
         return self.array[rows, cols]
 
     @classmethod
-    def constant(cls, value: float, device="cpu") -> "DeviceRaster":
+    def constant(cls, value: float, device="cuda") -> "DeviceRaster":
         """An infinite-extent constant raster."""
         return cls(
             array=torch.full((1, 1), float(value), device=device),
@@ -517,7 +517,7 @@ class BatchTracker:
     """
 
     def __init__(self, camera_vectors, corrections, sigmas, motion: BatchMotion,
-                 config: BatchConfig = None, device="cpu", viewshed: Optional[DeviceRaster] = None) -> None:
+                 config: BatchConfig = None, device="cuda", viewshed: Optional[DeviceRaster] = None) -> None:
         self.device = torch.device(device)
         self.camera_vectors = _as_tensor(camera_vectors, self.device)
         self.n_observers = self.camera_vectors.shape[0]

@@ -9,7 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from glimpse_tpu_torch.kernels.highpass import median_highpass, median_highpass_plain
+from chip_smoke import highpass_case_tiles, highpass_check_cases
+from glimpse_tpu_torch.kernels.highpass import SEPARABLE, kernel_variant, median_highpass, median_highpass_plain
 from glimpse_tpu_torch.kernels.resample import systematic_resample, systematic_resample_plain
 from glimpse_tpu_torch.ops.resampling import systematic_thresholds
 
@@ -30,6 +31,34 @@ def test_highpass_kernel_bit_exact(cuda, shape, size) -> None:
     got = median_highpass(tiles, size)
     assert median_highpass.launches == before + 1
     assert torch.equal(got, median_highpass_plain(tiles, size))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "label, shape, size, specials, misaligned", highpass_check_cases(),
+    ids=[f"{c[0]}-{'x'.join(map(str, c[1]))}-{c[2][0]}x{c[2][1]}" for c in highpass_check_cases()],
+)
+def test_highpass_kernel_holds_nan_ties_and_inf(cuda, label, shape, size, specials, misaligned) -> None:
+    """Tied values, NaN at a corner, an edge and inside, +-inf, every
+    compiled window and generic ones, the smallest tiles: equal to the plain
+    version with NaN exactly where it has NaN (chip_smoke phase 3's cases)."""
+    tiles = highpass_case_tiles(shape, specials, misaligned, cuda)
+    got = median_highpass(tiles, size)
+    want = median_highpass_plain(tiles, size)
+    variant = kernel_variant(size)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True, msg=lambda m: f"{variant}: {m}")
+    if specials:
+        assert torch.isnan(want).any()
+
+
+@pytest.mark.cuda
+def test_highpass_variants_match_the_wrapper(cuda) -> None:
+    """The library runs a separable kernel exactly for the windows the
+    wrapper's shared-memory check counts as separable."""
+    for kh in range(1, 50, 2):
+        for kw in range(1, 50, 2):
+            if kh * kw <= 49:
+                assert kernel_variant((kh, kw)).startswith("separable") == ((kh, kw) in SEPARABLE), (kh, kw)
 
 
 @pytest.mark.cuda

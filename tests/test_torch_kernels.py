@@ -16,6 +16,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
+from chip_smoke import highpass_tiles
 from glimpse_tpu.kernels.highpass_pallas import median_highpass as pallas_highpass
 from glimpse_tpu.kernels.resample_pallas import systematic_resample_gather
 from glimpse_tpu.ops import imageproc as jax_imageproc
@@ -44,6 +45,30 @@ def test_highpass_plain_bit_exact(shape, size) -> None:
     ours = median_highpass(torch.from_numpy(x), size).numpy()
     np.testing.assert_array_equal(ours, np.asarray(pallas_highpass(jnp.asarray(x), size=size, interpret=True)))
     np.testing.assert_array_equal(ours, np.asarray(jax_imageproc.highpass(jnp.asarray(x), size=size, xp=jnp)))
+
+
+@pytest.mark.parametrize(
+    "shape, size",
+    [
+        ((6, 31, 31), (5, 5)), ((6, 41, 41), (5, 5)), ((6, 15, 15), (5, 5)),  # the main path's tiles
+        ((6, 15, 15), (3, 3)), ((6, 15, 15), (7, 7)), ((6, 15, 15), (3, 7)), ((6, 15, 15), (9, 5)),
+        ((6, 15, 15), (3, 11)), ((6, 3, 3), (5, 5)),
+    ],
+)
+def test_highpass_plain_holds_nan_ties_and_inf(shape, size) -> None:
+    """The semantics the card's kernel is held to: on tiles of tied values
+    with a NaN pixel at a corner, an edge and inside and +-inf pixels
+    (``chip_smoke.highpass_tiles``), the plain version has the NaN mask of
+    the Pallas kernel (interpret mode) and of the reference's sort-median
+    high-pass, and equal values elsewhere."""
+    x = highpass_tiles(shape, seed=2)
+    ours = median_highpass(torch.from_numpy(x), size).numpy()
+    assert np.isnan(ours).any() and np.isinf(x).any()
+    for reference in (
+        pallas_highpass(jnp.asarray(x), size=size, interpret=True),
+        jax_imageproc.highpass(jnp.asarray(x), size=size, xp=jnp),
+    ):
+        np.testing.assert_array_equal(ours, np.asarray(reference))
 
 
 def test_resample_plain_bit_exact() -> None:

@@ -223,7 +223,7 @@ def test_step_with_each_resampler_matches_reference(stepped, method) -> None:
     u = np.array(jax.random.uniform(k_resample, state.weights.shape))
     port = batch.BatchTracker(
         cam.to_array()[None], [None], [0.15], convert.motion_from_numpy(dataclasses.asdict(motion), "cpu"),
-        batch.BatchConfig(resample_method=method, **sizes),
+        batch.BatchConfig(resample_method=method, **sizes), device="cpu",
     )
     nxt, out = port.step(
         convert.state_from_numpy(**leaves, device="cpu"), torch.from_numpy(frames[1][None]), torch.tensor(1.0),

@@ -65,7 +65,7 @@ def pair(cams, motion, viewshed=None, **settings):
         )
     port = batch.BatchTracker(
         cams, [None] * O, [0.15] * O, convert.motion_from_numpy(dataclasses.asdict(motion), "cpu"),
-        batch.BatchConfig(**settings), viewshed=port_viewshed,
+        batch.BatchConfig(**settings), device="cpu", viewshed=port_viewshed,
     )
     return reference, port
 
@@ -215,7 +215,7 @@ def test_fully_masked_observer_equals_one_observer(late_scene) -> None:
     dts = np.ones(len(images) - 1, np.float32)
 
     def run(n_obs, masks):
-        tracker = batch.BatchTracker(np.stack([cam] * n_obs), [None] * n_obs, [0.15] * n_obs, port_motion, config)
+        tracker = batch.BatchTracker(np.stack([cam] * n_obs), [None] * n_obs, [0.15] * n_obs, port_motion, config, device="cpu")
         return tracker.track(torch.Generator(), images[:, :n_obs], dts, noise=noise, obs_masks=masks)[1]["mean"]
 
     masks = np.stack([np.ones(len(dts)), np.zeros(len(dts))], axis=1)
@@ -277,7 +277,7 @@ def test_viewshed_start_check() -> None:
 
     def build(points):
         motion = convert.motion_from_numpy(dataclasses.asdict(make_motion(np.array(points))), "cpu")
-        return batch.BatchTracker(cam, [None], [0.3], motion, viewshed=viewshed)
+        return batch.BatchTracker(cam, [None], [0.3], motion, device="cpu", viewshed=viewshed)
 
     with pytest.raises(ValueError, match="non-visible"):
         build([[16.0, 48.0], [48.0, 48.0]])

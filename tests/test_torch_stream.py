@@ -36,7 +36,7 @@ def scene():
     motion = make_motion(starts)
     tracker = batch.BatchTracker(
         cams, [None, None], [0.15, 0.15], convert.motion_from_numpy(dataclasses.asdict(motion), "cpu"),
-        batch.BatchConfig(**SETTINGS),
+        batch.BatchConfig(**SETTINGS), device="cpu",
     )
     return tracker, cams, motion, images, masks, np.array([True, False])
 

@@ -44,7 +44,7 @@ def scene():
     port = batch.BatchTracker(
         cam.to_array()[None], [None], [0.15],
         convert.motion_from_numpy(dataclasses.asdict(jax_motion), "cpu"),
-        batch.BatchConfig(n_particles=P, **SIZES),
+        batch.BatchConfig(n_particles=P, **SIZES), device="cpu",
     )
     return frames[:, None], noise, reference, port
 
@@ -91,7 +91,7 @@ def test_port_recovers_velocity() -> None:
     points_xy = np.random.default_rng(1).uniform(180, 320, size=(8, 2))
     motion = convert.motion_from_numpy(dataclasses.asdict(make_motion(points_xy)), "cpu")
     tracker = batch.BatchTracker(
-        cam.to_array()[None], [None], [0.15], motion, batch.BatchConfig(n_particles=512, **SIZES)
+        cam.to_array()[None], [None], [0.15], motion, batch.BatchConfig(n_particles=512, **SIZES), device="cpu"
     )
     _, out = tracker.track(torch.Generator().manual_seed(0), frames[:, None], np.ones(5))
     means = out["mean"].numpy()
@@ -198,3 +198,23 @@ def test_track_one_frame_returns_empty_outputs(scene) -> None:
     assert tuple(out["mean"].shape) == (0, N, 6) and tuple(out["valid"].shape) == (0, N)
     np.testing.assert_allclose(state.particles.numpy(), np.asarray(ref_state.particles), atol=0, rtol=1e-6)
     np.testing.assert_allclose(state.templates.numpy(), np.asarray(ref_state.templates), atol=1e-5, rtol=0)
+
+
+def test_tracker_defaults_to_the_card() -> None:
+    """``BatchTracker`` and ``DeviceRaster.constant`` default to ``"cuda"``,
+    as the port's other entry points do. Built without ``device=`` on a host
+    without a card, a tracker raises rather than landing on the CPU."""
+    import inspect
+
+    for fn in (batch.BatchTracker.__init__, batch.DeviceRaster.constant):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    motion = convert.motion_from_numpy(dataclasses.asdict(make_motion(np.zeros((2, 2)))), "cpu")
+    cam = np.zeros((1, 20), np.float32)
+    if torch.cuda.is_available():
+        assert batch.BatchTracker(cam, [None], [0.3], motion).device.type == "cuda"
+        assert batch.DeviceRaster.constant(0.0).array.device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        batch.BatchTracker(cam, [None], [0.3], motion)
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        batch.DeviceRaster.constant(0.0)
