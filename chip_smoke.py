@@ -6,8 +6,10 @@ each:
 
 1. the card (name and power limit from nvidia-smi) and the torch and CUDA
    versions; no card, no run;
-2. build both CUDA kernels from ``glimpse_tpu_torch/csrc``, and count the
-   5x5 high-pass kernel's SASS instructions per output pixel;
+2. build both CUDA kernels from ``glimpse_tpu_torch/csrc`` and, with g++,
+   the host feeder library from ``glimpse_tpu_torch/native/src`` (a failed
+   build raises; the line says which feeder path runs), and count the 5x5
+   high-pass kernel's SASS instructions per output pixel;
 3. the median high-pass kernel against its plain version on the card,
    bit for bit, and both times, at the main path's shapes; then, held with
    rtol = atol = 0 and NaN where the plain version has NaN, tiles of tied
@@ -49,7 +51,33 @@ each:
     inverse projection through the three solvers within 1e-5; matching with
     identical indices and ratios within 1e-5; at least 98 % of keypoints
     within 1e-2 px, their descriptors within 1e-3; refinement within 1e-3
-    px; the fit within 2e-3 deg.
+    px; the fit within 2e-3 deg;
+13. terrain on the card: a 2,048 x 2,048 DEM of 10 m cells (relief of a few
+    hundred metres, a block of NaN cells) as a ``Raster``;
+    ``Raster.viewshed(origin, correction=True)`` on the card in float32
+    against the same call on the CPU in float64 (at most 0.5 % of cells may
+    differ, and at least 80 % of those, once there are 50 of them, must have
+    a neighbour of the other class in the CPU's mask: grazing boundaries); on
+    a 256 x 256 crop the
+    card's polar viewshed (oversample 4) against ``viewshed_rings`` on at
+    least 98 % of cells; ``Raster.horizon(origin, range(360))`` card against
+    CPU, elevation angles within 1e-3 rad;
+14. objects in, ``Tracks`` out, at full width: the recipe of
+    ``examples/oblique_3d_tracking.py``: an oblique ``Camera`` (f = 512,
+    pitched 35 deg down) over a DEM ``Raster`` whose texture moves (1.2, 0.8)
+    a frame; 10 frames of 512 x 512 rendered by ``render.project_dem`` and
+    inpainted, each an ``Image`` with its ``array`` set; one ``Observer``
+    (sigma 0.2); the DEM's viewshed from the camera, computed on the card, as
+    ``viewshed=``; 10,240 host ``CartesianMotion`` models (DEM prior 0.5)
+    stacked by ``BatchMotion.from_motions``; ``BatchTracker.from_observers``
+    at 2,048 particles and 41 x 41 search boxes; ``feeder.stream_track``
+    forward and backward, ``to_tracks``, ``reverse``,
+    ``Tracks.from_multiple``. Both kernels must launch on this path; the
+    median velocity of each run within 0.3 of the truth, the fused median
+    final position error under 0.5 m, the median |z - DEM| under the 0.5 m
+    prior, no point with an error; then one step under ``torch.profiler``;
+15. the same object path on the card and on the CPU at 16 points x 256
+    particles from shared draws: each step from a shared state within 1e-3.
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
@@ -562,6 +590,377 @@ def compare_stabilization(stab, device) -> str:
     return "; ".join(report)
 
 
+TERRAIN_CELLS, TERRAIN_CELL = 2048, 10.0
+
+
+def terrain_dem(seed: int = 0):
+    """Phase 13's DEM as a ``Raster``: Gaussian-filtered relief with a
+    standard deviation of 150 m on 2,048 x 2,048 cells of 10 m, a block of
+    NaN cells, and a station 2 m above the highest cell of its south-west
+    part. Returns (raster, origin (x, y, z))."""
+    import scipy.ndimage
+
+    from glimpse_tpu_torch import Raster
+
+    n, d = TERRAIN_CELLS, TERRAIN_CELL
+    z = scipy.ndimage.gaussian_filter(np.random.default_rng(seed).normal(size=(n, n)), 40.0)
+    z *= 150.0 / z.std()
+    z[n * 300 // 2048 : n * 360 // 2048, n * 1500 // 2048 : n * 1600 // 2048] = np.nan
+    dem = Raster(z, x=(0.0, n * d), y=(n * d, 0.0))
+    r0, c0 = n * 1400 // 2048, n * 150 // 2048
+    window = z[r0 : r0 + n * 500 // 2048, c0 : c0 + n * 500 // 2048]
+    row, col = np.unravel_index(np.argmax(window), window.shape)
+    row, col = row + r0, col + c0
+    return dem, (float(dem.x[col]), float(dem.y[row]), float(z[row, col]) + 2.0)
+
+
+def boundary_share(differ: np.ndarray, mask: np.ndarray) -> float:
+    """Share of the cells in ``differ`` that have a neighbour (8-connected)
+    of the other class in ``mask``."""
+    import scipy.ndimage
+
+    if not differ.any():
+        return 1.0
+    on_boundary = scipy.ndimage.maximum_filter(mask, 3) != scipy.ndimage.minimum_filter(mask, 3)
+    return float(on_boundary[differ].mean())
+
+
+def terrain_on_the_card(cuda) -> str:
+    """Phase 13; raises on a disagreement and returns the line to print."""
+    import torch
+
+    from glimpse_tpu_torch.ops import terrain
+
+    dem, origin = terrain_dem()
+    cpu = torch.device("cpu")
+
+    def wall(fn):
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start
+
+    dem.viewshed(origin, correction=True)  # warm-up: allocator, first launches
+    torch.cuda.reset_peak_memory_stats()
+    on_card, card_s = wall(lambda: dem.viewshed(origin, correction=True))
+    peak = torch.cuda.max_memory_allocated()
+    on_cpu, cpu_s = wall(lambda: dem.viewshed(origin, correction=True, device=cpu))
+    rowcol = dem.xy_to_rowcol(np.atleast_2d(origin[:2]))[0]
+    args = ((float(rowcol[0]), float(rowcol[1])), origin[2], TERRAIN_CELL)
+    z_card = torch.from_numpy(dem.array).to(cuda, torch.float32)
+    device_ms = _cuda_ms(lambda: terrain.viewshed(z_card, *args, correction=(6.3781e6, 0.13), device=cuda), reps=3)
+    differ = on_card != on_cpu
+    share, grazing = float(differ.mean()), boundary_share(differ, on_cpu)
+    # With under 50 differing cells the boundary share is too coarse to hold.
+    if share > 0.005 or (grazing < 0.8 and differ.sum() >= 50) or on_card[np.isnan(dem.array)].any():
+        raise AssertionError(
+            f"viewshed on the card and the CPU: {share:.6f} of cells differ (limit 0.005),"
+            f" {grazing:.3f} of them on a boundary (at least 0.8)"
+        )
+    # A 256 x 256 crop around the station against the ring sweep.
+    r0 = int(np.clip(round(rowcol[0]) - 128, 0, TERRAIN_CELLS - 256))
+    c0 = int(np.clip(round(rowcol[1]) - 128, 0, TERRAIN_CELLS - 256))
+    crop = dem[r0 : r0 + 256, c0 : c0 + 256]
+    polar = crop.viewshed(origin, correction=True, oversample=4.0)
+    rings, rings_s = wall(lambda: crop.viewshed(origin, correction=True, method="rings"))
+    agree = float((polar == rings).mean())
+    if agree < 0.98:
+        raise AssertionError(f"polar viewshed agrees with the ring sweep on {agree:.4f} of the crop (at least 0.98)")
+    # The horizon, through the raster and through the op.
+    dem.horizon(origin, range(360), correction=True)  # warm-up
+    segments, horizon_s = wall(lambda: dem.horizon(origin, range(360), correction=True))
+    cpu_segments = dem.horizon(origin, range(360), correction=True, device=cpu)
+    thetas = np.deg2rad(np.arange(360.0))
+    both = {
+        name: [t.cpu().numpy() for t in terrain.horizon_angles(
+            dem.array, *args, thetas, correction=(6.3781e6, 0.13), device=d)]
+        for name, d in (("card", cuda), ("cpu", cpu))
+    }
+    angle_diff = float(np.abs(both["card"][0] - both["cpu"][0]).max())
+    same_valid = int((both["card"][3] == both["cpu"][3]).sum())
+    same_radius = int((both["card"][1] == both["cpu"][1]).sum())
+    # Float32 resolves a polar position near index 2,000 to 1.2e-4 cell,
+    # millimetres of elevation on a steep slope, over a first sample 5 m away.
+    if angle_diff > 1e-3 or same_valid < 357:
+        raise AssertionError(f"horizon on the card and the CPU: angles differ by {angle_diff}, {same_valid} of 360 flags equal")
+    n_radii = int(np.ceil(terrain._max_radius(dem.array.shape, args[0]) * 2.0))
+    return (
+        f"DEM {TERRAIN_CELLS}x{TERRAIN_CELLS} cells of {TERRAIN_CELL:g} m, relief {np.nanmin(dem.array):.0f} to"
+        f" {np.nanmax(dem.array):.0f} m, {int(np.isnan(dem.array).sum())} NaN cells, station at cell"
+        f" ({rowcol[0]:.1f}, {rowcol[1]:.1f}), polar grid {terrain.MAX_HEADINGS} x {n_radii};"
+        f" Raster.viewshed(correction=True) card float32 {card_s * 1e3:.1f} ms with both copies"
+        f" ({device_ms:.1f} ms on the device, CUDA events, peak {peak / 2**30:.2f} GiB),"
+        f" CPU float64 {cpu_s * 1e3:.0f} ms; visible share {on_card.mean():.4f} (CPU {on_cpu.mean():.4f});"
+        f" {int(differ.sum())} cells differ ({share:.2e}, limit 5e-3), {grazing:.3f} of them on a boundary"
+        f" (at least 0.8); 256x256 crop, oversample 4, against viewshed_rings ({rings_s * 1e3:.0f} ms on the host):"
+        f" {agree:.4f} agree (at least 0.98); Raster.horizon 360 headings card {horizon_s * 1e3:.1f} ms,"
+        f" {len(segments)} segments (CPU {len(cpu_segments)}), angles max |diff| {angle_diff:.3g} rad (limit 1e-3),"
+        f" {same_valid} of 360 validity flags and {same_radius} of 360 radii equal"
+    )
+
+
+OBLIQUE_VELOCITY = (1.2, 0.8)  # world units a frame in x, y
+OBLIQUE_IMG = 512
+
+
+def oblique_scene(n_frames: int, cuda, seed: int = 7):
+    """examples/oblique_3d_tracking.py's scene at 512 x 512: a gently
+    undulating DEM of 640 x 640 cells of 1.25 m with a sharp texture that
+    moves ``OBLIQUE_VELOCITY`` a frame, seen from (200, -150, 260) pitched 35
+    deg down with f = 512. Frames are rendered by ``render.project_dem`` and
+    their holes (sky, streaks) filled from the nearest rendered pixel, as
+    the example does. Returns a dict: dem, cam, observer (``Image`` objects
+    with ``array`` set), viewshed (a ``Raster``, computed on ``cuda``), its
+    visible share, and the seconds spent rendering and in the viewshed."""
+    import datetime
+
+    import scipy.ndimage
+
+    from glimpse_tpu_torch import Camera, Image, Raster, render
+    from glimpse_tpu_torch.track import Observer
+
+    rng = np.random.default_rng(seed)
+    cells = 640
+    z = scipy.ndimage.gaussian_filter(rng.normal(size=(cells, cells)), 24.0) * 120
+    dem = Raster(z, x=(-200, 600), y=(600, -200))
+    texture = scipy.ndimage.gaussian_filter(rng.normal(size=(cells, cells)), 0.8) * 100
+    cam_args = dict(imgsz=(OBLIQUE_IMG, OBLIQUE_IMG), f=512, xyz=(200, -150, 260), viewdir=(0, -35, 0))
+    t0, day = datetime.datetime(2020, 1, 1), datetime.timedelta(days=1)
+    start = time.perf_counter()
+    images = []
+    for i in range(n_frames):
+        shifted = scipy.ndimage.shift(
+            texture, (OBLIQUE_VELOCITY[1] * i / dem.d[1], OBLIQUE_VELOCITY[0] * i / dem.d[0]), order=1, mode="nearest")
+        img = render.project_dem(Camera(**cam_args), dem, values=shifted[..., None], scale_limits=(1, 8), parallel=4)[..., 0]
+        idx = scipy.ndimage.distance_transform_edt(np.isnan(img), return_distances=False, return_indices=True)
+        image = Image(f"frame{i}.jpg", cam=Camera(**cam_args), datetime=t0 + i * day)
+        image.array = img[tuple(idx)].astype(np.float32)
+        images.append(image)
+    render_s = time.perf_counter() - start
+    start = time.perf_counter()
+    visible = dem.viewshed(cam_args["xyz"], device=cuda)
+    viewshed_s = time.perf_counter() - start
+    return {
+        "dem": dem, "cam": images[0].cam, "observer": Observer(images, sigma=0.2), "day": day,
+        "viewshed": Raster(visible.astype(np.float32), x=dem.xlim, y=dem.ylim), "visible": float(visible.mean()),
+        "render_s": render_s, "viewshed_s": viewshed_s,
+    }
+
+
+def oblique_points(scene, n: int, seed: int = 8) -> np.ndarray:
+    """``n`` points on the DEM inside the frame whose surroundings (20 m) are
+    visible, so that no particle of a point that tracks starts or drifts onto
+    a hidden cell."""
+    import scipy.ndimage
+
+    from glimpse_tpu_torch import Raster
+
+    dem, viewshed = scene["dem"], scene["viewshed"]
+    margin = int(np.ceil(20.0 / abs(dem.d[0])))
+    safe = Raster(
+        scipy.ndimage.binary_erosion(viewshed.array > 0, iterations=margin).astype(np.float32),
+        x=viewshed.xlim, y=viewshed.ylim,
+    )
+    xy = np.random.default_rng(seed).uniform([120, 150], [280, 280], size=(2 * n, 2))
+    xy = xy[safe.sample(xy, order=0) > 0]
+    if len(xy) < n:
+        raise AssertionError(f"only {len(xy)} of the {n} points asked for start on visible terrain")
+    return xy[:n]
+
+
+def oblique_tracker(scene, points_xy, n_particles: int, device):
+    """The object path: host ``CartesianMotion`` models stacked by
+    ``from_motions``, the tracker from the observer, the viewshed a host
+    raster."""
+    from glimpse_tpu_torch.track import CartesianMotion, batch
+
+    motions = [
+        CartesianMotion(
+            xy=xy, time_unit=scene["day"], dem=scene["dem"], dem_sigma=0.5, n=n_particles, xy_sigma=(1.0, 1.0),
+            vxyz_sigma=(1.5, 1.5, 0.05), axyz_sigma=(0.1, 0.1, 0.01),
+        )
+        for xy in points_xy
+    ]
+    motion = batch.BatchMotion.from_motions(motions, device=device)
+    config = batch.BatchConfig(n_particles=n_particles, search_size=(41, 41))
+    return batch.BatchTracker.from_observers(
+        [scene["observer"]], motion, config, device=device, viewshed=scene["viewshed"])
+
+
+def stacked(outputs) -> dict:
+    """``track_stream``'s per-step outputs as time-major tensors."""
+    import torch
+
+    return {k: torch.stack([o[k] for o in outputs]) for k in outputs[0]}
+
+
+def profile_step(tracker, state, frame) -> str:
+    """One tracker step under ``torch.profiler``: the synchronised window's
+    milliseconds, the device's busy milliseconds (kernel times summed), the
+    idle share and the number of kernel launches; "not measured" where the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dt = torch.tensor(1.0, device=tracker.device)
+    for _ in range(2):
+        tracker.step(state, frame, dt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        tracker.step(state, frame, dt)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - start) * 1e3
+    rows = prof.key_averages()
+
+    def device_us(row):
+        return getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0)
+
+    kernels = [r for r in rows if device_us(r) > 0 and r.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(device_us(r) for r in kernels) / 1e3
+    if busy_ms <= 0:
+        return f"profile: {window_ms:.3f} ms under the profiler, device time not measured"
+    # Device time by the operator that launched it, where the profiler
+    # attributes it; else by kernel name.
+    ops = [r for r in rows if device_us(r) > 0 and r.device_type == torch.autograd.DeviceType.CPU]
+    top = sorted(ops or kernels, key=device_us, reverse=True)[:5]
+    return (
+        f"profile of one step: {window_ms:.3f} ms under the profiler, device busy {busy_ms:.3f} ms, idle share"
+        f" {max(0.0, 1 - busy_ms / window_ms):.3f}, {sum(r.count for r in kernels)} kernel launches; most device time: "
+        + ", ".join(f"{r.key[:40]} {device_us(r) / 1e3:.2f} ms" for r in top)
+    )
+
+
+def lockstep_from_shared_state(card, cpu, images, noise, n_steps: int):
+    """Each of ``n_steps`` steps on both trackers from the CPU's state moved
+    to the card, with the same injected draws; returns (largest |diff| of
+    the outputs "mean" and "sigma", number of validity flags that differ)."""
+    import torch
+
+    cuda = card.device
+    state = cpu.initialize(torch.Generator().manual_seed(0), torch.from_numpy(images[0]), noise=noise["init"])
+    carried, flags = 0.0, 0
+    for i in range(n_steps):
+        step_noise = {"a": noise["a"][i], "resample_u": noise["resample_u"][i]}
+        on_card = dataclasses.replace(
+            state, generator=torch.Generator(device=cuda),
+            **{k: getattr(state, k).to(cuda) for k in ("particles", "weights", "templates", "template_table", "template_duv", "valid")},
+        )
+        _, card_out = card.step(on_card, torch.from_numpy(images[i + 1]).to(cuda), torch.tensor(1.0, device=cuda), noise=step_noise)
+        state, cpu_out = cpu.step(state, torch.from_numpy(images[i + 1]), torch.tensor(1.0), noise=step_noise)
+        carried = max(carried, *(float((card_out[k].cpu() - cpu_out[k]).abs().max()) for k in ("mean", "sigma")))
+        flags += int((card_out["valid"].cpu() != cpu_out["valid"]).sum())
+    return carried, flags
+
+
+def objects_to_tracks(cuda, card: str, n14: int = 10240, p14: int = 2048, t14: int = 10):
+    """Phase 14 at ``n14`` points x ``p14`` particles x ``t14`` frames;
+    raises on a failed check and returns (the line to print, both kernels'
+    launches on this path, the scene, the points)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels.highpass import median_highpass
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+    from glimpse_tpu_torch.track import Tracks, feeder
+    from glimpse_tpu_torch.track import batch as batch_module
+
+    scene = oblique_scene(t14, cuda)
+    points14 = oblique_points(scene, n14)
+    start = time.perf_counter()
+    oblique = oblique_tracker(scene, points14, p14, cuda)
+    build_s = time.perf_counter() - start
+    images14 = scene["observer"].images
+    datetimes14 = list(scene["observer"].datetimes)
+    start = time.perf_counter()
+    n_fed = sum(1 for _ in feeder.FrameFeeder([images14]))
+    feeder_s = time.perf_counter() - start
+    dts14 = np.ones(t14 - 1, np.float32)
+
+    def stream14(images, seed):
+        generator = torch.Generator(device=cuda).manual_seed(seed)
+        start = time.perf_counter()
+        _, outputs = feeder.stream_track(oblique, generator, [images], dts14)
+        torch.cuda.synchronize()
+        return stacked(outputs), time.perf_counter() - start
+
+    stream14(images14, 0)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    median_highpass.launches = 0
+    systematic_resample.launches = 0
+    runs14, seconds14, velocities14 = [], {}, {}
+    for label, images, times in (("forward", images14, datetimes14), ("backward", images14[::-1], datetimes14[::-1])):
+        out14, seconds14[label] = stream14(images, 11)
+        tracks = batch_module.to_tracks(times, scene["day"], out14)
+        if label == "backward":
+            tracks.reverse()  # forward temporal order for the fusion; the sign of v stays
+        sign, at = (1, -1) if label == "forward" else (-1, 0)
+        velocities14[label] = np.median(sign * tracks.vxyz[:, at, 0:2], axis=0)
+        failed = [n for n, e in enumerate(tracks.errors) if e is not None]
+        if failed:
+            raise AssertionError(f"{len(failed)} points of the {label} run left the visible terrain: {failed[:10]}")
+        if np.abs(velocities14[label] - OBLIQUE_VELOCITY).max() > 0.3:
+            raise AssertionError(f"{label} median velocity {velocities14[label]} is not within 0.3 of {OBLIQUE_VELOCITY}")
+        runs14.append(tracks)
+    launches14 = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
+    # Per run: the templates once and the search tiles every step; one resample a step.
+    if launches14["median_highpass"] != 2 * t14 or launches14["systematic_resample"] != 2 * (t14 - 1):
+        raise AssertionError(f"the kernels did not carry the object path: launches {launches14}")
+    peak14 = torch.cuda.max_memory_allocated()
+    fused = Tracks.from_multiple(runs14, ignore_nan=True)
+    if fused.means.shape != (n14, t14, 6) or not np.isfinite(fused.means).all():
+        raise AssertionError(f"fused tracks: shape {fused.means.shape}, finite {np.isfinite(fused.means).all()}")
+    final_xy = fused.xyz[:, -1, 0:2]
+    error14 = float(np.nanmedian(np.abs(final_xy - (points14 + np.multiply(OBLIQUE_VELOCITY, t14 - 1)))))
+    z_error14 = float(np.nanmedian(np.abs(fused.xyz[:, -1, 2] - scene["dem"].sample(final_xy, bounds_error=False))))
+    if error14 > 0.5 or z_error14 > 0.5:
+        raise AssertionError(f"fused median final position error {error14} m, median |z - DEM| {z_error14} m (limits 0.5)")
+    state14 = oblique.initialize(
+        torch.Generator(device=cuda).manual_seed(0), torch.from_numpy(feeder.load_frame(images14[0])[None]).to(cuda))
+    profile14 = profile_step(oblique, state14, torch.from_numpy(feeder.load_frame(images14[1])[None]).to(cuda))
+    line = (
+        f"phase 14 objects in, Tracks out on {card}: {n14}x{p14}, 1 observer of {n_fed} frames of"
+        f" {OBLIQUE_IMG}x{OBLIQUE_IMG}, search 41x41, viewshed on ({scene['visible']:.4f} visible,"
+        f" {scene['viewshed_s']:.3f} s on the card); render {scene['render_s']:.2f} s (host, project_dem),"
+        f" from_motions and from_observers {build_s:.2f} s, feeder {feeder_s:.3f} s for {n_fed} frames;"
+        + "".join(
+            f" {label} {n14 * (t14 - 1) / seconds14[label]:.1f} point-steps/s ({seconds14[label]:.3f} s),"
+            f" median velocity ({v[0]:.3f}, {v[1]:.3f});" for label, v in velocities14.items()
+        )
+        + f" truth {OBLIQUE_VELOCITY}, limit 0.3; fused median final position error {error14:.4f} m (limit 0.5),"
+        f" median |z - DEM| {z_error14:.4f} m (prior 0.5), errors none; launches {launches14};"
+        f" peak {peak14 / 2**30:.2f} GiB; {profile14}"
+    )
+    return line, launches14, scene, points14
+
+
+def object_path_lockstep(scene, points_xy, devices) -> str:
+    """Phase 15; ``devices`` maps "card" and "cpu" to their devices. Raises
+    on a disagreement and returns the line to print."""
+    from glimpse_tpu_torch.track import feeder
+
+    images14, points14 = scene["observer"].images, points_xy
+    n15, p15, t15 = 16, 256, 6
+    draws15 = np.random.default_rng(15)
+    noise15 = {
+        "init": {
+            "xy": draws15.normal(size=(n15, p15, 2)).astype(np.float32),
+            "z": draws15.normal(size=(n15, p15)).astype(np.float32),
+            "v": draws15.normal(size=(n15, p15, 3)).astype(np.float32),
+        },
+        "a": draws15.normal(size=(t15 - 1, n15, p15, 3)).astype(np.float32),
+        "resample_u": draws15.random((t15 - 1, n15)).astype(np.float32),
+    }
+    small15 = {k: oblique_tracker(scene, points14[:n15], p15, d) for k, d in devices.items()}
+    frames15 = np.stack([f for f in feeder.FrameFeeder([images14[:t15]])])
+    carried15, flags15 = lockstep_from_shared_state(small15["card"], small15["cpu"], frames15, noise15, t15 - 1)
+    if carried15 > 1e-3 or flags15:
+        raise AssertionError(f"the object path on the card and the CPU parts: {carried15} (limit 1e-3), {flags15} validity flags differ")
+    return (
+        f"phase 15 lockstep {n15}x{p15}x{t15 - 1}, trackers built from objects on each device, viewshed and DEM"
+        f" prior on: each step from a shared state max |diff| {carried15:.3g} (limit 1e-3), validity flags equal"
+    )
+
+
 def main() -> None:
     import torch
 
@@ -582,7 +981,7 @@ def main() -> None:
     print(card)
     print(
         f"phase 1 card: {torch.cuda.get_device_name(0)}; torch {torch.__version__},"
-        f" CUDA {torch.version.cuda}; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}",
+        f" CUDA {torch.version.cuda}, numpy {np.__version__}; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}",
         flush=True,
     )
 
@@ -595,9 +994,18 @@ def main() -> None:
         registers = re.findall(r"Used (\d+) registers", log.read_text()) if log.exists() else []
         return f"{seconds:.1f} s, registers {'/'.join(registers) or 'cached'}"
 
+    def build_feeder():
+        from glimpse_tpu_torch import native
+
+        start = time.perf_counter()
+        native.load(required=True)  # a failed g++ build raises here
+        return f"{native.backend()} ({native.library_path().name}, g++, {time.perf_counter() - start:.1f} s)"
+
     names = ("highpass", "resample")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
+        feeder_built = pool.submit(build_feeder)
         built = dict(zip(names, pool.map(build, names)))
+        built["host feeder"] = feeder_built.result()
     main_kernel = next(r for r in sass.count_built("highpass") if r[0] == "separable_kernel<5,5,8>")
     print(
         "phase 2 build: " + "; ".join(f"{k} {v}" for k, v in built.items())
@@ -613,6 +1021,7 @@ def main() -> None:
     cases = [
         ((1024, 41, 41), (5, 5)), ((1024, 15, 15), (5, 5)), ((1024, 41, 41), (3, 3)), ((1024, 41, 41), (7, 7)),
         ((20480, 31, 31), (5, 5)),  # phase 8's stacked search tiles: 2 observers x 10,240 points
+        ((10240, 41, 41), (5, 5)), ((10240, 15, 15), (5, 5)),  # phase 14's search tiles and templates
     ]
     hp_err = 0.0
     hp_times = {}
@@ -941,7 +1350,20 @@ def main() -> None:
     # Phase 12: the stabilization modules, card against CPU.
     print("phase 12 card vs CPU: " + compare_stabilization(stab, cuda), flush=True)
 
-    # The kernels at phase 8's shapes, with phase 8's launches. Each bound is
+    # Phase 13: terrain on the card.
+    print(f"phase 13 terrain on {card}: " + terrain_on_the_card(cuda), flush=True)
+
+    # Phase 14: objects in, Tracks out, at full width.
+    line14, launches14, scene, points14 = objects_to_tracks(cuda, card)
+    print(line14, flush=True)
+
+    # Phase 15: the object path on the card against the CPU, from shared draws.
+    print(object_path_lockstep(scene, points14, devices), flush=True)
+
+    # The kernels at phase 8's shapes; ``launches`` are phase 14's, this
+    # slice's path, and ``launches_by_path`` every main path's, each counted
+    # from 0 just before its run (phase 5's and phase 8's counts are one
+    # timed pass's). Each bound is
     # the bytes the function must move (every input read once, every output
     # written once) over the device memory rate: the high-pass reads and
     # writes 4 bytes a pixel; the resample reads a float32 threshold and 7
@@ -952,22 +1374,35 @@ def main() -> None:
     main_rs = rs_times[(10240, 2048)]
     bound_hp = 2 * 20480 * 31 * 31 * 4 / HBM_BYTES_PER_S * 1e3
     bound_rs = 10240 * 2048 * 60 / HBM_BYTES_PER_S * 1e3
+    by_path = {
+        name: {"phase 5": launches[name], "phase 8": launches8[name], "phase 14": launches14[name]}
+        for name in ("median_highpass", "systematic_resample")
+    }
+    if any(count < 1 for counts in by_path.values() for count in counts.values()):
+        raise AssertionError(f"a kernel did not launch on a main path: {by_path}")
+    hp14 = [
+        {"shape": list(shape), "ms": hp_times[(shape, (5, 5))][0], "plain_ms": hp_times[(shape, (5, 5))][1],
+         "bound_ms": 2 * int(np.prod(shape)) * 4 / HBM_BYTES_PER_S * 1e3}
+        for shape in ((10240, 41, 41), (10240, 15, 15))
+    ]
     print(json.dumps({"kernels": [
         {
             "name": "median_highpass", "route": "cuda",
             "source": "glimpse_tpu_torch/csrc/highpass.cu",
             "replaces": "glimpse_tpu/kernels/highpass_pallas.py:95",
-            "launches": launches8["median_highpass"], "max_abs_err": hp_err,
+            "launches": launches14["median_highpass"], "max_abs_err": hp_err,
             "ms": main_hp[0], "plain_ms": main_hp[1], "bound_ms": bound_hp, "bound_by": "bytes",
-            "bound_share": bound_hp / main_hp[0], "library_ms": None,
+            "bound_share": bound_hp / main_hp[0], "library_ms": None, "shape": [20480, 31, 31],
+            "launches_by_path": by_path["median_highpass"], "phase_14_shapes": hp14,
         },
         {
             "name": "systematic_resample", "route": "cuda",
             "source": "glimpse_tpu_torch/csrc/resample.cu",
             "replaces": "glimpse_tpu/kernels/resample_pallas.py:556",
-            "launches": launches8["systematic_resample"], "max_abs_err": rs_err,
+            "launches": launches14["systematic_resample"], "max_abs_err": rs_err,
             "ms": main_rs[0], "plain_ms": main_rs[1], "bound_ms": bound_rs, "bound_by": "bytes",
-            "bound_share": bound_rs / main_rs[0], "library_ms": None,
+            "bound_share": bound_rs / main_rs[0], "library_ms": None, "shape": [10240, 2048],
+            "launches_by_path": by_path["systematic_resample"],
         },
     ]}))
     print(json.dumps({

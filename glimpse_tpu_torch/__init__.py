@@ -3,7 +3,24 @@
 A port of :mod:`glimpse_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 Module paths mirror the JAX package's: ``ops`` holds plain functions on
 tensors, ``kernels`` the hand-written CUDA kernels with their plain
-versions, ``track`` the batched tracker. The package imports torch and numpy
-and never jax; the CUDA kernels build on their first call on the card.
+versions, ``track`` the batched tracker, the host motion models,
+``Observer`` and ``Tracks``; ``Camera``, ``Raster``, ``Image`` and ``Exif``
+are the host objects, float64 NumPy at their surface. The package imports
+torch, numpy and scipy and never jax; Pillow and matplotlib are imported by
+the functions that need them; the CUDA kernels build on their first call on
+the card.
 """
-from . import kernels, ops, track
+from . import config, helpers, io, kernels, native, ops, render, track
+from .camera import Camera
+from .exif import Exif
+from .image import Image
+from .raster import Grid, Raster, RasterInterpolant
+from .track import (
+    CartesianMotion,
+    CylindricalMotion,
+    Motion,
+    Observer,
+    TangentCartesianMotion,
+    TangentCylindricalMotion,
+    Tracks,
+)

@@ -1,2 +1,2 @@
-"""Plain functions on tensors: projection, tile processing, SSE, sampling, resampling."""
-from . import imageproc, ncc, projection, resampling, sampling
+"""Plain functions on tensors: projection, tile processing, SSE, sampling, resampling, terrain."""
+from . import imageproc, ncc, projection, resampling, sampling, terrain

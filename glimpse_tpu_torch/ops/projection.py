@@ -1,7 +1,9 @@
 """Projection through a distorted camera, on tensors: world to image and back.
 
-The counterpart of :mod:`glimpse_tpu.ops.projection`. A camera is a 20-float
-vector (float32 on the tensors' device):
+The counterpart of :mod:`glimpse_tpu.ops.projection`. Every function works
+in the dtype and on the device of the tensors it is given: float32 on the
+card for the tracker, float64 on the CPU for the host :class:`Camera`. A
+camera is a 20-float vector:
 
 ====== =========== ==========================================================
 Index  Name        Meaning
@@ -65,6 +67,40 @@ def viewdir_from_rotation(R):
     yaw = torch.atan2(R[..., 2, 0], R[..., 2, 1])
     roll = torch.atan2(-R[..., 0, 2], -R[..., 1, 2])
     return torch.stack([yaw, pitch, roll], dim=-1) * (180.0 / math.pi)
+
+
+def rotation_matrix_gradient(viewdir: torch.Tensor) -> torch.Tensor:
+    """Derivative of :func:`rotation_matrix` by viewdir, shape (3, 3, 3).
+
+    Axis 0 indexes the viewdir component (yaw, pitch, roll), so
+    ``result[i] == dR/dviewdir[i]``.
+    """
+    radians = viewdir * (math.pi / 180)
+    C_, S_ = torch.cos(radians), torch.sin(radians)
+    c0, c1, c2 = C_[..., 0], C_[..., 1], C_[..., 2]
+    s0, s1, s2 = S_[..., 0], S_[..., 1], S_[..., 2]
+    zero = torch.zeros_like(c0)
+
+    def block(*rows):
+        return torch.stack([torch.stack(row, -1) for row in rows], -2)
+
+    d_yaw = block(
+        [c0 * s1 * s2 - s0 * c2, s0 * s2 + c0 * s1 * c2, c0 * c1],
+        [-s0 * s1 * s2 - c0 * c2, c0 * s2 - s0 * s1 * c2, -s0 * c1],
+        [zero, zero, zero],
+    )
+    d_pitch = block(
+        [s0 * c1 * s2, s0 * c1 * c2, -s0 * s1],
+        [c0 * c1 * s2, c0 * c1 * c2, -c0 * s1],
+        [s1 * s2, s1 * c2, c1],
+    )
+    d_roll = block(
+        [s0 * s1 * c2 - c0 * s2, -s0 * s1 * s2 - c0 * c2, zero],
+        [s0 * s2 + c0 * s1 * c2, s0 * c2 - c0 * s1 * s2, zero],
+        [-c1 * c2, c1 * s2, zero],
+    )
+    stacked = torch.stack([d_yaw, d_pitch, d_roll], dim=-3)
+    return stacked.transpose(-1, -2) * (math.pi / 180)
 
 
 def radial_distortion_factor(r2, k):
@@ -166,6 +202,56 @@ def undistort_regulafalsi(xy, k, p, iterations: int = 100):
     return torch.where(frozen[..., None], uxy, x2)
 
 
+def undistort_lookup(xy, k, p, imgsz, f, c, density: float = 1.0):
+    """Undistortion by scattered-data lookup (host-only: scipy's ``griddata``).
+
+    Distorts a regular grid of normalized coordinates covering the frame and
+    interpolates the inverse mapping at the query points. Stable under
+    extreme distortion and slower than the iterative solvers. ``xy`` is a
+    CPU tensor; the intrinsics are arrays or CPU tensors.
+    """
+    import scipy.interpolate
+
+    if xy.device.type != "cpu":
+        raise ValueError("Lookup undistortion is host-only (pass CPU tensors)")
+    imgsz, f, c = (np.asarray(v, dtype=float) for v in (imgsz, f, c))
+    like = dict(dtype=xy.dtype)
+
+    def distorted(points: np.ndarray) -> np.ndarray:
+        return distort(torch.as_tensor(points, **like), _like(k, xy), _like(p, xy)).numpy()
+
+    corners = np.array(
+        [[0, 0], [0.5, 0], [1, 0], [1, 0.5], [1, 1], [0.5, 1], [0, 1], [0, 0.5]]
+    )
+    uv_edges = imgsz * corners
+    xyu_edges = (uv_edges - (imgsz / 2 + c)) / f
+    xyd_edges = distorted(xyu_edges)
+    ux = np.linspace(
+        min(xyu_edges[:, 0].min(), xyd_edges[:, 0].min()),
+        max(xyu_edges[:, 0].max(), xyd_edges[:, 0].max()),
+        int(density * imgsz[0]),
+    )
+    uy = np.linspace(
+        min(xyu_edges[:, 1].min(), xyd_edges[:, 1].min()),
+        max(xyu_edges[:, 1].max(), xyd_edges[:, 1].max()),
+        int(density * imgsz[1]),
+    )
+    UX, UY = np.meshgrid(ux, uy)
+    uxy = np.column_stack((UX.ravel(), UY.ravel()))
+    # Keep only the principal (monotone) branch of the radial map: beyond the
+    # fold the distorted->undistorted relation is multivalued and scattered
+    # interpolation would blend branches.
+    radii = np.linspace(0, np.hypot(uxy[:, 0], uxy[:, 1]).max(), 2048)
+    probe = np.column_stack((radii, np.zeros_like(radii)))
+    distorted_radii = distorted(probe)[:, 0]
+    folds = np.flatnonzero(np.diff(distorted_radii) <= 0)
+    if folds.size:
+        r_max = radii[folds[0]]
+        uxy = uxy[uxy[:, 0] ** 2 + uxy[:, 1] ** 2 <= r_max ** 2]
+    out = scipy.interpolate.griddata(distorted(uxy), uxy, xy.numpy(), method="linear")
+    return torch.as_tensor(out, **like)
+
+
 def undistort(xy, k, p, method: str = "oulu", **kwargs):
     """Remove distortion from normalized camera coordinates.
 
@@ -173,8 +259,8 @@ def undistort(xy, k, p, method: str = "oulu", **kwargs):
     identity is returned when the camera has no distortion and the
     closed-form cubic is used when only k1 is nonzero, as in the reference's
     host path; tensors go straight to the requested method, as on the
-    reference's device path. ``method="lookup"`` is host-only scipy code of
-    the reference's host API, which the port does not have yet.
+    reference's device path. ``method="lookup"`` is host-only scipy code
+    (:func:`undistort_lookup`) and takes ``imgsz``, ``f`` and ``c`` besides.
     """
     if isinstance(k, np.ndarray) and isinstance(p, np.ndarray):
         if not k.any() and not p.any():
@@ -190,9 +276,7 @@ def undistort(xy, k, p, method: str = "oulu", **kwargs):
     if method == "regulafalsi":
         return undistort_regulafalsi(xy, k, p, **kwargs)
     if method == "lookup":
-        raise NotImplementedError(
-            "lookup undistortion is host-only scipy code of the host API, not ported yet (ROADMAP.md A10)"
-        )
+        return undistort_lookup(xy, k, p, **kwargs)
     raise ValueError(f"Undistort method not supported: {method}")
 
 
@@ -202,25 +286,36 @@ def elevation_correction(squared_distances, radius=EARTH_RADIUS, refraction=REFR
 
 
 def world_to_camera(
-    xyz, cam_xyz, R, correction: Optional[Tuple[float, float]] = None
+    xyz,
+    cam_xyz,
+    R,
+    correction: Optional[Tuple[float, float]] = None,
+    directions: bool = False,
+    return_depth: bool = False,
 ):
     """World points (..., 3) -> normalized camera coordinates (..., 2).
 
-    ``correction`` is None or (radius, refraction). Points at or behind the
-    camera plane map to NaN.
+    ``correction`` is None or (radius, refraction). ``directions=True``
+    takes ``xyz`` as rays relative to the camera (no offset, no correction).
+    Points at or behind the camera plane map to NaN. With ``return_depth``
+    the depth along the optical axis comes back too.
     """
-    dxyz = xyz - cam_xyz
-    if correction is not None:
-        radius, refraction = correction
-        d2 = dxyz[..., 0] ** 2 + dxyz[..., 1] ** 2
-        dz = dxyz[..., 2] + elevation_correction(d2, radius, refraction)
-        dxyz = torch.cat([dxyz[..., 0:2], dz[..., None]], dim=-1)
+    if directions:
+        dxyz = xyz
+    else:
+        dxyz = xyz - cam_xyz
+        if correction is not None:
+            radius, refraction = correction
+            d2 = dxyz[..., 0] ** 2 + dxyz[..., 1] ** 2
+            dz = dxyz[..., 2] + elevation_correction(d2, radius, refraction)
+            dxyz = torch.cat([dxyz[..., 0:2], dz[..., None]], dim=-1)
     xyz_c = torch.matmul(dxyz, R.transpose(-1, -2))
     depth = xyz_c[..., 2]
     behind = depth <= 0
     safe_depth = torch.where(behind, torch.ones_like(depth), depth)
     xy = xyz_c[..., 0:2] / safe_depth[..., None]
-    return xy.masked_fill(behind[..., None], math.nan)
+    xy = xy.masked_fill(behind[..., None], math.nan)
+    return (xy, depth) if return_depth else xy
 
 
 def camera_to_world(xy, R, cam_xyz=None, directions: bool = True, depth=1):
@@ -248,17 +343,30 @@ def image_to_camera(uv, imgsz, f, c, k, p, method: str = "oulu", **kwargs):
     let :func:`undistort` specialize (see there).
     """
     xy = (uv - (_like(imgsz, uv) * 0.5 + _like(c, uv))) * (1 / _like(f, uv))
+    if method == "lookup":
+        kwargs = {"imgsz": imgsz, "f": f, "c": c, **kwargs}
     return undistort(xy, k, p, method=method, **kwargs)
 
 
-def project(vector, xyz, correction: Optional[Tuple[float, float]] = None):
-    """World coordinates (..., 3) -> image coordinates (..., 2)."""
+def project(
+    vector,
+    xyz,
+    correction: Optional[Tuple[float, float]] = None,
+    directions: bool = False,
+    return_depth: bool = False,
+):
+    """World coordinates (..., 3) -> image coordinates (..., 2), and the
+    depth along the optical axis with ``return_depth``."""
     R = rotation_matrix(vector[..., VIEWDIR])
-    xy = world_to_camera(xyz, vector[..., XYZ], R, correction=correction)
-    return camera_to_image(
+    xy, depth = world_to_camera(
+        xyz, vector[..., XYZ], R, correction=correction, directions=directions,
+        return_depth=True,
+    )
+    uv = camera_to_image(
         xy, vector[..., IMGSZ], vector[..., F], vector[..., C], vector[..., K],
         vector[..., P],
     )
+    return (uv, depth) if return_depth else uv
 
 
 def project_planes(

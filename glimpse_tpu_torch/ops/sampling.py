@@ -9,6 +9,15 @@ import numpy as np
 import torch
 
 
+def nearest_sample(values, rows, cols):
+    """Sample a grid (H, W) at fractional indices, nearest neighbor
+    (half-way cases round to the even index)."""
+    H, W = values.shape[-2], values.shape[-1]
+    r = torch.round(rows).long().clamp(0, H - 1)
+    c = torch.round(cols).long().clamp(0, W - 1)
+    return values[..., r, c]
+
+
 def bilinear_sample(values, rows, cols):
     """Sample a grid (H, W) at fractional indices, bilinearly.
 
@@ -174,3 +183,31 @@ def bspline_derivatives(coeffs, rows, cols):
             ):
                 out[n] = out[n] + a[i] * b[j] * v
     return tuple(out)
+
+
+def sample_grid(values, rows, cols, order: int = 1, prefiltered: bool = False):
+    """Sample a 2-D grid (H, W) at fractional indices of any one shape.
+
+    order 0: nearest; 1: bilinear; 3: exact interpolating cubic B-spline.
+    With ``prefiltered=True``, ``values`` are already spline coefficients.
+    """
+    if order == 0:
+        return nearest_sample(values, rows, cols)
+    if order == 1:
+        return bilinear_sample(values, rows, cols)
+    if order == 3:
+        coeffs = values if prefiltered else bspline_prefilter_2d(values)
+        out = bspline_sample(coeffs[None], rows.reshape(1, -1), cols.reshape(1, -1))
+        return out.reshape(rows.shape)
+    raise ValueError(f"Unsupported interpolation order: {order}")
+
+
+def sample_grid_host(array: np.ndarray, rows, cols, order: int = 1) -> np.ndarray:
+    """:func:`sample_grid` for the host objects: float64 arrays in and out,
+    through CPU tensors over the arrays' memory."""
+    return sample_grid(
+        torch.from_numpy(np.ascontiguousarray(array, dtype=float)),
+        torch.from_numpy(np.ascontiguousarray(rows, dtype=float)),
+        torch.from_numpy(np.ascontiguousarray(cols, dtype=float)),
+        order=order,
+    ).numpy()

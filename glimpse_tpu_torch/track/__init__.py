@@ -1,2 +1,12 @@
-"""The batched particle-filter tracker and conversion of reference state."""
-from . import batch, convert
+"""The batched particle-filter tracker, the host motion models, observers,
+tracks, the frame feeder, and conversion of reference state."""
+from . import batch, convert, feeder, smooth
+from .motion import (
+    CartesianMotion,
+    CylindricalMotion,
+    Motion,
+    TangentCartesianMotion,
+    TangentCylindricalMotion,
+)
+from .observer import Observer
+from .tracks import Tracks

@@ -94,14 +94,31 @@ class DeviceRaster:
             dx=torch.tensor(1e30, device=device), dy=torch.tensor(1e30, device=device),
         )
 
+    @classmethod
+    def from_raster(cls, raster, device="cuda") -> "DeviceRaster":
+        """Upload a host :class:`glimpse_tpu_torch.Raster`: its array, and
+        its origin and cell size rounded to float32 as the reference rounds
+        them."""
+        scalars = (raster.xlim[0], raster.ylim[0], raster.d[0], raster.d[1])
+        return cls(
+            _as_tensor(raster.array, device),
+            *(torch.tensor(float(v), dtype=torch.float32, device=device) for v in scalars),
+        )
+
     def to(self, device) -> "DeviceRaster":
         return DeviceRaster(*(getattr(self, f.name).to(device) for f in dataclasses.fields(self)))
 
 
-def _check_start_visible(viewshed: DeviceRaster, xy) -> None:
+def _check_start_visible(viewshed, xy) -> None:
     """Refuse points (N, 2) outside the viewshed's extent or on a cell that
-    is not visible (value <= 0). Runs on the host, once, as the reference's
-    ``Raster.sample(order=0)`` check does."""
+    is not visible (value <= 0). Runs on the host, once: through
+    ``Raster.sample(order=0)`` for a host raster, as the reference's check
+    does, and by the same nearest-cell rule for a :class:`DeviceRaster`."""
+    if not isinstance(viewshed, DeviceRaster):
+        visible = np.asarray(viewshed.sample(xy.cpu().numpy().astype(np.float64), order=0)) > 0
+        if not visible.all():
+            raise ValueError(f"Points on non-visible viewshed cells: {np.flatnonzero(~visible).tolist()}")
+        return
     array = viewshed.array.cpu().numpy()
     x0, y0, dx, dy = (float(getattr(viewshed, k)) for k in ("x0", "y0", "dx", "dy"))
     xy = xy.cpu().numpy().astype(np.float64)
@@ -177,6 +194,64 @@ class BatchMotion:
     def informative(self) -> bool:
         """Whether :meth:`log_likelihoods` can be nonzero."""
         return self.kind in ("cartesian", "cylindrical") and self.use_dem_sigma
+
+    @classmethod
+    def from_motions(cls, motions: Sequence, device="cuda") -> "BatchMotion":
+        """Stack host per-point motion models into one batched model.
+
+        Takes a sequence of host :mod:`glimpse_tpu_torch.track.motion`
+        models (one model per point), all of the same class and sharing
+        their DEM rasters; the bridge from ``[motions...]`` to the device
+        tracker.
+        """
+        from . import motion as host_motion
+
+        first = motions[0]
+        kinds = {
+            host_motion.CartesianMotion: ("cartesian", "vxyz", "axyz"),
+            host_motion.CylindricalMotion: ("cylindrical", "vrthz", "arthz"),
+            host_motion.TangentCartesianMotion: ("tangent", "vxy", "axy"),
+            host_motion.TangentCylindricalMotion: ("tangent_cylindrical", "vrth", "arth"),
+        }
+        if type(first) not in kinds:
+            raise TypeError(f"Unsupported motion model {type(first).__name__}")
+        kind, v, a = kinds[type(first)]
+        if any(type(m) is not type(first) for m in motions):
+            raise ValueError("All motion models must be of the same class")
+        if any(m.dem is not first.dem for m in motions):
+            raise ValueError("All motion models must share the same dem")
+
+        def stack(attr, width):
+            """(N, width) float32, each model's attribute zero-padded or cut."""
+            rows = np.zeros((len(motions), width), dtype=np.float32)
+            for row, m in zip(rows, motions):
+                value = np.atleast_1d(np.asarray(getattr(m, attr), dtype=np.float32))[:width]
+                row[: value.size] = value
+            return torch.as_tensor(rows, device=device)
+
+        slope = (
+            stack("slope_sigma", 1)[:, 0]
+            if hasattr(first, "slope_sigma")
+            else torch.zeros(len(motions), dtype=torch.float32, device=device)
+        )
+        dem_sigma = getattr(first, "dem_sigma", None)
+        return cls(
+            kind=kind,
+            xy=stack("xy", 2),
+            xy_sigma=stack("xy_sigma", 2),
+            v_mean=stack(v, 3),
+            v_sigma=stack(v + "_sigma", 3),
+            a_mean=stack(a, 3),
+            a_sigma=stack(a + "_sigma", 3),
+            slope_sigma=slope,
+            dem=DeviceRaster.from_raster(first.dem, device=device),
+            dem_sigma=(
+                DeviceRaster.constant(0.0, device=device)
+                if dem_sigma is None
+                else DeviceRaster.from_raster(dem_sigma, device=device)
+            ),
+            use_dem_sigma=dem_sigma is not None,
+        )
 
     def to(self, device) -> "BatchMotion":
         moved = {
@@ -490,6 +565,51 @@ def particle_covariances(particles, weights):
     return torch.einsum("npi,npj,np->nij", centered, centered, w)
 
 
+def to_tracks(datetimes, time_unit, outputs, covariances: bool = False):
+    """Wrap :meth:`BatchTracker.track` outputs in the host :class:`Tracks` container.
+
+    ``outputs`` are time-major tensors or arrays; the first datetime is the
+    template frame, whose state is not emitted, so its row is NaN.
+
+    A point whose ``outputs["valid"]`` flag drops to 0 (particles on
+    non-visible viewshed cells, or non-finite) is contained the way the host
+    tracker contains a failed particle test: its means and sigmas are NaN
+    from the failing step on and ``Tracks.errors`` records a ``ValueError``
+    for it; valid points get ``errors[n] = None``.
+    """
+    from .tracks import Tracks
+
+    def padded(key):
+        """(N, T, ...) float64 from time-major (T-1, N, ...), row 0 NaN."""
+        x = outputs[key]
+        x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        x = np.moveaxis(x, 0, 1)
+        return np.concatenate([np.full_like(x[:, :1], np.nan, dtype=float), x], axis=1)
+
+    full_means = padded("mean")
+    N = full_means.shape[0]
+    if covariances and "covariance" in outputs:
+        kwargs = {"covariances": padded("covariance")}
+    else:
+        kwargs = {"sigmas": padded("sigma")}
+    if outputs.get("valid") is not None:
+        valid = padded("valid")[:, 1:] > 0  # (N, T-1)
+        errors = np.full(N, None, dtype=object)
+        for n in np.flatnonzero(~valid.all(axis=1)):
+            t_fail = int(np.argmin(valid[n]))  # first failing step
+            errors[n] = ValueError(
+                "Particle validity test failed at step"
+                f" {t_fail + 1}: particles on non-visible viewshed cells"
+                " or with missing (NaN) values"
+            )
+            # The failing step and everything after stay NaN.
+            full_means[n, t_fail + 1:] = np.nan
+            for value in kwargs.values():
+                value[n, t_fail + 1:] = np.nan
+        kwargs["errors"] = errors
+    return Tracks(datetimes=np.asarray(datetimes), time_unit=time_unit, means=full_means, **kwargs)
+
+
 def masks_from_frame_table(frame_table) -> np.ndarray:
     """Observation masks (T, O) float32 from a frame-index table (T, O) of
     image-index-or-None: 1 where the observer has an image. Row 0 is the
@@ -510,14 +630,14 @@ class BatchTracker:
         motion: :class:`BatchMotion`.
         config: :class:`BatchConfig`.
         device: where state, images and every step live.
-        viewshed: optional :class:`DeviceRaster` (see
-            ``convert.raster_from_numpy``); a point whose particles leave
-            its visible cells (value > 0) is marked invalid from that step
-            on. Every point must start inside it on a visible cell.
+        viewshed: optional host :class:`glimpse_tpu_torch.Raster` or
+            :class:`DeviceRaster`; a point whose particles leave its
+            visible cells (value > 0) is marked invalid from that step on.
+            Every point must start inside it on a visible cell.
     """
 
     def __init__(self, camera_vectors, corrections, sigmas, motion: BatchMotion,
-                 config: BatchConfig = None, device="cuda", viewshed: Optional[DeviceRaster] = None) -> None:
+                 config: BatchConfig = None, device="cuda", viewshed=None) -> None:
         self.device = torch.device(device)
         self.camera_vectors = _as_tensor(camera_vectors, self.device)
         self.n_observers = self.camera_vectors.shape[0]
@@ -533,7 +653,27 @@ class BatchTracker:
         self.viewshed = None
         if viewshed is not None:
             _check_start_visible(viewshed, motion.xy)
+            if not isinstance(viewshed, DeviceRaster):
+                viewshed = DeviceRaster.from_raster(viewshed, device=self.device)
             self.viewshed = viewshed.to(self.device)
+
+    @classmethod
+    def from_observers(cls, observers, motion: BatchMotion, config: BatchConfig = None,
+                       device="cuda", viewshed=None) -> "BatchTracker":
+        """Build a device tracker from host :class:`Observer` sequences.
+
+        Camera vectors, elevation corrections and pixel-noise sigmas come
+        from each observer's first image; ``device`` and ``viewshed`` go to
+        the constructor. Frames are supplied separately (for example by
+        :func:`glimpse_tpu_torch.track.feeder.stream_track`).
+        """
+        cams = [obs.images[0].cam for obs in observers]
+        return cls(
+            camera_vectors=np.stack([cam.to_array() for cam in cams]),
+            corrections=[cam._correction_tuple for cam in cams],
+            sigmas=[obs.sigma for obs in observers],
+            motion=motion, config=config, device=device, viewshed=viewshed,
+        )
 
     def _cameras(self, camera_vectors):
         return self.camera_vectors if camera_vectors is None else _as_tensor(camera_vectors, self.device)

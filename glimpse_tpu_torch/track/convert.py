@@ -6,13 +6,75 @@ motion, arrays through ``numpy.asarray``), they become the port's objects
 here, so both packages can compute from the same state. Camera vectors pass
 through as (O, 20) float32 tensors. A raster (DEM, DEM sigma or viewshed)
 is a mapping of its fields.
+
+The reference's host objects come across as plain data too: a ``Camera`` as
+its 20-float vector (:func:`camera_from_numpy`), a ``Raster`` as its array
+and outer limits (:func:`host_raster_from_numpy`), a host motion model as
+its attributes (:func:`host_motion_from_numpy`), so tests build both sides
+from one set of NumPy arrays.
 """
+import inspect
 from typing import Mapping
 
+import numpy as np
 import torch
 
+from ..camera import Camera
+from ..ops import projection
+from ..raster import Raster
+from . import motion as host_motion
 from .batch import BatchMotion, BatchState, DeviceRaster
 from .batch import _as_tensor as _tensor
+
+HOST_MOTIONS = {
+    "cartesian": host_motion.CartesianMotion,
+    "cylindrical": host_motion.CylindricalMotion,
+    "tangent": host_motion.TangentCartesianMotion,
+    "tangent_cylindrical": host_motion.TangentCylindricalMotion,
+}
+
+
+def camera_from_numpy(vector, correction=False, sensorsz=None) -> Camera:
+    """A host :class:`Camera` from a 20-float camera vector (``to_array()``
+    of the reference's), bit for bit, with its ``correction`` setting."""
+    vector = np.asarray(vector, dtype=float)
+    parts = {
+        name: vector[getattr(projection, name.upper())]
+        for name in ("xyz", "viewdir", "imgsz", "f", "c", "k", "p")
+    }
+    return Camera(sensorsz=sensorsz, correction=correction, **parts)
+
+
+def host_raster_from_numpy(array, xlim, ylim, datetime=None) -> Raster:
+    """A host :class:`Raster` from its array and outer limits."""
+    return Raster(np.array(array), x=np.asarray(xlim, dtype=float), y=np.asarray(ylim, dtype=float),
+                  datetime=datetime)
+
+
+def host_motion_from_numpy(kind: str, fields: Mapping):
+    """A host motion model of ``kind`` (see ``HOST_MOTIONS``) from the
+    reference model's attributes (``vars(model)``).
+
+    ``dem`` and ``dem_sigma`` are port :class:`Raster` objects (passed
+    through, so models can share one), mappings with ``array``, ``xlim``
+    and ``ylim``, numbers, or None. ``rng`` may be a
+    ``numpy.random.Generator``: its state is copied, so both models draw the
+    same numbers from then on.
+    """
+    def raster(value):
+        if isinstance(value, Mapping):
+            return host_raster_from_numpy(value["array"], value["xlim"], value["ylim"])
+        return value
+
+    cls = HOST_MOTIONS[kind]
+    # Attributes a subclass inherits but its constructor does not take (the
+    # cylindrical models carry the cartesian defaults) stay behind.
+    taken = set(inspect.signature(cls.__init__).parameters) - {"self", "seed", "dem", "dem_sigma"}
+    args = {k: v for k, v in fields.items() if k in taken}
+    model = cls(dem=raster(fields["dem"]), dem_sigma=raster(fields.get("dem_sigma")), **args)
+    if fields.get("rng") is not None:
+        model.rng.bit_generator.state = fields["rng"].bit_generator.state
+    return model
 
 
 def raster_from_numpy(leaves: Mapping, device) -> DeviceRaster:

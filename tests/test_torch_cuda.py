@@ -224,3 +224,44 @@ def test_observer_fit_on_card(cuda) -> None:
         fits[name] = optimize.ObserverCameras(observer, matches, anchors=[0], device=device).fit().x.reshape(-1, 3)
     np.testing.assert_allclose(fits["card"], truth, atol=1e-2)
     np.testing.assert_allclose(fits["card"], fits["cpu"], atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_terrain_on_card_follows_the_cpu(cuda) -> None:
+    """``Raster.viewshed`` and ``horizon`` default to the card; the float32
+    mask there parts from the CPU's float64 mask on at most 0.5 % of cells."""
+    import scipy.ndimage
+
+    from glimpse_tpu_torch import Raster
+
+    z = scipy.ndimage.gaussian_filter(np.random.default_rng(0).normal(size=(256, 256)), 8) * 600
+    z[40:50, 100:130] = np.nan
+    dem = Raster(z, x=(0, 2560), y=(2560, 0))
+    origin = (1100.0, 1500.0, float(dem.sample(np.array([[1100.0, 1500.0]]))[0]) + 5.0)
+    on_card = dem.viewshed(origin, correction=True)
+    on_cpu = dem.viewshed(origin, correction=True, device="cpu")
+    assert 0.02 < on_cpu.mean() < 0.98
+    assert (on_card != on_cpu).mean() <= 0.005
+    assert len(dem.horizon(origin, range(0, 360, 2))) == len(dem.horizon(origin, range(0, 360, 2), device="cpu"))
+
+
+@pytest.mark.cuda
+def test_object_bridges_build_on_card(cuda) -> None:
+    """``from_raster`` and ``from_motions`` default to the card and hold the
+    same numbers as on the CPU."""
+    import datetime
+
+    from glimpse_tpu_torch import Raster
+    from glimpse_tpu_torch.track import CartesianMotion, batch
+
+    dem = Raster(np.random.default_rng(1).normal(size=(32, 32)), x=(0, 320), y=(320, 0))
+    motions = [
+        CartesianMotion(xy=(100.0 + i, 150.0), time_unit=datetime.timedelta(days=1), dem=dem, dem_sigma=0.5,
+                        xy_sigma=(1, 1), vxyz_sigma=(1.5, 1.5, 0.05))
+        for i in range(5)
+    ]
+    on_card, on_cpu = batch.BatchMotion.from_motions(motions), batch.BatchMotion.from_motions(motions, device="cpu")
+    assert on_card.xy.device.type == "cuda" and on_card.dem.array.device.type == "cuda"
+    for name in ("xy", "xy_sigma", "v_sigma", "a_sigma"):
+        assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name))
+    assert torch.equal(batch.DeviceRaster.from_raster(dem).array.cpu(), on_cpu.dem.array)

@@ -108,8 +108,17 @@ def test_undistort_dispatch_from_a_host_copy() -> None:
                                                jnp.asarray(zero_p, jnp.float32), xp=jnp))
     np.testing.assert_array_equal(on_tensors, projection.undistort_oulu(xy_t, _t(k), _t(zero_p)).numpy())
     np.testing.assert_allclose(on_tensors, want, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        projection.undistort(xy_t, _t(k), _t(zero_p), method="lookup")
+    # The lookup solver (host scipy) takes the frame's geometry besides.
+    frame = dict(imgsz=np.array([800.0, 536.0]), f=np.array([900.0, 910.0]), c=np.array([3.0, -2.0]))
+    full_k, p = np.array([-0.1, 0.05, 0.01, 0.002, 0.001, 0.0]), np.array([0.001, -0.002])
+    inner = rng.uniform(-0.25, 0.25, (50, 2))
+    looked_up = projection.undistort(torch.from_numpy(inner), full_k, p, method="lookup", density=0.1, **frame).numpy()
+    np.testing.assert_allclose(
+        looked_up, jax_projection.undistort(inner, full_k, p, method="lookup", xp=np, density=0.1, **frame),
+        atol=1e-12, rtol=0,
+    )
+    with pytest.raises(ValueError, match="not supported"):
+        projection.undistort(xy_t, _t(k), _t(zero_p), method="table")
 
 
 @pytest.mark.parametrize("directions, depth", [(True, 1), (False, 250.0), (False, "array")])
