@@ -15,7 +15,11 @@ each:
    rtol = atol = 0 and NaN where the plain version has NaN, tiles of tied
    values with NaN and +-inf pixels, for every compiled separable window and
    four that run the generic kernel, at 31x31 and at the smallest tiles each
-   window allows, each case named with the kernel variant that ran;
+   window allows, each case named with the kernel variant that ran; the
+   host tracker's tiles ((1, 15, 15) templates and non-square (1, h, w)
+   search tiles) bit for bit and timed; an even and an over-49-tap
+   window, which ``kernels.highpass.highpass`` sends to the plain version;
+   and a 300 x 300 tile with 5 x 5 taps, which must raise and not reroute;
 4. the systematic resample kernel against its plain version, bit for bit,
    and both times;
 5. the tracker at ``bench.py``'s size (1,024 points x 1,024 particles x 50
@@ -77,7 +81,27 @@ each:
     final position error under 0.5 m, the median |z - DEM| under the 0.5 m
     prior, no point with an error; then one step under ``torch.profiler``;
 15. the same object path on the card and on the CPU at 16 points x 256
-    particles from shared draws: each step from a shared state within 1e-3.
+    particles from shared draws: each step from a shared state within 1e-3;
+16. the host ``Tracker`` on phase 14's scene and objects, 64 points x 2,048
+    particles x 10 frames, driven with pre-drawn noise as
+    ``benchmarks/lockstep.py`` drives the reference's: ``Tracker(device=
+    "cuda")`` and ``Tracker(device="cpu")`` through ``Tracker.track`` and
+    ``BatchTracker.from_observers`` from the same objects and draws. The
+    high-pass kernel must launch once a template and once a (track, step),
+    and is held bit for bit to its plain version on a random tile of every
+    (h, w) the tracker gave it; no track may end with an error; every step from the batched tracker's
+    carried state: card against CPU within 1e-3, the host tracker's
+    projected mean within 0.1 px of the batched tracker's; the free runs
+    are reported beside that;
+17. calibration: ``benchmarks/ba_autodiff.py``'s three problems at their own
+    sizes (4 cameras x 2,000 points; 6 cameras x 4,000 matches with three
+    radial coefficients; 3 cameras of 1,200 horizon points against up to
+    4,096 candidates) through ``Cameras.fit`` with the exact Jacobian
+    (``torch.func.jacfwd``, float64, on the card) and with scipy's finite
+    differences: success, the points problem within 1e-6 of its truth, the
+    two fits agreeing, the card's Jacobian within 1e-9 of the CPU's; then
+    ``ransac`` on the points problem with a tenth of the points moved far
+    off recovers the inlier set.
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
@@ -123,6 +147,12 @@ def _cuda_ms(fn, reps: int = 20) -> float:
 
 # Windows phase 3 holds beyond the main path's 5x5: the other compiled
 # separable kernels and four that run the generic one.
+# The host tracker's high-pass tiles phase 3 holds and times: its 15x15
+# template, its smallest search tile (the template plus the spline support of
+# 3, on whole pixels) and non-square ones of the sizes phase 16's search
+# boxes take (91 shapes from 19x19 to 31x42 at 64 points x 2,048 particles).
+HOST_TRACKER_TILES = ((15, 15), (19, 19), (19, 23), (26, 31), (31, 42))
+
 HIGHPASS_WINDOWS = ((3, 3), (5, 5), (7, 7), (3, 7), (9, 5), (1, 9), (3, 11), (7, 5), (1, 1), (1, 49))
 
 
@@ -961,6 +991,423 @@ def object_path_lockstep(scene, points_xy, devices) -> str:
     )
 
 
+# ---- Calibration problems (benchmarks/ba_autodiff.py's, on either package) ---- #
+
+
+def ba_points_problem(Camera, optimize, n_cams=4, n_points=2000, seed=0, **model_args):
+    """Cameras sharing f and k1 over common world points, view directions
+    per camera. Returns (model, the true parameter vector)."""
+    rng = np.random.default_rng(seed)
+    xyz = np.column_stack(
+        [rng.uniform(-400, 400, n_points), rng.uniform(600, 1200, n_points), rng.uniform(-200, 200, n_points)]
+    )
+    true_viewdirs = rng.uniform(-6, 6, size=(n_cams, 3))
+    true_f, true_k1 = 3000.0, -0.12
+    cams_true = [Camera(imgsz=(4288, 2848), f=true_f, viewdir=v, k=(true_k1,)) for v in true_viewdirs]
+    uvs = [c.xyz_to_uv(xyz) for c in cams_true]
+    cams = [
+        Camera(imgsz=(4288, 2848), f=true_f * 0.97, viewdir=v + rng.uniform(-0.5, 0.5, 3), k=(true_k1 * 0.5,))
+        for v in true_viewdirs
+    ]
+    controls = []
+    for i in range(n_cams):
+        keep = np.isfinite(uvs[i]).all(axis=1) & cams_true[i].inframe(uvs[i])
+        controls.append(optimize.Points(cam=cams[i], uv=uvs[i][keep], xyz=xyz[keep]))
+    model = optimize.Cameras(
+        cams=cams, controls=controls, cam_params=[{"viewdir": True} for _ in range(n_cams)],
+        group_indices=[list(range(n_cams))], group_params=[{"f": True, "k": 0}], **model_args,
+    )
+    return model, np.concatenate([[true_f, true_f, true_k1], true_viewdirs.ravel()])
+
+
+def ba_matches_problem(Camera, optimize, n_cams=6, n_pts=4000, seed=0, **model_args):
+    """A chain of pairwise ``Matches`` with three shared radial coefficients:
+    every residual evaluation runs the iterative undistortion."""
+    rng = np.random.default_rng(seed)
+    k_true = (-0.15, 0.05, -0.01)
+    true = [Camera(imgsz=(4288, 2848), f=3000.0, viewdir=rng.uniform(-4, 4, 3), k=k_true) for _ in range(n_cams)]
+    cams = [
+        Camera(imgsz=(4288, 2848), f=3000.0, viewdir=t.viewdir + rng.uniform(-0.3, 0.3, 3), k=(-0.1, 0.0, 0.0))
+        for t in true
+    ]
+    controls = []
+    for i in range(n_cams - 1):
+        uv_i = np.column_stack([rng.uniform(200, 4000, n_pts), rng.uniform(200, 2600, n_pts)])
+        uv_j = true[i + 1].xyz_to_uv(true[i].uv_to_xyz(uv_i), directions=True)
+        ok = np.isfinite(uv_j).all(axis=1) & true[i + 1].inframe(uv_j)
+        controls.append(optimize.Matches(cams=[cams[i + 1], cams[i]], uvs=[uv_j[ok], uv_i[ok]]))
+    model = optimize.Cameras(
+        cams=cams, controls=controls, cam_params=[{"viewdir": True} for _ in range(n_cams)],
+        group_indices=[list(range(n_cams))], group_params=[{"k": [0, 1, 2]}], **model_args,
+    )
+    return model, None
+
+
+def ba_lines_problem(Camera, optimize, n_cams=3, n_ridge=400, n_obs=1200, seed=0, **model_args):
+    """Horizon lines: each camera sees a distant ridge polyline, traced in
+    the image from its true orientation; the fit recovers each view
+    direction through ``Lines``' budgeted world candidates."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(-3000, 3000, n_ridge)
+    ridge = np.column_stack([xs, np.full_like(xs, 6000.0), 150 * np.sin(xs / 400) + 40 * np.sin(xs / 90)])
+    cams, controls = [], []
+    for _ in range(n_cams):
+        true_v = rng.uniform(-2, 2, 3)
+        cam_true = Camera(imgsz=(4288, 2848), f=3000.0, viewdir=true_v)
+        uv = cam_true.xyz_to_uv(ridge)
+        trace = uv[np.isfinite(uv).all(axis=1) & cam_true.inframe(uv)]
+        if len(trace) < 8:
+            continue
+        # Densify the observed trace to n_obs points along the polyline.
+        t = np.linspace(0, len(trace) - 1, n_obs)
+        i0 = np.clip(np.floor(t).astype(int), 0, len(trace) - 2)
+        fr = (t - i0)[:, None]
+        cam = Camera(imgsz=(4288, 2848), f=3000.0, viewdir=true_v + rng.uniform(-0.25, 0.25, 3))
+        cams.append(cam)
+        controls.append(optimize.Lines(cam=cam, uvs=[trace[i0] * (1 - fr) + trace[i0 + 1] * fr], xyzs=[ridge]))
+    model = optimize.Cameras(cams=cams, controls=controls, cam_params=[{"viewdir": True} for _ in cams], **model_args)
+    return model, None
+
+
+BA_PROBLEMS = {
+    "points": ba_points_problem,
+    "matches": ba_matches_problem,
+    "lines": ba_lines_problem,
+}
+
+
+# ---- Phase 16: the host Tracker ---- #
+
+
+class DrivenCartesianMotion:
+    """A host ``CartesianMotion`` that consumes pre-drawn standard-normal
+    draws, as ``benchmarks/lockstep.py`` drives the reference's: the same
+    draws go to the batched tracker through ``noise=``."""
+
+    def __init__(self, base, init_xy, init_z, init_v, accel):
+        self._base = base
+        self._draws = (init_xy, init_z, init_v, accel)  # (P, 2), (P,), (P, 3), (T - 1, P, 3)
+        self._step = 0
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
+
+    def initialize_particles(self):
+        m = self._base
+        init_xy, init_z, init_v, _ = self._draws
+        particles = np.zeros((m.n, 6))
+        particles[:, 0:2] = m.xy + np.asarray(m.xy_sigma) * init_xy
+        particles[:, 2] = m.dem.sample(particles[:, 0:2]) + m.dem_sigma.sample(particles[:, 0:2]) * init_z
+        particles[:, 3:6] = m.vxyz + np.asarray(m.vxyz_sigma) * init_v
+        self._step = 0
+        return particles
+
+    def evolve_particles(self, particles, dt, step=None):
+        m = self._base
+        units = dt.total_seconds() / m.time_unit.total_seconds()
+        axyz = m.axyz + np.asarray(m.axyz_sigma) * self._draws[3][self._step if step is None else step]
+        self._step += 1
+        particles[:, 0:3] += units * particles[:, 3:6] + 0.5 * axyz * units ** 2
+        particles[:, 3:6] += units * axyz
+
+
+class DrawnUniforms:
+    """Stands in for the tracker's ``numpy.random.Generator``: systematic
+    resampling's one uniform a step comes from a pre-drawn table (T - 1, N),
+    track n reading column n."""
+
+    def __init__(self, table, column=None):
+        self._table, self._column, self._step = table, column, 0
+
+    def spawn(self, n):
+        return [DrawnUniforms(self._table, column) for column in range(n)]
+
+    def random(self):
+        self._step += 1
+        return float(self._table[self._step - 1, self._column])
+
+
+def host_tracker_objects(scene, points_xy, n_particles: int, noise, device, shapes=None):
+    """The host ``Tracker`` on ``device`` over the oblique scene, with its
+    driven motion models: the same objects ``oblique_tracker`` stacks. With
+    ``shapes`` (a dict) the tracker counts in it the (h, w) of every tile
+    it high-passes."""
+    from glimpse_tpu_torch import Tracker
+    from glimpse_tpu_torch.track import CartesianMotion
+
+    class RecordingTracker(Tracker):
+        def _highpass(self, tile, size=(5, 5)):
+            if shapes is not None:
+                shapes[tuple(tile.shape)] = shapes.get(tuple(tile.shape), 0) + 1
+            return super()._highpass(tile, size=size)
+
+    motions = [
+        DrivenCartesianMotion(
+            CartesianMotion(
+                xy=xy, time_unit=scene["day"], dem=scene["dem"], dem_sigma=0.5, n=n_particles, xy_sigma=(1.0, 1.0),
+                vxyz_sigma=(1.5, 1.5, 0.05), axyz_sigma=(0.1, 0.1, 0.01),
+            ),
+            noise["init"]["xy"][n], noise["init"]["z"][n], noise["init"]["v"][n], noise["a"][:, n],
+        )
+        for n, xy in enumerate(points_xy)
+    ]
+    tracker = RecordingTracker([scene["observer"]], viewshed=scene["viewshed"], record="posterior", device=device)
+    tracker.rng = DrawnUniforms(noise["resample_u"])
+    return tracker, motions
+
+
+def host_tracker_phase(scene, points_xy, devices, card: str, n16: int = 64, p16: int = 2048, t16: int = 10):
+    """Phase 16; ``devices`` maps "card" and "cpu" to their devices. Raises
+    on a failed check and returns (the line to print, both kernels' launches
+    on this path, the high-pass tile shapes the host tracker produced)."""
+    import copy
+
+    import torch
+
+    from glimpse_tpu_torch.kernels import highpass as highpass_kernel
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+    from glimpse_tpu_torch.track import batch as batch_module
+    from glimpse_tpu_torch.track import feeder
+
+    cuda = devices["card"]
+    median_highpass = highpass_kernel.median_highpass
+    points16 = points_xy[:n16]
+    draws = np.random.default_rng(16)
+    noise = {
+        "init": {
+            "xy": draws.normal(size=(n16, p16, 2)).astype(np.float32),
+            "z": draws.normal(size=(n16, p16)).astype(np.float32),
+            "v": draws.normal(size=(n16, p16, 3)).astype(np.float32),
+        },
+        "a": draws.normal(size=(t16 - 1, n16, p16, 3)).astype(np.float32),
+        "resample_u": draws.random((t16 - 1, n16)).astype(np.float32),
+    }
+    observer = scene["observer"]
+    images, datetimes = observer.images[:t16], list(observer.datetimes[:t16])
+    frames = np.stack([f for f in feeder.FrameFeeder([images])])  # (T, 1, H, W)
+
+    shapes = {}  # the (h, w) of every tile the host tracker high-passes on the card
+
+    # (a), (b): the host tracker through Tracker.track, on the card and on the CPU.
+    for name in ("median_highpass", "systematic_resample"):
+        (median_highpass if name == "median_highpass" else systematic_resample).launches = 0
+    runs, seconds = {}, {}
+    for kind, device in devices.items():
+        tracker, motions = host_tracker_objects(scene, points16, p16, noise, device, shapes if kind == "card" else None)
+        start = time.perf_counter()
+        runs[kind] = tracker.track(motions, datetimes=datetimes, tile_size=(15, 15))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[kind] = time.perf_counter() - start
+        if kind == "card":
+            host_launches = median_highpass.launches
+    for kind, tracks in runs.items():
+        failed = [n for n, e in enumerate(tracks.errors) if e is not None]
+        warned = [n for n, w in enumerate(tracks.warnings) if w is not None]
+        if failed or warned or tracks.means.shape != (n16, t16, 6) or not np.isfinite(tracks.means).all():
+            raise AssertionError(
+                f"host Tracker on the {kind}: tracks with errors {failed[:10]}, with warnings {warned[:10]},"
+                f" means {tracks.means.shape} finite {np.isfinite(tracks.means).all()}")
+    # One template and one search tile a step for every track, and the
+    # window inside the kernel's domain: every high-pass is a launch.
+    if not highpass_kernel.covers((5, 5)) or host_launches != n16 * t16 or sum(shapes.values()) != host_launches:
+        raise AssertionError(
+            f"the high-pass kernel did not carry the host tracker: {host_launches} launches for {sum(shapes.values())}"
+            f" high-passes of {n16 * t16} expected")
+    # The kernel against its plain version, bit for bit, on a random tile of
+    # every shape the host tracker gave it.
+    held = np.random.default_rng(160)
+    for h, w in sorted(shapes):
+        tile = torch.from_numpy(held.normal(size=(1, h, w)).astype(np.float32)).to(cuda)
+        if not torch.equal(median_highpass(tile, (5, 5)), highpass_kernel.median_highpass_plain(tile, (5, 5))):
+            raise AssertionError(f"median_highpass differs from its plain version on a (1, {h}, {w}) tile of phase 16")
+    host_routes = {"kernel": host_launches, "plain": sum(shapes.values()) - host_launches}
+
+    # (c): the batched tracker from the same objects and draws.
+    batch = oblique_tracker(scene, points16, p16, cuda)
+    dts = np.ones(t16 - 1, np.float32)
+    on_card = torch.from_numpy(frames).to(cuda)
+    batch.track(torch.Generator(device=cuda).manual_seed(0), on_card, dts, noise=noise)  # warm-up
+    torch.cuda.synchronize()
+    before = (median_highpass.launches, systematic_resample.launches)
+    start = time.perf_counter()
+    _, out = batch.track(torch.Generator(device=cuda).manual_seed(0), on_card, dts, noise=noise)
+    torch.cuda.synchronize()
+    seconds["batched"] = time.perf_counter() - start
+    launches16 = {
+        "median_highpass": host_launches + median_highpass.launches - before[0],
+        "systematic_resample": systematic_resample.launches - before[1],
+    }
+    batched = batch_module.to_tracks(datetimes, scene["day"], out)
+    if any(e is not None for e in batched.errors):
+        raise AssertionError("the batched tracker of phase 16 lost a point")
+
+    def pixels(xyz):
+        return observer.xyz_to_uv(xyz, img=0)
+
+    # The free runs beside each other: posterior means projected into the image.
+    free = np.linalg.norm(pixels(runs["card"].means[:, 1:, 0:3].reshape(-1, 3)) - pixels(batched.means[:, 1:, 0:3].reshape(-1, 3)), axis=1)
+    free_devices = float(np.abs(runs["card"].means - runs["cpu"].means).max())
+
+    # (d), (e): every step of every track from the batched tracker's carried
+    # state: the host tracker on the card against itself on the CPU (1e-3)
+    # and against the batched tracker's projected mean (0.1 px).
+    workers = {}
+    for kind, device in devices.items():
+        tracker, motions = host_tracker_objects(scene, points16, p16, noise, device)
+        workers[kind] = (motions, [copy.copy(tracker) for _ in range(n16)])
+    state = batch.initialize(torch.Generator(device=cuda).manual_seed(0), on_card[0], noise=noise["init"])
+    for kind, (motions, trackers) in workers.items():
+        for n, worker in enumerate(trackers):
+            worker.reset()
+            worker.particles = state.particles[n].double().cpu().numpy()
+            worker.initialize_weights()
+            worker.initialize_template(obs=0, img=0, tile_size=(15, 15))
+    carried_devices, carried_px = 0.0, []
+    for t in range(1, t16):
+        carried = state.particles.double().cpu().numpy()
+        state, out_t = batch.step(
+            state, on_card[t], torch.tensor(1.0, device=cuda), noise={"a": noise["a"][t - 1], "resample_u": noise["resample_u"][t - 1]})
+        batch_uv = pixels(out_t["mean"][:, 0:3].double().cpu().numpy())
+        moments = {}
+        for kind, (motions, trackers) in workers.items():
+            rows = []
+            for n, worker in enumerate(trackers):
+                worker.particles = carried[n].copy()
+                motions[n].evolve_particles(worker.particles, dt=scene["day"], step=t - 1)
+                worker.test_particles()
+                worker.update_weights(imgs=[t], motion_model=motions[n])
+                rows.append(np.concatenate([worker.particle_mean, worker.compute_particle_sigma()]))
+            moments[kind] = np.stack(rows)
+        carried_devices = max(carried_devices, float(np.abs(moments["card"] - moments["cpu"]).max()))
+        carried_px.append(np.linalg.norm(pixels(moments["card"][:, 0:3]) - batch_uv, axis=1))
+    carried_px = np.concatenate(carried_px)
+    if carried_devices > 1e-3:
+        raise AssertionError(f"the host tracker on the card and on the CPU part: {carried_devices} from a shared state (limit 1e-3)")
+    if carried_px.max() > 0.1:
+        raise AssertionError(
+            f"the host tracker and the batched tracker part: {carried_px.max()} px from a carried state (limit 0.1),"
+            f" {int((carried_px > 0.1).sum())} of {carried_px.size} point-steps")
+    rate = {k: n16 * (t16 - 1) / s for k, s in seconds.items()}
+    line = (
+        f"phase 16 host Tracker on {card}: {n16} points x {p16} particles x {t16} frames of {OBLIQUE_IMG}x{OBLIQUE_IMG}, DEM prior,"
+        f" viewshed, shared draws; Tracker(cuda) {rate['card']:.1f} point-steps/s ({seconds['card']:.3f} s),"
+        f" Tracker(cpu) {rate['cpu']:.1f} ({seconds['cpu']:.3f} s), BatchTracker.from_observers {rate['batched']:.1f}"
+        f" ({seconds['batched']:.4f} s); median_highpass launches by Tracker(cuda) {host_launches}, routes {host_routes},"
+        f" tile shapes {len(shapes)} from {min(shapes)} to {max(shapes)}, each held bit-equal to the plain version; each step from a carried state: card vs CPU"
+        f" max |diff| {carried_devices:.3g} (limit 1e-3), Tracker vs batched projected means max {carried_px.max():.4f} px"
+        f" rmse {float(np.sqrt((carried_px ** 2).mean())):.4f} px (limit 0.1); free runs: Tracker(cuda) vs Tracker(cpu)"
+        f" max |diff| {free_devices:.3g}, Tracker vs batched max {free.max():.4f} px rmse"
+        f" {float(np.sqrt((free ** 2).mean())):.4f} px; errors none; launches {launches16}"
+    )
+    return line, launches16, shapes
+
+
+# ---- Phase 17: calibration ---- #
+
+
+def calibration_phase(devices, card: str, sizes=None) -> str:
+    """Phase 17: ``benchmarks/ba_autodiff.py``'s three problems at their own
+    sizes through ``Cameras.fit`` with the exact Jacobian on the card and
+    with scipy's finite differences, then one ``ransac`` run. Raises on a
+    failed check and returns the line to print. ``sizes`` overrides the
+    problems' sizes (a rehearsal)."""
+    import torch
+
+    from glimpse_tpu_torch import Camera, optimize
+
+    cuda, cpu = devices["card"], devices["cpu"]
+    sizes = sizes or {}
+    parts = []
+    for name, build_problem in BA_PROBLEMS.items():
+        model, truth = build_problem(Camera, optimize, device=cuda, **sizes.get(name, {}))
+        start_vectors = [cam.to_array() for cam in model.cams]
+        evaluations = {"n": 0}
+        residuals = model.residuals
+
+        def counted(*args, _residuals=residuals, **kwargs):
+            evaluations["n"] += 1
+            return _residuals(*args, **kwargs)
+
+        model.residuals = counted
+        fits, walls, counts = {}, {}, {}
+        if cuda.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for jac in ("exact", "exact", "2-point"):  # the first exact fit is the cold one
+            for cam, vector in zip(model.cams, start_vectors):
+                cam._vector = vector.copy()
+            model.update_params()
+            evaluations["n"] = 0
+            start = time.perf_counter()
+            fits[jac] = model.fit(full=True, jac=jac)
+            walls.setdefault(jac, []).append(time.perf_counter() - start)
+            counts[jac] = evaluations["n"]
+        peak = torch.cuda.max_memory_allocated() if cuda.type == "cuda" else 0
+        exact, fd = fits["exact"], fits["2-point"]
+        if not (exact.success and fd.success and np.isfinite(exact.x).all()):
+            raise AssertionError(f"calibration {name}: success exact {exact.success}, 2-point {fd.success}")
+        # The Jacobian at the start, on the card against the CPU.
+        x0 = model.values.copy()
+        jac_card = model._autodiff_jac()
+        J = jac_card(x0)
+        twin, _ = build_problem(Camera, optimize, device=cpu, **sizes.get(name, {}))
+        J_cpu = twin._autodiff_jac()(x0)
+        jac_err = float((np.abs(J - J_cpu) / np.abs(J_cpu).max(axis=0)).max())
+        jac_differ = int((J != J_cpu).sum())
+        if J.shape != (2 * model.size, len(x0)) or not np.isfinite(J).all() or jac_err > 1e-9:
+            raise AssertionError(f"calibration {name}: Jacobian {J.shape}, card vs CPU {jac_err} of each column's largest entry (limit 1e-9)")
+        jac_ms = _cuda_ms(lambda: jac_card(x0), reps=5)
+        costs = {k: float(np.sum(model.residuals(params=f.x) ** 2)) for k, f in fits.items()}
+        if name == "points":
+            # The parameters are identified: both fits reach the truth.
+            errors = {k: float(np.abs(f.x - truth).max()) for k, f in fits.items()}
+            if max(errors.values()) > 1e-6 or float(np.abs(exact.x - fd.x).max()) > 1e-6:
+                raise AssertionError(f"calibration points: errors against the truth {errors} (limit 1e-6: px, 1, deg)")
+            agree = f"max error against the truth exact {errors['exact']:.3g} 2-point {errors['2-point']:.3g} (limit 1e-6)"
+        elif name == "matches":
+            # A chain of pairs fixes no common rotation: the optimum is a
+            # family, held by its cost (noise-free data: 0) and its worst residual.
+            worst = {k: float(model.errors(f.x).max()) for k, f in fits.items()}
+            if max(worst.values()) > 1e-5:
+                raise AssertionError(f"calibration matches: worst residuals {worst} px (limit 1e-5)")
+            agree = f"worst residual exact {worst['exact']:.3g} px 2-point {worst['2-point']:.3g} px (limit 1e-5)"
+        else:
+            # The candidates' spacing leaves a shallow valley: held by cost
+            # and by the view directions (0.02 deg).
+            apart = float(np.abs(exact.x - fd.x).max())
+            if costs["exact"] > 1.02 * costs["2-point"] or apart > 0.02:
+                raise AssertionError(f"calibration lines: costs {costs}, fits {apart} deg apart (limits 1.02 x, 0.02 deg)")
+            agree = f"cost exact {costs['exact']:.6g} 2-point {costs['2-point']:.6g} (limit 1.02 x), fits {apart:.3g} deg apart (limit 0.02)"
+        parts.append(
+            f"{name} {len(model.cams)} cameras, {model.size} control points, {len(x0)} parameters: exact cold {walls['exact'][0]:.3f} s"
+            f" warm {walls['exact'][1]:.3f} s nfev {exact.nfev} residual evaluations {counts['exact']}; 2-point {walls['2-point'][0]:.3f} s"
+            f" nfev {fd.nfev} residual evaluations {counts['2-point']}; Jacobian {J.shape[0]}x{J.shape[1]} {jac_ms:.2f} ms a call,"
+            f" card vs CPU {jac_err:.3g} of each column's largest entry (limit 1e-9; {jac_differ} of {J.size} entries differ),"
+            f" peak {peak / 2**20:.0f} MiB; {agree}"
+        )
+
+    # RANSAC on the points problem with a tenth of its points moved far off.
+    model, truth = BA_PROBLEMS["points"](Camera, optimize, device=cuda, **sizes.get("points", {}))
+    rng = np.random.default_rng(17)
+    bad = np.sort(rng.choice(model.size, size=model.size // 10, replace=False))
+    breaks = np.cumsum([0] + [c.size for c in model.controls])
+    for control, lo in zip(model.controls, breaks):
+        rows = bad[(bad >= lo) & (bad < lo + control.size)] - lo
+        control.uv[rows] += rng.uniform(30, 100, size=(len(rows), 2)) * rng.choice([-1, 1], size=(len(rows), 2))
+    start = time.perf_counter()
+    params, inliers = optimize.ransac(
+        model, n=16, max_error=1.0, min_inliers=model.size * 85 // 100, iterations=40, rng=np.random.default_rng(18), jac="exact")
+    ransac_s = time.perf_counter() - start
+    good = np.setdiff1d(np.arange(model.size), bad)
+    if not np.array_equal(inliers, good) or float(np.abs(params - truth).max()) > 1e-6:
+        raise AssertionError(
+            f"ransac: {len(inliers)} inliers against {len(good)} true ones, parameters {np.abs(params - truth).max()} from the truth")
+    parts.append(
+        f"ransac on points with {len(bad)} of {model.size} moved 30-100 px: 40 samples of 16, {ransac_s:.3f} s, the {len(good)} true"
+        f" inliers recovered, parameters {float(np.abs(params - truth).max()):.3g} from the truth (limit 1e-6)")
+    return f"phase 17 calibration on {card}, Jacobians by torch.func.jacfwd in float64 on the card: " + "; ".join(parts)
+
+
 def main() -> None:
     import torch
 
@@ -969,6 +1416,8 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from glimpse_tpu_torch.kernels import _build, sass
     from glimpse_tpu_torch.kernels.bench_highpass import HBM_BYTES_PER_S
+    from glimpse_tpu_torch.kernels.highpass import covers as highpass_covers
+    from glimpse_tpu_torch.kernels.highpass import highpass as routed_highpass
     from glimpse_tpu_torch.kernels.highpass import kernel_variant, median_highpass, median_highpass_plain
     from glimpse_tpu_torch.kernels.resample import (
         systematic_resample,
@@ -1022,6 +1471,9 @@ def main() -> None:
         ((1024, 41, 41), (5, 5)), ((1024, 15, 15), (5, 5)), ((1024, 41, 41), (3, 3)), ((1024, 41, 41), (7, 7)),
         ((20480, 31, 31), (5, 5)),  # phase 8's stacked search tiles: 2 observers x 10,240 points
         ((10240, 41, 41), (5, 5)), ((10240, 15, 15), (5, 5)),  # phase 14's search tiles and templates
+        # phase 16: the host tracker's template, its smallest search tile (the
+        # template plus the spline support) and non-square ones
+        *(((1, h, w), (5, 5)) for h, w in HOST_TRACKER_TILES),
     ]
     hp_err = 0.0
     hp_times = {}
@@ -1048,13 +1500,40 @@ def main() -> None:
         )
         hp_err = max(hp_err, highpass_mismatch(got, want))
         held.append(f"{label} {shape[1]}x{shape[2]} {size[0]}x{size[1]} {variant} ({int(torch.isnan(want).sum())} NaN)")
+    # Windows outside the kernel's domain take the plain route, by the
+    # domain's predicate and before any launch.
+    routes = []
+    for size in ((5, 5), (4, 4), (2, 3), (9, 9)):
+        tiles = torch.from_numpy(rng.normal(size=(64, 31, 31)).astype(np.float32)).to(cuda)
+        launched = median_highpass.launches
+        got = routed_highpass(tiles, size)
+        route = "kernel" if median_highpass.launches == launched + 1 else "plain"
+        if route != ("kernel" if highpass_covers(size) else "plain"):
+            raise AssertionError(f"highpass {size}: route {route}, covers {highpass_covers(size)}")
+        if not torch.equal(got, median_highpass_plain(tiles, size)):
+            raise AssertionError(f"highpass {size} by the {route} route differs from the plain version")
+        routes.append(f"{size[0]}x{size[1]} {route}")
+    # A window inside the domain on a tile that one block's shared memory
+    # cannot hold raises, by either entry, and is never rerouted.
+    oversized = torch.zeros(1, 300, 300, device=cuda)
+    for entry in (median_highpass, routed_highpass):
+        launched = median_highpass.launches
+        try:
+            entry(oversized, (5, 5))
+        except ValueError as error:
+            refusal = str(error)
+        else:
+            raise AssertionError(f"{entry.__name__} took a 300x300 tile with 5x5 taps on the card")
+        if median_highpass.launches != launched:
+            raise AssertionError(f"{entry.__name__} launched on a 300x300 tile it refused")
+    routes.append(f"5x5 on 300x300 raises ({refusal})")
     print(
         "phase 3 median_highpass bit-equal: "
         + "; ".join(
             f"{s[1]}x{s[2]} {k[0]}x{k[1]} kernel {a:.4f} ms plain {b:.4f} ms"
             for (s, k), (a, b) in hp_times.items()
         )
-        + f"; held to rtol=atol=0 with equal NaN: {'; '.join(held)}",
+        + f"; held to rtol=atol=0 with equal NaN: {'; '.join(held)}; routes by window at 31x31: {', '.join(routes)}",
         flush=True,
     )
 
@@ -1360,10 +1839,19 @@ def main() -> None:
     # Phase 15: the object path on the card against the CPU, from shared draws.
     print(object_path_lockstep(scene, points14, devices), flush=True)
 
-    # The kernels at phase 8's shapes; ``launches`` are phase 14's, this
-    # slice's path, and ``launches_by_path`` every main path's, each counted
-    # from 0 just before its run (phase 5's and phase 8's counts are one
-    # timed pass's). Each bound is
+    # Phase 16: the host Tracker on the card, on the CPU, and the batched
+    # tracker from the same objects and draws.
+    line16, launches16, shapes16 = host_tracker_phase(scene, points14, devices, card)
+    print(line16, flush=True)
+
+    # Phase 17: calibration, the exact Jacobian on the card.
+    print(calibration_phase(devices, card), flush=True)
+
+    # The kernels at phase 8's shapes; ``launches`` are phase 16's, this
+    # slice's path (the host tracker's run on the card and the batched
+    # tracker's beside it), and ``launches_by_path`` every main path's, each
+    # counted from 0 just before its run (phase 5's and phase 8's counts are
+    # one timed pass's). Each bound is
     # the bytes the function must move (every input read once, every output
     # written once) over the device memory rate: the high-pass reads and
     # writes 4 bytes a pixel; the resample reads a float32 threshold and 7
@@ -1375,7 +1863,7 @@ def main() -> None:
     bound_hp = 2 * 20480 * 31 * 31 * 4 / HBM_BYTES_PER_S * 1e3
     bound_rs = 10240 * 2048 * 60 / HBM_BYTES_PER_S * 1e3
     by_path = {
-        name: {"phase 5": launches[name], "phase 8": launches8[name], "phase 14": launches14[name]}
+        name: {"phase 5": launches[name], "phase 8": launches8[name], "phase 14": launches14[name], "phase 16": launches16[name]}
         for name in ("median_highpass", "systematic_resample")
     }
     if any(count < 1 for counts in by_path.values() for count in counts.values()):
@@ -1385,21 +1873,29 @@ def main() -> None:
          "bound_ms": 2 * int(np.prod(shape)) * 4 / HBM_BYTES_PER_S * 1e3}
         for shape in ((10240, 41, 41), (10240, 15, 15))
     ]
+    # The host tracker's tiles: one launch each, so launch latency binds the
+    # time and the byte bound is nanoseconds.
+    hp16 = [
+        {"shape": [1, h, w], "ms": hp_times[((1, h, w), (5, 5))][0], "plain_ms": hp_times[((1, h, w), (5, 5))][1],
+         "bound_ms": 2 * h * w * 4 / HBM_BYTES_PER_S * 1e3}
+        for h, w in HOST_TRACKER_TILES
+    ]
     print(json.dumps({"kernels": [
         {
             "name": "median_highpass", "route": "cuda",
             "source": "glimpse_tpu_torch/csrc/highpass.cu",
             "replaces": "glimpse_tpu/kernels/highpass_pallas.py:95",
-            "launches": launches14["median_highpass"], "max_abs_err": hp_err,
+            "launches": launches16["median_highpass"], "max_abs_err": hp_err,
             "ms": main_hp[0], "plain_ms": main_hp[1], "bound_ms": bound_hp, "bound_by": "bytes",
             "bound_share": bound_hp / main_hp[0], "library_ms": None, "shape": [20480, 31, 31],
-            "launches_by_path": by_path["median_highpass"], "phase_14_shapes": hp14,
+            "launches_by_path": by_path["median_highpass"], "phase_14_shapes": hp14, "phase_16_shapes": hp16,
+            "phase_16_tile_shapes": len(shapes16),
         },
         {
             "name": "systematic_resample", "route": "cuda",
             "source": "glimpse_tpu_torch/csrc/resample.cu",
             "replaces": "glimpse_tpu/kernels/resample_pallas.py:556",
-            "launches": launches14["systematic_resample"], "max_abs_err": rs_err,
+            "launches": launches16["systematic_resample"], "max_abs_err": rs_err,
             "ms": main_rs[0], "plain_ms": main_rs[1], "bound_ms": bound_rs, "bound_by": "bytes",
             "bound_share": bound_rs / main_rs[0], "library_ms": None, "shape": [10240, 2048],
             "launches_by_path": by_path["systematic_resample"],

@@ -3,14 +3,16 @@
 A port of :mod:`glimpse_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 Module paths mirror the JAX package's: ``ops`` holds plain functions on
 tensors, ``kernels`` the hand-written CUDA kernels with their plain
-versions, ``track`` the batched tracker, the host motion models,
-``Observer`` and ``Tracks``; ``Camera``, ``Raster``, ``Image`` and ``Exif``
+versions, ``track`` the batched tracker, the host ``Tracker``, the host
+motion models, ``Observer`` and ``Tracks``; ``optimize`` camera calibration
+(``Cameras`` and its control classes) and sequence stabilization; ``svg``
+reads hand-digitised control; ``Camera``, ``Raster``, ``Image`` and ``Exif``
 are the host objects, float64 NumPy at their surface. The package imports
 torch, numpy and scipy and never jax; Pillow and matplotlib are imported by
 the functions that need them; the CUDA kernels build on their first call on
 the card.
 """
-from . import config, helpers, io, kernels, native, ops, render, track
+from . import config, helpers, io, kernels, native, ops, optimize, render, svg, track
 from .camera import Camera
 from .exif import Exif
 from .image import Image
@@ -22,5 +24,35 @@ from .track import (
     Observer,
     TangentCartesianMotion,
     TangentCylindricalMotion,
+    Tracker,
     Tracks,
 )
+
+__all__ = [
+    "config",
+    "helpers",
+    "io",
+    "kernels",
+    "native",
+    "ops",
+    "optimize",
+    "render",
+    "svg",
+    "track",
+    "Camera",
+    "Exif",
+    "Image",
+    "Grid",
+    "Raster",
+    "RasterInterpolant",
+    "Observer",
+    "Tracker",
+    "Tracks",
+    "Motion",
+    "CartesianMotion",
+    "CylindricalMotion",
+    "TangentCartesianMotion",
+    "TangentCylindricalMotion",
+]
+
+__version__ = "0.1.0"

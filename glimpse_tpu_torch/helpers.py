@@ -3,21 +3,24 @@
 The counterpart of :mod:`glimpse_tpu.helpers`, NumPy and SciPy only, holding
 the functions the port's host objects use (JSON, list formatting, sorted
 search, masked filters, uncertainty propagation, boxes and grids,
-rasterization, datetime selection), with their examples. The reference's
-other helpers are not part of this module yet: pickles, histogram matching
-and CLAHE, line and ray geometry, pairwise distances, elevation
-corrections, the GIS functions (``crs_to_wkt``, ``write_raster``,
-``average_rasters``, the file-format lookup) and ``plot_quivers``.
+rasterization, polyline clipping and interpolation, pairwise distances,
+datetime selection), with their examples. The reference's other helpers are
+not part of this module yet: pickles, histogram matching and CLAHE, ray and
+plane intersection, Bresenham rasterization, elevation corrections, the GIS
+functions (``crs_to_wkt``, ``write_raster``, ``average_rasters``, the
+file-format lookup) and ``plot_quivers``.
 """
 import datetime
 import itertools
 import json
 import os
+import warnings
 from pathlib import Path
 from typing import Any, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import scipy.ndimage
+import scipy.spatial.distance
 
 Number = Union[int, float]
 
@@ -429,6 +432,162 @@ def grid_to_points(grid: Iterable[np.ndarray]) -> np.ndarray:
     return np.reshape(grid, (len(grid), -1)).T
 
 
+def clip_polyline_box(
+    line: np.ndarray, box: Iterable, t: bool = False
+) -> List[np.ndarray]:
+    """Return segments of a polyline within a box, inserting boundary vertices.
+
+    Runs of in-box vertices are located directly from the membership mask;
+    each run is extended with the point where the connecting edge to its
+    out-of-box neighbor crosses the box boundary (when that crossing exists).
+    """
+    line = np.asarray(line)
+    cols = slice(None, -1) if t else slice(None)
+    inside = in_box(line[:, cols], box)
+    # Run boundaries: starts where False->True, ends where True->False.
+    padded = np.concatenate([[False], inside, [False]])
+    starts = np.flatnonzero(padded[1:] & ~padded[:-1])
+    ends = np.flatnonzero(padded[:-1] & ~padded[1:])  # exclusive
+
+    def boundary_point(inner_idx, outer_idx):
+        # Anchor at the out-of-box vertex: the crossing fraction is then the
+        # box *entry* time, numerically exact when the box edge lies on the
+        # sample lattice.
+        a = line[outer_idx]
+        step = line[inner_idx] - a
+        frac = intersect_edge_box(a[cols], step[cols], box)
+        return None if frac is None else a + frac * step
+
+    pieces = []
+    for lo, hi in zip(starts, ends):
+        parts = [line[lo:hi]]
+        if lo > 0:
+            entry = boundary_point(lo, lo - 1)
+            if entry is not None:
+                parts.insert(0, entry[None, :])
+        if hi < len(line):
+            exit_ = boundary_point(hi - 1, hi)
+            if exit_ is not None:
+                parts.append(exit_[None, :])
+        pieces.append(np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0])
+    return pieces
+
+
+def intersect_edge_box(
+    origin: Iterable, distance: Iterable, box: Iterable
+) -> Optional[float]:
+    """Return multiple of `distance` at which an edge crosses into a box."""
+    distance = np.asarray(distance).reshape(1, -1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t = np.nanmin(intersect_rays_box(origin, distance, box, t=True))
+    if 0 < t < 1:
+        return float(t)
+    return None
+
+
+def intersect_rays_box(
+    origin: Iterable, directions: np.ndarray, box: Iterable, t: bool = False
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Intersect rays from a common origin with an axis-aligned 2-D/3-D box.
+
+    Slab method. Returns ray entrances and exits (NaN on miss, entrance NaN if
+    origin inside box), as absolute coordinates or as multiples of direction.
+    """
+    origin = np.asarray(origin, dtype=float)
+    directions = np.atleast_2d(np.asarray(directions, dtype=float))
+    box = unravel_box(box).astype(float)  # (2, ndim): [mins; maxs]
+    ndim = directions.shape[1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        invdir = 1 / directions
+    sign = (invdir < 0).astype(int)  # 0: min slab first, 1: max slab first
+    # Per-dimension slab entry/exit times: bounds[sign, dim] and bounds[1-sign, dim]
+    tmins = (box[sign, np.arange(ndim)] - origin[:ndim]) * invdir
+    tmaxs = (box[1 - sign, np.arange(ndim)] - origin[:ndim]) * invdir
+    tmin = tmins[:, 0].copy()
+    tmax = tmaxs[:, 0].copy()
+    for d in range(1, ndim):
+        misses = (tmin > tmaxs[:, d]) | (tmins[:, d] > tmax)
+        tmin[misses] = np.nan
+        tmax[misses] = np.nan
+        closer = tmins[:, d] > tmin
+        tmin[closer] = tmins[closer, d]
+        farther = tmaxs[:, d] < tmax
+        tmax[farther] = tmaxs[farther, d]
+    tmin[tmin < 0] = np.nan
+    tmax[tmax < 0] = np.nan
+    if t:
+        return tmin[:, None], tmax[:, None]
+    return origin + tmin[:, None] * directions, origin + tmax[:, None] * directions
+
+
+def pairwise_distance(x: Iterable, y: Iterable, **kwargs: Any) -> np.ndarray:
+    """Pairwise distances between two sets of points."""
+    def as2d(p):
+        arr = np.asarray(p)
+        return arr.reshape(len(arr), -1)
+
+    return scipy.spatial.distance.cdist(as2d(x), as2d(y), **kwargs)
+
+
+def interpolate_line(
+    vertices: np.ndarray,
+    x: Iterable = None,
+    xi: Iterable = None,
+    n: int = None,
+    dx: float = None,
+    error: bool = True,
+    fill: Any = "endpoints",
+) -> np.ndarray:
+    """Return points at specified (or evenly spaced) distances along a polyline.
+
+    Interpolation is done by locating each query once with ``searchsorted``
+    and applying the resulting linear weights to every coordinate column
+    simultaneously (instead of per-column ``np.interp``).
+    """
+    if xi is None and n is None and dx is None:
+        raise ValueError("One of xi, n, or dx is required")
+    vertices = np.asarray(vertices, dtype=float)
+    if x is None:
+        seglen = np.linalg.norm(np.diff(vertices, axis=0), axis=1)
+        x = np.concatenate([[0.0], np.cumsum(seglen)])
+    else:
+        x = np.asarray(x, dtype=float)
+    descending = len(x) > 1 and x[1] < x[0]
+    auto = xi is None
+    if auto:
+        if n is None:
+            span = abs(x[-1] - x[0]) / dx
+            # A whole number of steps still gets its trailing endpoint.
+            n = int(round(span + 1)) if span == int(span) else int(round(span))
+        xi = np.linspace(x[0], x[-1], num=n)
+        error, fill = False, "endpoints"
+    xi = np.asarray(xi, dtype=float)
+    if descending:
+        x, vertices = x[::-1], vertices[::-1]
+    # One location pass, shared linear weights for all columns.
+    hi = np.clip(np.searchsorted(x, xi), 1, len(x) - 1)
+    x0, x1 = x[hi - 1], x[hi]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = np.where(x1 > x0, (xi - x0) / np.where(x1 > x0, x1 - x0, 1.0), 0.0)
+    w = np.clip(w, 0.0, 1.0)[:, None]
+    result = (1 - w) * vertices[hi - 1] + w * vertices[hi]
+    below, above = xi < x[0], xi > x[-1]
+    if error and (below.any() or above.any()):
+        raise ValueError("Requested distance outside range")
+    if isinstance(fill, str) and fill == "endpoints":
+        first, last = vertices[0], vertices[-1]
+    elif np.iterable(fill):
+        first, last = fill
+    else:
+        first = last = fill
+    # Note: fill[0] pairs with the below-range side in the ascending frame
+    # (vertices are reversed alongside x when distances run backwards).
+    result[below] = first
+    result[above] = last
+    return result
+
+
 # ---- Scatter / gather ---- #
 
 
@@ -497,6 +656,15 @@ def polygons_to_mask(
 
 
 # ---- Time ---- #
+
+
+def pairwise_distance_datetimes(
+    x: Iterable[datetime.datetime], y: Iterable[datetime.datetime]
+) -> np.ndarray:
+    """Pairwise absolute distances in seconds between two sets of datetimes."""
+    xs = np.array([xi.timestamp() for xi in x])
+    ys = np.array([yi.timestamp() for yi in y])
+    return np.abs(xs[:, None] - ys[None, :])
 
 
 def datetime_range(

@@ -3,7 +3,12 @@
 Replaces the TPU kernel ``glimpse_tpu/kernels/highpass_pallas.py``
 (``median_highpass``). The wrapper picks by device alone: a CPU tensor runs
 the plain version, :func:`glimpse_tpu_torch.ops.imageproc.highpass`; a CUDA
-tensor launches the kernel, or raises.
+tensor launches the kernel, or raises. The kernel's domain is odd taps, at
+most 49: :func:`covers` says whether a window lies inside it, and
+:func:`highpass` asks it before any launch and sends the other windows to the
+plain version, which takes every size. Inside the domain a tile must fit one
+block's shared memory (about 170 x 170 pixels for the separable windows,
+240 x 240 for the others); a larger one raises and is never rerouted.
 """
 import ctypes
 import functools
@@ -50,6 +55,27 @@ def _shared_bytes(h: int, w: int, kh: int, kw: int) -> int:
     return 4 * (padded_taps + (h + kh - 1) * (w + kw - 1))
 
 
+def covers(size: Tuple[int, int]) -> bool:
+    """Whether this window lies in the kernel's domain: odd taps, at most 49.
+    A predicate on the window alone, as the TPU kernel's own domain is; a
+    tile that one block's shared memory cannot hold is inside it, and
+    :func:`median_highpass` raises for it."""
+    kh, kw = size
+    return kh % 2 == 1 and kw % 2 == 1 and kh * kw <= MAX_TAPS
+
+
+def highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torch.Tensor:
+    """The median high-pass of a stack (N, h, w) by the route its window
+    gives: :func:`median_highpass` where :func:`covers` says so, else the
+    plain version. The choice is made from the window alone, before any
+    launch; inside the domain a tile the kernel cannot take, a build failure
+    or a launch failure raises.
+    """
+    if covers(size):
+        return median_highpass(tiles, size)
+    return median_highpass_plain(tiles, size)
+
+
 def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torch.Tensor:
     """``tile - median_{kh x kw}(tile)`` over a stack (N, h, w) of float32 tiles.
 
@@ -59,7 +85,7 @@ def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torc
     the same value.
     """
     kh, kw = size
-    if kh % 2 == 0 or kw % 2 == 0 or kh * kw > MAX_TAPS:
+    if not covers(size):
         raise ValueError(f"median_highpass takes odd taps, at most {MAX_TAPS}, got {size}")
     if tiles.ndim != 3 or tiles.dtype != torch.float32:
         raise ValueError(f"median_highpass takes (N, h, w) float32, got {tuple(tiles.shape)} {tiles.dtype}")

@@ -1,7 +1,9 @@
-"""Batched sum-of-squared-error (SSE) template matching on tensors.
+"""Sum-of-squared-error (SSE) template matching on tensors.
 
-The counterpart of :func:`glimpse_tpu.ops.ncc.sse_map_batched` (its 'conv'
-form): SSE(u, v) = sum_patch S^2 - 2 (S * T)(u, v) + sum T^2.
+The counterpart of :mod:`glimpse_tpu.ops.ncc`: :func:`sse_map_batched` is its
+'conv' form, SSE(u, v) = sum_patch S^2 - 2 (S * T)(u, v) + sum T^2, for the
+batched tracker; :func:`sse_map` the direct sliding sum for one pair, as its
+``sse_map_numpy``, for the host tracker.
 """
 import torch
 import torch.nn.functional as F
@@ -23,3 +25,13 @@ def sse_map_batched(search, templates):
         corr = F.conv2d(search[None], templates[:, None], groups=N)[0]
     t2 = torch.sum(templates * templates, dim=(-2, -1))
     return s2 - 2 * corr + t2[:, None, None]
+
+
+def sse_map(search, template):
+    """SSE map of one search tile (sh, sw) against one template (th, tw), by
+    the direct sliding-window sum of squared differences in the input's
+    dtype. Returns (sh - th + 1, sw - tw + 1)."""
+    th, tw = template.shape
+    windows = search.unfold(0, th, 1).unfold(1, tw, 1)  # (oh, ow, th, tw)
+    diff = windows - template
+    return torch.einsum("uvij,uvij->uv", diff, diff)

@@ -13,8 +13,63 @@ the right.
 The other three take their uniform draws ``u`` (N, P) explicitly, or draw
 them from a ``torch.Generator``, and search as the reference's merge rank
 does: ties to the right, clamped to P - 1.
+
+The ``*_np`` functions are the host tracker's resamplers: NumPy on a
+``numpy.random.Generator``, one particle set at a time, drawing as the
+reference's do, so both packages give the same indices from one seed.
 """
+import numpy as np
 import torch
+
+# ---- NumPy host versions ---- #
+
+
+def systematic_np(weights: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    n = len(weights)
+    w = weights / weights.sum()
+    positions = (np.arange(n) + rng.random()) / n
+    return np.searchsorted(np.cumsum(w), positions)
+
+
+def stratified_np(weights: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    n = len(weights)
+    w = weights / weights.sum()
+    positions = (np.arange(n) + rng.random(n)) / n
+    return np.searchsorted(np.cumsum(w), positions)
+
+
+def residual_np(weights: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    n = len(weights)
+    w = weights / weights.sum()
+    counts = (n * w).astype(int)
+    deterministic = np.repeat(np.arange(n), counts)
+    residuals = w * n - counts
+    residuals = residuals / residuals.sum()
+    extra = np.searchsorted(np.cumsum(residuals), rng.random(n - len(deterministic)))
+    return np.concatenate((deterministic, extra))
+
+
+def choice_np(weights: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    n = len(weights)
+    w = weights / weights.sum()
+    return rng.choice(np.arange(n), size=n, replace=True, p=w)
+
+
+def resample_np(
+    weights: np.ndarray, method: str = "systematic", rng: np.random.Generator = None
+) -> np.ndarray:
+    if rng is None:
+        rng = np.random.default_rng()
+    fn = {
+        "systematic": systematic_np,
+        "stratified": stratified_np,
+        "residual": residual_np,
+        "choice": choice_np,
+    }[method]
+    return fn(weights, rng)
+
+
+# ---- Tensor versions ---- #
 
 
 def systematic_thresholds(weights, u):

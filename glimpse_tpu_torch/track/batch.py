@@ -9,7 +9,9 @@ The counterpart of :mod:`glimpse_tpu.track.batch` on one device. One step:
    tile at each point's weighted-mean projection;
 3. on the (O*N) tiles stacked observer-major: normalize, match each tile's
    histogram to its template's quantile table and take the median high-pass
-   (kernel ``median_highpass``, one launch for all observers);
+   (kernel ``median_highpass``, one launch for all observers, for the
+   windows the kernel covers: odd taps, at most 49; any other window takes
+   the plain version, chosen by ``kernels.highpass.covers`` before a launch);
 4. SSE map against the template, then the cubic B-spline (or bilinear
    interpolation) of the SSE surface at every particle gives its negative
    log likelihood; an observation mask zeroes the observers without an
@@ -30,7 +32,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..kernels.highpass import median_highpass
+from ..kernels.highpass import highpass as routed_highpass
 from ..kernels.resample import systematic_resample
 from ..ops import imageproc, ncc, projection, resampling, sampling
 
@@ -358,9 +360,6 @@ class BatchConfig:
             raise ValueError(f"resample_method must be one of {RESAMPLE_METHODS}, got {self.resample_method!r}")
         if self.interpolation_order not in (1, 3):
             raise ValueError(f"interpolation_order must be 1 or 3, got {self.interpolation_order!r}")
-        kh, kw = self.highpass_size
-        if kh % 2 == 0 or kw % 2 == 0 or kh * kw > 49:
-            raise ValueError(f"highpass_size takes odd taps, at most 49, got {self.highpass_size}")
         if any(s < t for s, t in zip(self.search_size, self.template_size)):
             raise ValueError("search_size must hold template_size")
 
@@ -451,7 +450,7 @@ def _prepare_search_tiles(tiles, table, highpass_size):
     i0, w0, w1 = _quantile_taps(n, K, table.device)
     matched_sorted = table[:, i0] * w0 + table[:, i0 + 1] * w1
     matched = torch.empty_like(matched_sorted).scatter_(1, order, matched_sorted)
-    return median_highpass(matched.reshape(N, h, w), highpass_size)
+    return routed_highpass(matched.reshape(N, h, w), highpass_size)
 
 
 def _prepare_template_tiles(tiles, highpass_size, n_quantiles: int):
@@ -463,7 +462,7 @@ def _prepare_template_tiles(tiles, highpass_size, n_quantiles: int):
     N, h, w = tiles.shape
     t = imageproc.normalize(tiles, dim=(-2, -1), eps=1e-12)
     values = torch.sort(t.reshape(N, h * w), dim=-1).values
-    return median_highpass(t, highpass_size), values[:, _template_quantile_index(h * w, n_quantiles, tiles.device)]
+    return routed_highpass(t, highpass_size), values[:, _template_quantile_index(h * w, n_quantiles, tiles.device)]
 
 
 def _project_and_extract(image, camera_vector, correction, particles, template_duv, w_norm,

@@ -10,7 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chip_smoke import highpass_case_tiles, highpass_check_cases
-from glimpse_tpu_torch.kernels.highpass import SEPARABLE, kernel_variant, median_highpass, median_highpass_plain
+from glimpse_tpu_torch.kernels.highpass import SEPARABLE, covers, kernel_variant, median_highpass, median_highpass_plain
 from glimpse_tpu_torch.kernels.resample import systematic_resample, systematic_resample_plain
 from glimpse_tpu_torch.ops.resampling import systematic_thresholds
 
@@ -265,3 +265,65 @@ def test_object_bridges_build_on_card(cuda) -> None:
     for name in ("xy", "xy_sigma", "v_sigma", "a_sigma"):
         assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name))
     assert torch.equal(batch.DeviceRaster.from_raster(dem).array.cpu(), on_cpu.dem.array)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("highpass", [(5, 5), (4, 4)])
+def test_host_tracker_on_card_against_cpu(cuda, highpass) -> None:
+    """The host ``Tracker`` defaults to the card, where its likelihoods run
+    in float32 and the high-pass through the kernel for the windows it
+    covers (once a template and once a step), through the plain version for
+    the others: log likelihoods from shared particles within 1e-3 of the
+    float64 ones on the CPU."""
+    import datetime
+
+    import scipy.ndimage
+
+    from glimpse_tpu_torch import Raster, Tracker
+    from glimpse_tpu_torch.track import CartesianMotion, Observer
+
+    rng = np.random.default_rng(0)
+    base = scipy.ndimage.gaussian_filter(rng.normal(size=(120, 120)), 0.8) * 100 + 100
+    day = datetime.timedelta(days=1)
+    images = [
+        Raster(scipy.ndimage.shift(base, (i, 2 * i), order=1, mode="nearest"), x=(0, 120), y=(120, 0),
+               datetime=datetime.datetime(2020, 1, 1) + i * day)
+        for i in range(3)
+    ]
+    observer = Observer(images, sigma=0.15)
+    particles = CartesianMotion(
+        xy=(60.0, 60.0), time_unit=day, dem=0.0, n=512, xy_sigma=(2, 2), vxyz_sigma=(3, 3, 0), seed=1).initialize_particles()
+    results = {}
+    for device in (None, "cpu"):
+        tracker = Tracker([observer], highpass={"size": highpass}, seed=0, **({} if device is None else {"device": device}))
+        assert tracker.device.type == ("cuda" if device is None else "cpu")
+        launches = median_highpass.launches
+        tracker.particles = particles.copy()
+        tracker.initialize_weights()
+        tracker.initialize_template(obs=0, img=0, tile_size=(15, 15))
+        tracker.particles[:, 0:2] += (2.0, -1.0)
+        results[device] = tracker.compute_observer_log_likelihoods(obs=0, img=1)
+        if device is None:
+            assert median_highpass.launches - launches == (2 if covers(highpass) else 0)
+            assert tracker.templates[0]["tile"].dtype == np.float32
+    np.testing.assert_allclose(results[None], results["cpu"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", ["points", "matches", "lines"])
+def test_exact_jacobian_on_card_against_cpu(cuda, problem) -> None:
+    """``Cameras`` defaults to the card; its float64 Jacobian there within
+    1e-9 of each column's largest entry of the CPU's, and a fit with it
+    succeeds."""
+    from chip_smoke import BA_PROBLEMS
+    from glimpse_tpu_torch import Camera, optimize
+
+    sizes = {"points": dict(n_cams=3, n_points=200), "matches": dict(n_cams=3, n_pts=200), "lines": dict(n_cams=2, n_ridge=100, n_obs=150)}
+    on_card, _ = BA_PROBLEMS[problem](Camera, optimize, **sizes[problem])
+    on_cpu, _ = BA_PROBLEMS[problem](Camera, optimize, device="cpu", **sizes[problem])
+    assert on_card.device.type == "cuda"
+    x0 = on_card.values.copy()
+    J, J_cpu = on_card._autodiff_jac()(x0), on_cpu._autodiff_jac()(x0)
+    assert J.dtype == np.float64 and np.isfinite(J).all()
+    assert (np.abs(J - J_cpu) / np.abs(J_cpu).max(axis=0)).max() < 1e-9
+    assert on_card.fit(full=True, jac="exact").success

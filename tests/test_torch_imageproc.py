@@ -1,0 +1,185 @@
+"""The host tracker's tile ops and resamplers against the JAX package.
+
+``glimpse_tpu_torch.ops.{imageproc,ncc,resampling}`` on CPU tensors against
+``glimpse_tpu.ops`` with ``xp=np``, on the same arrays made from a seed with
+numpy. Float64 results are held exactly unless a test says otherwise; the
+float32 SSE map to 2e-6 of the map's largest value against the direct NumPy
+sum and 2e-5 against OpenCV's ``matchTemplate``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from glimpse_tpu.ops import imageproc as jax_imageproc
+from glimpse_tpu.ops import ncc as jax_ncc
+from glimpse_tpu.ops import resampling as jax_resampling
+from glimpse_tpu_torch.kernels import highpass as highpass_kernel
+from glimpse_tpu_torch.ops import imageproc, ncc, resampling
+
+
+def tile(shape, seed: int = 0, levels: int = 0) -> np.ndarray:
+    """A tile of normal draws, or of ``levels`` distinct values (many ties)."""
+    rng = np.random.default_rng(seed)
+    if levels:
+        return rng.integers(0, levels, shape).astype(float)
+    return rng.normal(size=shape)
+
+
+def test_grayscale_equal_and_keeps_dtype_and_shape() -> None:
+    rgb = tile((9, 11, 3), levels=256)
+    np.testing.assert_array_equal(imageproc.grayscale(torch.from_numpy(rgb)).numpy(), jax_imageproc.grayscale(rgb, xp=np))
+    gray = torch.from_numpy(rgb[..., 0])
+    assert imageproc.grayscale(gray) is gray
+    assert imageproc.grayscale(torch.from_numpy(rgb.astype(np.float32))).dtype == torch.float32
+
+
+@pytest.mark.parametrize("levels", [0, 12])
+def test_sorted_cdf_equal(levels) -> None:
+    a = tile((15, 15), seed=1, levels=levels)
+    values, quantiles = imageproc.sorted_cdf(torch.from_numpy(a))
+    want_values, want_quantiles = jax_imageproc.sorted_cdf(a, xp=np)
+    np.testing.assert_array_equal(values.numpy(), want_values)
+    np.testing.assert_array_equal(quantiles.numpy(), want_quantiles)
+    assert quantiles.dtype == torch.float64 and quantiles[-1] == 1.0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_interp_is_numpy_interp(seed) -> None:
+    """Tables with repeated abscissae (the CDF of tied values), queries on
+    the table's points, between them and outside (numpy clamps): exact."""
+    rng = np.random.default_rng(seed)
+    xp = np.sort(rng.integers(0, 10, 30) / 10.0)
+    fp = np.sort(rng.normal(size=30))
+    x = np.concatenate([xp, rng.uniform(-0.5, 1.5, 500), [xp[0], xp[-1], -1.0, 2.0]])
+    got = imageproc.interp(*(torch.from_numpy(v) for v in (x, xp, fp))).numpy()
+    np.testing.assert_array_equal(got, np.interp(x, xp, fp))
+    one = imageproc.interp(torch.from_numpy(x), torch.tensor([0.5], dtype=torch.float64), torch.tensor([3.0], dtype=torch.float64))
+    np.testing.assert_array_equal(one.numpy(), np.interp(x, [0.5], [3.0]))
+
+
+@pytest.mark.parametrize("levels, target_levels", [(0, 0), (20, 0), (0, 9), (16, 9)])
+def test_match_cdf_equal(levels, target_levels) -> None:
+    """A search tile of another size than the template, with and without
+    ties on either side: exact in float64."""
+    a = tile((23, 17), seed=2, levels=levels)
+    target = tile((15, 15), seed=3, levels=target_levels)
+    cdf = jax_imageproc.sorted_cdf(target, xp=np)
+    got = imageproc.match_cdf(torch.from_numpy(a), tuple(torch.from_numpy(c) for c in cdf))
+    np.testing.assert_array_equal(got.numpy(), jax_imageproc.match_cdf(a, cdf, xp=np))
+    assert got.shape == a.shape
+
+
+def test_match_cdf_in_float32_stays_float32() -> None:
+    a = torch.from_numpy(tile((12, 12), seed=4).astype(np.float32))
+    cdf = imageproc.sorted_cdf(torch.from_numpy(tile((15, 15), seed=5)))  # a float64 table
+    got = imageproc.match_cdf(a, cdf)
+    assert got.dtype == torch.float32
+    want = jax_imageproc.match_cdf(a.double().numpy(), tuple(c.numpy() for c in cdf), xp=np)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("size", [(5, 5), (3, 3), (3, 7), (1, 1), (4, 4), (2, 3), (9, 9), (6, 1), (1, 2), (8, 7)])
+@pytest.mark.parametrize("levels", [0, 6])
+def test_median_filter_and_highpass_equal_at_every_window(size, levels) -> None:
+    """Odd, even and mixed windows, beyond 49 taps too, on stacks and single
+    tiles: exact. scipy's ``median_filter`` is the reference's own check."""
+    import scipy.ndimage
+
+    stack = tile((3, 12, 14), seed=6, levels=levels)
+    got = imageproc.median_filter(torch.from_numpy(stack), size)
+    np.testing.assert_array_equal(got.numpy(), jax_imageproc.median_filter(stack, size=size, xp=np))
+    if size[0] % 2 and size[1] % 2:
+        np.testing.assert_array_equal(got[0].numpy(), scipy.ndimage.median_filter(stack[0], size=size, mode="reflect"))
+    one = torch.from_numpy(stack[1])
+    np.testing.assert_array_equal(imageproc.highpass(one, size).numpy(), jax_imageproc.highpass(stack[1], size=size, xp=np))
+
+
+@pytest.mark.parametrize("size", [(4, 4), (5, 5)])
+def test_median_filter_window_with_nan_gives_nan(size) -> None:
+    a = tile((10, 10), seed=7)
+    a[4, 5] = np.nan
+    got = imageproc.median_filter(torch.from_numpy(a), size).numpy()
+    ky, kx = size
+    touched = np.zeros_like(a, dtype=bool)
+    touched[4 - (ky - 1 - ky // 2) : 4 + ky // 2 + 1, 5 - (kx - 1 - kx // 2) : 5 + kx // 2 + 1] = True
+    np.testing.assert_array_equal(np.isnan(got), touched)
+
+
+@pytest.mark.parametrize("with_cdf", [False, True])
+def test_prepare_tile_equal(with_cdf) -> None:
+    """The whole tile pipeline on an RGB tile. The mean and variance are
+    sums, whose order differs between the libraries: 1e-12."""
+    rgb = tile((21, 19, 3), seed=8, levels=256)
+    cdf = jax_imageproc.sorted_cdf(tile((15, 15), seed=9), xp=np) if with_cdf else None
+    want, want_cdf = jax_imageproc.prepare_tile(rgb, cdf=cdf, highpass_size=(5, 5), xp=np)
+    got, got_cdf = imageproc.prepare_tile(
+        torch.from_numpy(rgb), cdf=None if cdf is None else tuple(torch.from_numpy(c) for c in cdf), highpass_size=(5, 5))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got_cdf[0].numpy(), want_cdf[0], rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(got_cdf[1].numpy(), want_cdf[1])
+
+
+@pytest.mark.parametrize("shape", [((40, 33), (15, 15)), ((18, 18), (15, 15)), ((31, 52), (11, 7)), ((15, 15), (15, 15))])
+def test_sse_map_against_numpy_and_cv2(shape) -> None:
+    (sh, sw), (th, tw) = shape
+    search = tile((sh, sw), seed=10).astype(np.float32)
+    template = tile((th, tw), seed=11).astype(np.float32)
+    got = ncc.sse_map(torch.from_numpy(search), torch.from_numpy(template))
+    assert got.dtype == torch.float32 and got.shape == (sh - th + 1, sw - tw + 1)
+    want = jax_ncc.sse_map_numpy(search, template)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6 * want.max())
+    exact = jax_ncc.sse_map_numpy(search.astype(float), template.astype(float))
+    got64 = ncc.sse_map(torch.from_numpy(search).double(), torch.from_numpy(template).double())
+    np.testing.assert_allclose(got64.numpy(), exact, rtol=1e-13, atol=0)
+    pytest.importorskip("cv2")
+    np.testing.assert_allclose(got.numpy(), jax_ncc.sse_map(search, template, xp=np), rtol=0, atol=2e-5 * want.max())
+    batched = ncc.sse_map_batched(torch.from_numpy(search)[None], torch.from_numpy(template)[None])[0]
+    np.testing.assert_allclose(got.numpy(), batched.numpy(), rtol=0, atol=2e-5 * want.max())
+
+
+@pytest.mark.parametrize("method", ["systematic", "stratified", "residual", "choice"])
+def test_host_resamplers_draw_the_same_indices(method) -> None:
+    """Index for index from equal seeds, on flat, skewed and degenerate weights."""
+    rng = np.random.default_rng(12)
+    for weights in (np.ones(64), np.exp(3 * rng.normal(size=500)), np.r_[np.full(99, 1e-300), 1.0], rng.random(7)):
+        got = resampling.resample_np(weights, method=method, rng=np.random.default_rng(5))
+        want = jax_resampling.resample_np(weights, method=method, rng=np.random.default_rng(5))
+        np.testing.assert_array_equal(got, want)
+        assert got.shape == weights.shape and got.min() >= 0 and got.max() < len(weights)
+    named = getattr(resampling, f"{method}_np")(weights, np.random.default_rng(5))
+    np.testing.assert_array_equal(named, got)
+    assert resampling.resample_np(weights, method=method).shape == weights.shape  # a generator of its own
+
+
+@pytest.mark.parametrize("shape, size, inside", [
+    ((15, 15), (5, 5), True), ((18, 47), (5, 5), True), ((3, 3), (5, 5), True), ((31, 31), (4, 4), False),
+    ((31, 31), (2, 3), False), ((31, 31), (9, 9), False), ((31, 31), (7, 7), True), ((31, 31), (1, 49), True),
+    ((31, 31), (1, 51), False), ((160, 160), (5, 5), True), ((200, 240), (3, 5), True), ((31, 31), (5, 4), False),
+])
+def test_highpass_domain_predicate_and_route(shape, size, inside) -> None:
+    """``covers`` is the kernel's domain, a predicate on the window alone:
+    where it says no, the wrapper raises and ``kernels.highpass.highpass``
+    takes the plain version; where it says yes, the wrapper takes the call.
+    The reference's values either way."""
+    assert highpass_kernel.covers(size) is inside
+    tiles = torch.from_numpy(tile((2, *shape), seed=13).astype(np.float32))
+    want = jax_imageproc.highpass(tiles.numpy(), size=size, xp=np)
+    if inside:
+        np.testing.assert_array_equal(highpass_kernel.median_highpass(tiles, size).numpy(), want)
+    else:
+        with pytest.raises(ValueError):
+            highpass_kernel.median_highpass(tiles, size)
+    np.testing.assert_array_equal(highpass_kernel.highpass(tiles, size).numpy(), want)
+
+
+@pytest.mark.parametrize("shape, size", [((300, 300), (5, 5)), ((2, 9), (5, 5)), ((250, 250), (1, 1)), ((171, 171), (3, 7))])
+def test_highpass_refuses_a_tile_the_kernel_cannot_take(shape, size, monkeypatch) -> None:
+    """A window inside the domain on a tile larger than one block's shared
+    memory, or smaller than half the window, raises from the wrapper and
+    from the routing entry alike: it is never sent to the plain version."""
+    assert highpass_kernel.covers(size)
+    monkeypatch.setattr(highpass_kernel, "median_highpass_plain", lambda *a, **k: pytest.fail("rerouted to the plain version"))
+    tiles = torch.zeros(1, *shape)
+    for entry in (highpass_kernel.median_highpass, highpass_kernel.highpass):
+        with pytest.raises(ValueError, match="shared memory|too small"):
+            entry(tiles, size)

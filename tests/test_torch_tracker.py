@@ -147,11 +147,12 @@ def test_config_refuses_unported_settings() -> None:
     for dtype in (torch.bfloat16, torch.float16, torch.float64):
         with pytest.raises(NotImplementedError):
             batch.BatchConfig(dtype=dtype)
-    for settings in [
-        dict(highpass_size=(4, 5)), dict(resample_method="multinomial"), dict(interpolation_order=2),
-    ]:
+    for settings in [dict(resample_method="multinomial"), dict(interpolation_order=2)]:
         with pytest.raises(ValueError):
             batch.BatchConfig(**settings)
+    for size in ((4, 5), (4, 4), (2, 3), (9, 9), (1, 51)):  # the reference takes them under its default mode
+        assert batch.BatchConfig(highpass_size=size).highpass_size == size
+        jax_batch.BatchConfig(highpass_size=size)
     for method in ("systematic", "stratified", "residual", "choice"):
         for order in (1, 3):
             batch.BatchConfig(
@@ -218,3 +219,68 @@ def test_tracker_defaults_to_the_card() -> None:
         batch.BatchTracker(cam, [None], [0.3], motion)
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         batch.DeviceRaster.constant(0.0)
+
+
+@pytest.mark.parametrize("size", [(4, 4), (2, 3), (9, 9)])
+def test_highpass_windows_outside_the_kernels_domain(size) -> None:
+    """Even and over-49-tap windows lie outside the CUDA kernel's domain
+    (``kernels.highpass.covers``): the tracker routes them to the plain
+    version, which equals the reference's ``imageproc.highpass`` exactly, and
+    initializes and steps from the reference's carried state like any other
+    window (first-step bound of this file, 1e-3)."""
+    from glimpse_tpu.ops import imageproc as jax_imageproc
+    from glimpse_tpu_torch.kernels import highpass as highpass_kernel
+    from glimpse_tpu_torch.ops import imageproc
+
+    assert not highpass_kernel.covers(size) and highpass_kernel.covers((5, 5))
+    tiles = np.random.default_rng(2).normal(size=(3, 41, 41)).astype(np.float32)
+    want = jax_imageproc.highpass(tiles, size=size, xp=np)
+    np.testing.assert_array_equal(imageproc.highpass(torch.from_numpy(tiles), size).numpy(), want)
+    np.testing.assert_array_equal(highpass_kernel.highpass(torch.from_numpy(tiles), size).numpy(), want)
+    with pytest.raises(ValueError):
+        highpass_kernel.median_highpass(torch.from_numpy(tiles), size)
+
+    cam, frames, _ = make_scene(n_frames=2, velocity=(2.0, 1.0))
+    points_xy = np.random.default_rng(1).uniform(180, 320, size=(N, 2))
+    rng = np.random.default_rng(5)
+    noise = {
+        "init": {"xy": rng.normal(size=(N, P, 2)).astype(np.float32), "v": rng.normal(size=(N, P, 3)).astype(np.float32)},
+        "a": rng.normal(size=(N, P, 3)).astype(np.float32), "resample_u": rng.random(N).astype(np.float32),
+    }
+    jax_motion = make_motion(points_xy)
+    reference = jax_batch.BatchTracker(
+        cam.to_array()[None], [None], [0.15], jax_motion, jax_batch.BatchConfig(n_particles=P, highpass_size=size, **SIZES))
+    port = batch.BatchTracker(
+        cam.to_array()[None], [None], [0.15], convert.motion_from_numpy(dataclasses.asdict(jax_motion), "cpu"),
+        batch.BatchConfig(n_particles=P, highpass_size=size, **SIZES), device="cpu")
+    images = frames[:, None]
+    ref_state = reference.initialize(jax.random.PRNGKey(0), images[0], noise=noise["init"])
+    state = port.initialize(torch.Generator().manual_seed(0), torch.from_numpy(images[0]), noise=noise["init"])
+    np.testing.assert_allclose(state.templates.numpy(), np.asarray(ref_state.templates), atol=1e-5, rtol=0)
+    step_noise = {"a": noise["a"], "resample_u": noise["resample_u"]}
+    ref_next, ref_out = reference.step(ref_state, images[1], np.float32(1.0), noise=step_noise)
+    leaves = {f.name: np.asarray(getattr(ref_state, f.name)) for f in dataclasses.fields(ref_state) if f.name != "key"}
+    nxt, out = port.step(convert.state_from_numpy(**leaves, device="cpu"), torch.from_numpy(images[1]), torch.tensor(1.0), noise=step_noise)
+    np.testing.assert_allclose(out["mean"].numpy(), np.asarray(ref_out["mean"]), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(out["sigma"].numpy(), np.asarray(ref_out["sigma"]), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(nxt.particles.numpy(), np.asarray(ref_next.particles), atol=1e-3, rtol=0)
+
+
+def test_package_surface() -> None:
+    """``import glimpse_tpu_torch`` gives what ``import glimpse_tpu`` gives,
+    for the modules the port has: ``optimize``, ``svg``, ``Tracker``,
+    ``__all__`` (every name of it defined, each also a name of the JAX
+    package's or one of the port's own three) and ``__version__``."""
+    import glimpse_tpu
+    import glimpse_tpu_torch
+
+    assert glimpse_tpu_torch.__version__ == glimpse_tpu.__version__
+    assert glimpse_tpu_torch.optimize.Cameras and glimpse_tpu_torch.svg.read
+    assert glimpse_tpu_torch.Tracker is glimpse_tpu_torch.track.Tracker is glimpse_tpu_torch.track.tracker.Tracker
+    names = set(glimpse_tpu_torch.__all__)
+    assert len(names) == len(glimpse_tpu_torch.__all__)
+    assert all(hasattr(glimpse_tpu_torch, name) for name in names)
+    assert {"optimize", "svg", "Tracker"} <= names
+    assert names - set(glimpse_tpu.__all__) == {"kernels", "track", "Motion"}
+    assert set(glimpse_tpu.__all__) - names == {"convert", "parallel", "profiling"}  # still to port
+    assert set(glimpse_tpu_torch.track.__all__) == set(glimpse_tpu.track.__all__)
