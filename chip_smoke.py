@@ -44,8 +44,9 @@ each:
    covariances, with the same injected draws; bounds as phase 7;
 10. a checkpoint on the card: save after step 3, load, run 3 more steps;
     outputs and particles bit-equal to the uninterrupted run;
-11. the stabilization recipe of ``benchmarks/columbia_pipeline.py`` at full
-    width: 1,000 frames of 512x512 rendered on the card (static terrain, a
+11. the stabilization recipe of ``benchmarks/columbia_pipeline.py``, cut to
+    250 frames (phase 18 runs it at 1,000 from files): frames of 512x512
+    rendered on the card (static terrain, a
     moving glacier band, a camera wobbling by (0.1, 0.1, 0.03) deg), 2,048
     keypoints a frame under the terrain mask, matching at offsets (1, 8, 64)
     (ratio 0.75, at most 20 px), the device L-BFGS fit (frame 0 anchored),
@@ -55,7 +56,7 @@ each:
     inverse projection through the three solvers within 1e-5; matching with
     identical indices and ratios within 1e-5; at least 98 % of keypoints
     within 1e-2 px, their descriptors within 1e-3; refinement within 1e-3
-    px; the fit within 2e-3 deg;
+    px; the fit (24 frames, 500 L-BFGS iterations) within 2e-3 deg;
 13. terrain on the card: a 2,048 x 2,048 DEM of 10 m cells (relief of a few
     hundred metres, a block of NaN cells) as a ``Raster``;
     ``Raster.viewshed(origin, correction=True)`` on the card in float32
@@ -101,7 +102,27 @@ each:
     differences: success, the points problem within 1e-6 of its truth, the
     two fits agreeing, the card's Jacobian within 1e-9 of the CPU's; then
     ``ransac`` on the points problem with a tenth of the points moved far
-    off recovers the inlier set.
+    off recovers the inlier set;
+18. stabilization from image files: phase 11's scene at 1,000 frames, each
+    written as a JPEG (quality 95) with a datetime and read back as an
+    ``Image``; ``ObserverCameras(observer, anchors=[0])``,
+    ``build_keypoints(detector="device")`` and ``build_matches(matcher=
+    "device", seq=(1, 8, 64), refine=True)`` cached as pickles, ``fit``,
+    then ``project_images`` of every frame on the card into GeoTIFFs.
+    Every view direction within 0.01 deg; a second pass on fresh objects
+    detects nothing and gives identical matches; no break in the match
+    chain; frame 0's projection bit-equal card against CPU; the stages'
+    seconds by ``profiling.Timer``;
+19. camera model conversion: each of ``tests/assets``' four calibration
+    files (MATLAB, OpenCV, Agisoft, PhotoModeler) to a ``Camera``, then to
+    each other format and back by ``convert.Converter`` fits with the exact
+    Jacobian, on the card and on the CPU: every parameter within 1e-9
+    relative card against CPU;
+20. phase 6's tracker with its points cut into four mesh slices on one
+    card (``parallel.get_mesh(devices=["cuda"] * 4)``) beside the tracker
+    with no mesh, from the same injected draws: four launches of each
+    kernel a step, the outputs as phase 7 holds a free run, then one step
+    under ``profiling.device_trace`` (a Chrome trace under ``chiprun_out/``).
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
@@ -332,14 +353,14 @@ def cartesian_motion(points_xy, xy_sigma, v_sigma, a_sigma, device):
     )
 
 
-def make_tracker(camera, points_xy, n_particles, device):
+def make_tracker(camera, points_xy, n_particles, device, mesh=None):
     from glimpse_tpu_torch.track import batch
 
     motion = cartesian_motion(points_xy, 1.5, (3.0, 3.0, 0.0), (0.2, 0.2, 0.0), device)
     config = batch.BatchConfig(
         n_particles=n_particles, template_size=(15, 15), search_size=(41, 41)
     )
-    return batch.BatchTracker(camera[None], [None], [0.3], motion, config, device=device)
+    return batch.BatchTracker(camera[None], [None], [0.3], motion, config, device=device, mesh=mesh)
 
 
 def run_tracker(tracker, frames, seed=0):
@@ -1408,6 +1429,291 @@ def calibration_phase(devices, card: str, sizes=None) -> str:
     return f"phase 17 calibration on {card}, Jacobians by torch.func.jacfwd in float64 on the card: " + "; ".join(parts)
 
 
+def stabilize_from_files(n_frames: int, cuda, workdir: str) -> str:
+    """Phase 18: phase 11's scene written as JPEG files (quality 95), read
+    back as ``Image`` objects and stabilized through the user's entry
+    points: ``ObserverCameras.build_keypoints(detector="device")``,
+    ``build_matches(matcher="device", refine=True)``, ``fit``, then
+    ``project_images`` of every frame on the card. A second pass on fresh
+    objects must come from the pickle caches with no detection and the same
+    matches. Raises on a failed check; returns the line to print."""
+    import datetime
+
+    import PIL.Image
+    import torch
+
+    from glimpse_tpu_torch import Camera, Image, optimize, profiling
+    from glimpse_tpu_torch.io import geotiff
+    from glimpse_tpu_torch.track import Observer
+
+    timer = profiling.Timer()
+    marker = torch.zeros(1, device=cuda)  # phases timed by CUDA events on the card's stream
+    torch.cuda.reset_peak_memory_stats()
+    with timer("render", sync_value=marker):
+        frames, truth, base, mask = stabilization_scene(n_frames, cuda)
+    folder = os.path.join(workdir, "frames")
+    os.makedirs(folder, exist_ok=True)
+    paths = [os.path.join(folder, f"frame_{i:04d}.jpg") for i in range(n_frames)]
+    with timer("write jpeg", sync_value=marker):
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda i: PIL.Image.fromarray(frames[i]).save(paths[i], quality=95), range(n_frames)))
+    t0, hour = datetime.datetime(2020, 1, 1), datetime.timedelta(hours=1)
+    nominal = dict(imgsz=STAB_IMG, f=STAB_IMG, xyz=STAB_CAM_XYZ, viewdir=STAB_VIEWDIR)
+
+    def observer():
+        return Observer([Image(p, cam=Camera(**nominal), datetime=t0 + i * hour) for i, p in enumerate(paths)],
+                        cache=False)
+
+    detect = dict(detector="device", masks=mask, nfeatures=2048, batch=16, refine="lattice",
+                  path=os.path.join(workdir, "keypoints"))
+    match = dict(matcher="device", seq=STAB_OFFSETS, max_ratio=0.75, max_distance=20.0, refine=True,
+                 path=os.path.join(workdir, "matches"))
+    model = optimize.ObserverCameras(observer(), anchors=[0], device=cuda)
+    with timer("keypoints", sync_value=marker):
+        model.build_keypoints(**detect)
+    with timer("matches and refinement", sync_value=marker):
+        model.build_matches(**match)
+    with timer("fit", sync_value=marker):
+        fit = model.fit(maxiter=2000)
+    errors = rotation_errors(fit.x.reshape(-1, 3), truth)
+    if not np.isfinite(fit.x).all() or errors.max() > 0.01:
+        raise AssertionError(f"stabilization from files: max view direction error {errors.max()} deg (limit 0.01)")
+    images = model.observer.images
+    model.set_cameras(fit.x.reshape(-1, 3))
+    target = Camera(**nominal)
+    out = os.path.join(workdir, "stabilized")
+    outputs = [os.path.join(out, f"frame_{i:04d}.tif") for i in range(n_frames)]
+    with timer("project_images", sync_value=marker):
+        optimize.project_images(target, images, outputs, device=cuda, parallel=8)
+    peak = torch.cuda.max_memory_allocated()
+    # Frame 0 again on the CPU: the float64 sampling must give the same bytes.
+    cpu_path = os.path.join(workdir, "frame_0000_cpu.tif")
+    optimize.project_images(target, images[:1], [cpu_path], device="cpu")
+    if not np.array_equal(geotiff.read(cpu_path), geotiff.read(outputs[0])):
+        raise AssertionError("project_images of frame 0 differs between the card and the CPU")
+    # A second pass on fresh objects: everything from the pickles.
+    calls = []
+    detect_device = optimize.detect_keypoints_device
+
+    def counted(arrays, **kwargs):
+        calls.append(len(arrays))
+        return detect_device(arrays, **kwargs)
+
+    optimize.detect_keypoints_device = counted
+    try:
+        again = optimize.ObserverCameras(observer(), anchors=[0], device=cuda)
+        with timer("cached pass", sync_value=marker):
+            again.build_keypoints(**detect)
+            again.build_matches(**match)
+    finally:
+        optimize.detect_keypoints_device = detect_device
+    if calls:
+        raise AssertionError(f"the cached pass detected keypoints in {len(calls)} batches")
+    first, second = (m.matches for m in (model, again))
+    same = (np.array_equal(first.row, second.row) and np.array_equal(first.col, second.col)
+            and all(np.array_equal(a.xys[k], b.xys[k]) for a, b in zip(first.data, second.data) for k in (0, 1)))
+    if not same:
+        raise AssertionError("the cached pass's matches differ from the first pass's")
+    breaks = again.matcher.match_breaks()
+    if len(breaks):
+        raise AssertionError(f"match chain breaks at images {breaks[:10].tolist()}")
+    # Alignment: each frame against the anchor over their common footprint
+    # on the terrain (the glacier band moves), stabilized and at the
+    # nominal view direction.
+    anchor = np.squeeze(geotiff.read(outputs[0])).astype(float)
+    picks = sorted({1, n_frames // 2, n_frames - 1})
+    nominal_paths = [os.path.join(workdir, f"nominal_{i:04d}.tif") for i in picks]
+    optimize.project_images(target, [Image(paths[i], cam=Camera(**nominal)) for i in picks], nominal_paths, device=cuda)
+    alignment = []
+    for i, nominal_path in zip(picks, nominal_paths):
+        pair = []
+        for path in (outputs[i], nominal_path):
+            a = np.squeeze(geotiff.read(path)).astype(float)
+            common = (a > 0) & (anchor > 0) & (mask > 0)
+            pair.append(float(np.abs(a - anchor)[common].mean()))
+        alignment.append(f"frame {i} {pair[0]:.3f} DN (nominal view direction {pair[1]:.3f})")
+    n_matches = sum(m.size for m in first.data)
+    return (
+        f"{n_frames} JPEG frames of {STAB_IMG}x{STAB_IMG} (quality 95) through ObserverCameras, 2,048 keypoints,"
+        f" offsets {STAB_OFFSETS}, refined: "
+        + ", ".join(f"{k} {v['total_s']:.2f} s" for k, v in timer.as_dict().items())
+        + f"; {len(first.data)} image pairs, {n_matches} matched pairs; fit {fit.nit} iterations, view direction"
+        f" error max {errors.max():.5f} mean {errors.mean():.5f} deg (limit 0.01); cached pass: {len(calls)} detector"
+        f" batches, matches identical, no chain break; frame 0 projected bit-equal card vs CPU; mean |projected -"
+        f" anchor| on the terrain: {', '.join(alignment)}; peak {peak / 2**30:.2f} GiB"
+    )
+
+
+CALIBRATION_FILES = {
+    "Matlab": ("Calib_Results.m", "from_report"),
+    "OpenCV": ("opencv.xml", "from_xml"),
+    "Agisoft": ("agisoft.xml", "from_xml"),
+    "PhotoModeler": ("CalibrationReport.txt", "from_report"),
+}
+CALIBRATION_IMGSZ = (4288, 2848)
+CALIBRATION_SENSORSZ = (23.6, 15.8)  # mm; PhotoModeler's model needs a sensor size
+
+
+def conversion_phase(devices) -> str:
+    """Phase 19: each of ``tests/assets``' four calibration files read,
+    turned into a ``Camera`` (fit where the models differ), that camera
+    into each of the other three formats and back, each fit with the exact
+    Jacobian on the card and on the CPU. The host residuals are the same
+    NumPy on both and the Jacobians agree bit for bit, so card and CPU must
+    give parameters within 1e-9 relative, even along a direction the
+    residuals barely see (PhotoModeler's focal length, sensor size and
+    principal point share one scale). Returns the line to print."""
+    from glimpse_tpu_torch import convert
+
+    assets = os.path.join(REPO, "tests", "assets")
+
+    def flat(xcam) -> np.ndarray:
+        return np.concatenate([np.atleast_1d(np.asarray(v, dtype=float)) for v in vars(xcam).values()])
+
+    def read(name):
+        filename, reader = CALIBRATION_FILES[name]
+        kwargs = {} if name in ("Matlab", "Agisoft") else {"imgsz": CALIBRATION_IMGSZ}
+        return getattr(getattr(convert, name), reader)(os.path.join(assets, filename), **kwargs)
+
+    runs = {}
+    for kind, device in devices.items():
+        rows = []
+        for source in CALIBRATION_FILES:
+            xcam = read(source)
+            start = time.perf_counter()
+            cam = xcam.to_camera(device=device)
+            seconds = time.perf_counter() - start
+            residual = convert.Converter(xcam, cam, device=device).residuals()
+            rows.append((f"{source}->Camera", cam.to_array(), residual, seconds))
+            if cam.sensorsz is None:
+                cam.sensorsz = CALIBRATION_SENSORSZ
+            for target in CALIBRATION_FILES:
+                if target == source:
+                    continue
+                fmt = getattr(convert, target)
+                start = time.perf_counter()
+                out = fmt.from_camera(cam) if target == "OpenCV" else fmt.from_camera(cam, device=device)
+                back = out.to_camera(device=device)
+                seconds = time.perf_counter() - start
+                residual = np.concatenate([convert.Converter(out, c, device=device).residuals() for c in (cam, back)])
+                rows.append((f"{source}->{target}->Camera", np.concatenate([flat(out), back.to_array()]), residual,
+                             seconds))
+        runs[kind] = rows
+    worst = 0.0
+    for (label, a, res_a, _), (_, b, res_b, _) in zip(runs["card"], runs["cpu"]):
+        relative = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+        if not relative <= 1e-9:
+            raise AssertionError(f"conversion {label}: card and CPU parameters differ by {relative} relative (limit"
+                                 f" 1e-9), residuals by {np.abs(res_a - res_b).max()} px")
+        worst = max(worst, relative)
+    return (
+        f"{len(runs['card'])} conversions of 4 files (residual max px, card s / CPU s): "
+        + "; ".join(f"{label} {np.abs(res).max():.3g} px {sec:.2f}/{cpu[3]:.2f} s"
+                    for (label, _, res, sec), cpu in zip(runs["card"], runs["cpu"]))
+        + f"; card against CPU: every conversion's parameters within {worst:.3g} relative (limit 1e-9)"
+    )
+
+
+def kernel_label(name: str) -> str:
+    """A CUDA kernel's name cut to what tells kernels apart: PyTorch's
+    elementwise kernels by their operation and element type, others by the
+    function that launched them."""
+    found = re.search(r"binary_internal::(\w+)Functor<(\w+)>", name) or re.search(r"CUDAFunctor_(\w+)<(\w+)>", name)
+    if found:
+        return f"{found.group(1).lower()}<{found.group(2)}>"
+    found = re.search(r"(\w+?)_kernel<(\w+)>\(", name)
+    if found:
+        return f"{found.group(1)}<{found.group(2)}>"
+    found = re.search(r"(\w+?)_kernel_impl\(|_cuda_(\w+?)_internal_kernel", name)
+    if found:
+        return found.group(1) or found.group(2)
+    return name[:60]
+
+
+def mesh_phase(camera, frames, points_xy, cuda, trace_dir: str, n_slices: int = 4, n_particles: int = 2048,
+               n_steps: int = 10):
+    """Phase 20: phase 6's tracker with its points cut into ``n_slices``
+    mesh slices on one card, beside the tracker with no mesh, from the same
+    injected draws; then one mesh step under ``profiling.device_trace``.
+    Returns (the line to print, each kernel's launches in the mesh run)."""
+    import torch
+
+    from glimpse_tpu_torch import parallel, profiling
+    from glimpse_tpu_torch.kernels.highpass import median_highpass
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+
+    n = len(points_xy)
+    draws = torch.Generator(device=cuda).manual_seed(20)
+    noise = {
+        "init": {k: torch.randn((n, n_particles, w), generator=draws, device=cuda) for k, w in (("xy", 2), ("v", 3))},
+        "a": torch.randn((n_steps, n, n_particles, 3), generator=draws, device=cuda),
+        "resample_u": torch.rand((n_steps, n), generator=draws, device=cuda),
+    }
+    images = frames[: n_steps + 1, None]
+    dts = torch.ones(n_steps, device=cuda)
+    trackers = {
+        "mesh": make_tracker(camera, points_xy, n_particles, cuda, mesh=parallel.get_mesh(devices=[cuda] * n_slices)),
+        "none": make_tracker(camera, points_xy, n_particles, cuda),
+    }
+
+    def run(tracker):
+        generator = torch.Generator(device=cuda).manual_seed(0)
+        start = time.perf_counter()
+        _, out = tracker.track(generator, images, dts, noise=noise)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start
+
+    for tracker in trackers.values():
+        run(tracker)  # warm-up
+    median_highpass.launches = 0
+    systematic_resample.launches = 0
+    out_mesh, seconds_mesh = run(trackers["mesh"])
+    launches = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
+    # One template high-pass a slice, then each step one high-pass and one resample a slice.
+    if launches != {"median_highpass": n_slices * (n_steps + 1), "systematic_resample": n_slices * n_steps}:
+        raise AssertionError(f"the mesh run launched {launches}, not {n_slices} of each kernel a step")
+    out_none, seconds_none = run(trackers["none"])
+    diffs = {k: float((out_mesh[k] - out_none[k]).abs().max()) for k in out_none}
+    mean_mesh, mean_none = (o["mean"].cpu().numpy() for o in (out_mesh, out_none))
+    per_point = np.abs(mean_mesh - mean_none).max(axis=(0, 2))
+    step1 = float(np.abs(mean_mesh[0] - mean_none[0]).max())
+    if step1 > 1e-3 or np.median(per_point) > 1e-2 or per_point.max() > 0.5:
+        raise AssertionError(f"the mesh run parts from the run without: step 1 {step1}, per point {per_point.max()}")
+    mesh = trackers["mesh"]
+    state = mesh.initialize(torch.Generator(device=cuda).manual_seed(0), images[0])
+    frame = images[1]
+    mesh.step(state, frame, dts[0])
+    torch.cuda.synchronize()
+    with profiling.device_trace(trace_dir) as prof:
+        start = time.perf_counter()
+        mesh.step(state, frame, dts[0])
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - start) * 1e3
+
+    def device_us(row):
+        return getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0)
+
+    kernels = sorted((r for r in prof.key_averages() if r.device_type == torch.autograd.DeviceType.CUDA
+                      and device_us(r) > 0), key=device_us, reverse=True)
+    busy_ms = sum(device_us(r) for r in kernels) / 1e3
+    top = (
+        f"{window_ms:.3f} ms under the profiler, device busy {busy_ms:.3f} ms, {sum(r.count for r in kernels)} kernel"
+        " launches; longest kernels: "
+        + ", ".join(f"{kernel_label(r.key)} {device_us(r) / 1e3:.2f} ms ({r.count})" for r in kernels[:5])
+        if kernels else "device time not measured"
+    )
+    line = (
+        f"{n}x{n_particles}x{n_steps} steps in {n_slices} mesh slices on one card against no mesh, same draws:"
+        f" max |diff| " + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+        + f" (step 1 {step1:.3g}, limit 1e-3; median point {np.median(per_point):.3g}, limit 1e-2; worst point"
+        f" {per_point.max():.3g}, limit 0.5); launches {launches}, {n_slices} of each kernel a step;"
+        f" mesh {n * n_steps / seconds_mesh:.1f} point-steps/s ({seconds_mesh:.3f} s), no mesh"
+        f" {n * n_steps / seconds_none:.1f} ({seconds_none:.3f} s); one mesh step traced to"
+        f" {os.path.relpath(trace_dir, REPO)}/trace.json: {top}"
+    )
+    return line, launches
+
+
 def main() -> None:
     import torch
 
@@ -1426,9 +1732,15 @@ def main() -> None:
     from glimpse_tpu_torch.ops.resampling import systematic_thresholds
 
     cuda = torch.device("cuda")
+    started = time.perf_counter()
+
+    def say(line: str, flush: bool = True) -> None:
+        """A phase's line, with the seconds since the script's start."""
+        print(f"{line} [{time.perf_counter() - started:.1f} s]", flush=flush)
+
     card = _card()
     print(card)
-    print(
+    say(
         f"phase 1 card: {torch.cuda.get_device_name(0)}; torch {torch.__version__},"
         f" CUDA {torch.version.cuda}, numpy {np.__version__}; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}",
         flush=True,
@@ -1456,7 +1768,7 @@ def main() -> None:
         built = dict(zip(names, pool.map(build, names)))
         built["host feeder"] = feeder_built.result()
     main_kernel = next(r for r in sass.count_built("highpass") if r[0] == "separable_kernel<5,5,8>")
-    print(
+    say(
         "phase 2 build: " + "; ".join(f"{k} {v}" for k, v in built.items())
         + f"; SASS of the 5x5 high-pass {sass.describe(main_kernel)}",
         flush=True,
@@ -1471,6 +1783,7 @@ def main() -> None:
         ((1024, 41, 41), (5, 5)), ((1024, 15, 15), (5, 5)), ((1024, 41, 41), (3, 3)), ((1024, 41, 41), (7, 7)),
         ((20480, 31, 31), (5, 5)),  # phase 8's stacked search tiles: 2 observers x 10,240 points
         ((10240, 41, 41), (5, 5)), ((10240, 15, 15), (5, 5)),  # phase 14's search tiles and templates
+        ((2560, 41, 41), (5, 5)), ((2560, 15, 15), (5, 5)),  # phase 20's: one of four mesh slices
         # phase 16: the host tracker's template, its smallest search tile (the
         # template plus the spline support) and non-square ones
         *(((1, h, w), (5, 5)) for h, w in HOST_TRACKER_TILES),
@@ -1527,7 +1840,7 @@ def main() -> None:
         if median_highpass.launches != launched:
             raise AssertionError(f"{entry.__name__} launched on a 300x300 tile it refused")
     routes.append(f"5x5 on 300x300 raises ({refusal})")
-    print(
+    say(
         "phase 3 median_highpass bit-equal: "
         + "; ".join(
             f"{s[1]}x{s[2]} {k[0]}x{k[1]} kernel {a:.4f} ms plain {b:.4f} ms"
@@ -1538,10 +1851,11 @@ def main() -> None:
     )
 
     # Phase 4: the resample kernel on skewed weights, thresholds built as
-    # the tracker builds them; N = 37 divides no block size.
+    # the tracker builds them, at phase 5's, phase 8's and one of phase 20's
+    # four mesh slices' shapes; N = 37 divides no block size.
     rs_err = 0.0
     rs_times = {}
-    for n, p in [(1024, 1024), (10240, 2048), (37, 1024)]:
+    for n, p in [(1024, 1024), (10240, 2048), (2560, 2048), (37, 1024)]:
         weights = torch.from_numpy(np.exp(3 * rng.normal(size=(n, p))).astype(np.float32)).to(cuda)
         u = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
         particles = torch.from_numpy(rng.normal(size=(n, p, 6)).astype(np.float32)).to(cuda)
@@ -1555,7 +1869,7 @@ def main() -> None:
             _cuda_ms(lambda: systematic_resample(t, particles, weights)),
             _cuda_ms(lambda: systematic_resample_plain(t, particles, weights)),
         )
-    print(
+    say(
         "phase 4 systematic_resample bit-equal: "
         + "; ".join(f"{n}x{p} kernel {a:.4f} ms plain {b:.4f} ms" for (n, p), (a, b) in rs_times.items()),
         flush=True,
@@ -1586,7 +1900,7 @@ def main() -> None:
     velocity = np.median(mean[-1, :, 3:5], axis=0)
     if np.abs(velocity - (2.0, -1.0)).max() > 0.5:
         raise AssertionError(f"recovered velocity {velocity} is not within 0.5 of (2, -1)")
-    print(
+    say(
         f"phase 5 track {n_points}x{n_particles}x{n_steps}: {n_points * n_steps / seconds:.1f} point-steps/s"
         f" ({seconds:.3f} s), median velocity ({velocity[0]:.3f}, {velocity[1]:.3f}),"
         f" launches {launches}, peak {peak / 2**30:.2f} GiB",
@@ -1604,7 +1918,7 @@ def main() -> None:
     seconds_big = min(r[1] for r in runs)
     if not torch.isfinite(out_big["mean"]).all():
         raise AssertionError("non-finite means at 10,240 x 2,048")
-    print(
+    say(
         f"phase 6 track {n_big}x{p_big}x{steps_big}: {n_big * steps_big / seconds_big:.1f} point-steps/s"
         f" ({seconds_big:.3f} s), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
         flush=True,
@@ -1659,7 +1973,7 @@ def main() -> None:
             f"card and CPU runs part: carried steps {carried}, free step 1 {step1},"
             f" per point {per_point.tolist()}"
         )
-    print(
+    say(
         f"phase 7 lockstep {n_small}x{p_small}x{t_small - 1} card vs CPU: each step from a shared state"
         f" max |diff| {carried:.3g} (limit 1e-3), resampled rows differing {flips} of"
         f" {n_small * p_small * (t_small - 1)}; free runs step 1 {step1:.3g} (limit 1e-3), median point"
@@ -1713,7 +2027,7 @@ def main() -> None:
     rmse8 = float(np.sqrt(np.mean(np.sum((mean8[-1, :, 0:2] - truth) ** 2, axis=-1))))
     if rmse8 > 0.5:
         raise AssertionError(f"Columbia final RMSE {rmse8} px is above 0.5 px")
-    print(
+    say(
         f"phase 8 columbia {n8}x{p8}x2 observers x{t8 - 1} steps streamed (chunk {chunk}, viewshed on):"
         f" {n8 * (t8 - 1) / seconds8:.1f} point-steps/s ({seconds8:.3f} s), peak {peak8 / 2**30:.2f} GiB,"
         f" final RMSE {rmse8:.4f} px, launches {launches8}, {len(outputs8)} output entries",
@@ -1766,7 +2080,7 @@ def main() -> None:
             f"card and CPU part on the new paths: carried steps {carried9}, free step 1 {step1_9},"
             f" per point {per_point9.tolist()}"
         )
-    print(
+    say(
         f"phase 9 lockstep {n9}x{p9}x{t9 - 1}, 2 observers (the second from step 3, masked at step 6),"
         f" viewshed, resample_threshold 0.5, covariances: each step from a shared state max |diff| {carried9:.3g}"
         f" (limit 1e-3); free runs step 1 {step1_9:.3g} (limit 1e-3), median point {np.median(per_point9):.3g}"
@@ -1800,7 +2114,7 @@ def main() -> None:
     )
     if not equal:
         raise AssertionError("the run resumed from the checkpoint differs from the uninterrupted run")
-    print(
+    say(
         f"phase 10 checkpoint on {resumed.generator.device}: saved after step 3, resumed for 3 steps,"
         " outputs and particles bit-equal to the uninterrupted run",
         flush=True,
@@ -1808,7 +2122,7 @@ def main() -> None:
 
     # Phase 11: stabilization at full width.
     torch.cuda.reset_peak_memory_stats()
-    n11 = 1000
+    n11 = 250  # phase 18 runs the recipe at 1,000 frames from files
     stab = stabilize(n11, cuda)
     peak11 = torch.cuda.max_memory_allocated()
     worst11 = [float(e.max()) for e in stab["errors"]]
@@ -1819,7 +2133,7 @@ def main() -> None:
         f"{name}: {f.nit} iterations, |g| {f.grad_norm:.3g}, error max {e.max():.5f} mean {e.mean():.5f} deg"
         for name, f, e in zip(("fit", "refined fit"), stab["fits"], stab["errors"])
     )
-    print(
+    say(
         f"phase 11 stabilization {n11} frames of {STAB_IMG}x{STAB_IMG}, 2,048 keypoints, offsets {STAB_OFFSETS}:"
         f" {times11}; {len(stab['pairs'])} image pairs, {stab['matches']} matched pairs;"
         f" {fits11}; peak {peak11 / 2**30:.2f} GiB",
@@ -1827,29 +2141,42 @@ def main() -> None:
     )
 
     # Phase 12: the stabilization modules, card against CPU.
-    print("phase 12 card vs CPU: " + compare_stabilization(stab, cuda), flush=True)
+    say("phase 12 card vs CPU: " + compare_stabilization(stab, cuda), flush=True)
 
     # Phase 13: terrain on the card.
-    print(f"phase 13 terrain on {card}: " + terrain_on_the_card(cuda), flush=True)
+    say(f"phase 13 terrain on {card}: " + terrain_on_the_card(cuda), flush=True)
 
     # Phase 14: objects in, Tracks out, at full width.
     line14, launches14, scene, points14 = objects_to_tracks(cuda, card)
-    print(line14, flush=True)
+    say(line14, flush=True)
 
     # Phase 15: the object path on the card against the CPU, from shared draws.
-    print(object_path_lockstep(scene, points14, devices), flush=True)
+    say(object_path_lockstep(scene, points14, devices), flush=True)
 
     # Phase 16: the host Tracker on the card, on the CPU, and the batched
     # tracker from the same objects and draws.
     line16, launches16, shapes16 = host_tracker_phase(scene, points14, devices, card)
-    print(line16, flush=True)
+    say(line16, flush=True)
 
     # Phase 17: calibration, the exact Jacobian on the card.
-    print(calibration_phase(devices, card), flush=True)
+    say(calibration_phase(devices, card), flush=True)
 
-    # The kernels at phase 8's shapes; ``launches`` are phase 16's, this
-    # slice's path (the host tracker's run on the card and the batched
-    # tracker's beside it), and ``launches_by_path`` every main path's, each
+    # Phase 18: stabilization from image files at full size.
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="phase18_", dir=os.path.join(REPO, "build")) as workdir:
+        say("phase 18 stabilization from files: " + stabilize_from_files(1000, cuda, workdir), flush=True)
+
+    # Phase 19: camera model conversion, card against CPU.
+    say("phase 19 conversion: " + conversion_phase(devices), flush=True)
+
+    # Phase 20: the north-star width in four mesh slices on one card.
+    line20, launches20 = mesh_phase(camera, frames, big_xy, cuda, os.path.join(REPO, "chiprun_out", "phase20_trace"))
+    say("phase 20 mesh: " + line20, flush=True)
+
+    # The kernels at phase 8's shapes; ``launches`` are phase 20's, this
+    # slice's path that runs them (the tracker in four mesh slices; phases
+    # 18-19 launch neither), and ``launches_by_path`` every main path's, each
     # counted from 0 just before its run (phase 5's and phase 8's counts are
     # one timed pass's). Each bound is
     # the bytes the function must move (every input read once, every output
@@ -1863,7 +2190,8 @@ def main() -> None:
     bound_hp = 2 * 20480 * 31 * 31 * 4 / HBM_BYTES_PER_S * 1e3
     bound_rs = 10240 * 2048 * 60 / HBM_BYTES_PER_S * 1e3
     by_path = {
-        name: {"phase 5": launches[name], "phase 8": launches8[name], "phase 14": launches14[name], "phase 16": launches16[name]}
+        name: {"phase 5": launches[name], "phase 8": launches8[name], "phase 14": launches14[name],
+               "phase 16": launches16[name], "phase 20": launches20[name]}
         for name in ("median_highpass", "systematic_resample")
     }
     if any(count < 1 for counts in by_path.values() for count in counts.values()):
@@ -1880,25 +2208,32 @@ def main() -> None:
          "bound_ms": 2 * h * w * 4 / HBM_BYTES_PER_S * 1e3}
         for h, w in HOST_TRACKER_TILES
     ]
+    hp20 = [
+        {"shape": list(shape), "ms": hp_times[(shape, (5, 5))][0], "plain_ms": hp_times[(shape, (5, 5))][1],
+         "bound_ms": 2 * int(np.prod(shape)) * 4 / HBM_BYTES_PER_S * 1e3}
+        for shape in ((2560, 41, 41), (2560, 15, 15))
+    ]
+    rs20 = [{"shape": [2560, 2048], "ms": rs_times[(2560, 2048)][0], "plain_ms": rs_times[(2560, 2048)][1],
+             "bound_ms": 2560 * 2048 * 60 / HBM_BYTES_PER_S * 1e3}]
     print(json.dumps({"kernels": [
         {
             "name": "median_highpass", "route": "cuda",
             "source": "glimpse_tpu_torch/csrc/highpass.cu",
             "replaces": "glimpse_tpu/kernels/highpass_pallas.py:95",
-            "launches": launches16["median_highpass"], "max_abs_err": hp_err,
+            "launches": launches20["median_highpass"], "max_abs_err": hp_err,
             "ms": main_hp[0], "plain_ms": main_hp[1], "bound_ms": bound_hp, "bound_by": "bytes",
             "bound_share": bound_hp / main_hp[0], "library_ms": None, "shape": [20480, 31, 31],
             "launches_by_path": by_path["median_highpass"], "phase_14_shapes": hp14, "phase_16_shapes": hp16,
-            "phase_16_tile_shapes": len(shapes16),
+            "phase_16_tile_shapes": len(shapes16), "phase_20_shapes": hp20,
         },
         {
             "name": "systematic_resample", "route": "cuda",
             "source": "glimpse_tpu_torch/csrc/resample.cu",
             "replaces": "glimpse_tpu/kernels/resample_pallas.py:556",
-            "launches": launches16["systematic_resample"], "max_abs_err": rs_err,
+            "launches": launches20["systematic_resample"], "max_abs_err": rs_err,
             "ms": main_rs[0], "plain_ms": main_rs[1], "bound_ms": bound_rs, "bound_by": "bytes",
             "bound_share": bound_rs / main_rs[0], "library_ms": None, "shape": [10240, 2048],
-            "launches_by_path": by_path["systematic_resample"],
+            "launches_by_path": by_path["systematic_resample"], "phase_20_shapes": rs20,
         },
     ]}))
     print(json.dumps({

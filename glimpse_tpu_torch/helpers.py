@@ -4,16 +4,20 @@ The counterpart of :mod:`glimpse_tpu.helpers`, NumPy and SciPy only, holding
 the functions the port's host objects use (JSON, list formatting, sorted
 search, masked filters, uncertainty propagation, boxes and grids,
 rasterization, polyline clipping and interpolation, pairwise distances,
-datetime selection), with their examples. The reference's other helpers are
-not part of this module yet: pickles, histogram matching and CLAHE, ray and
-plane intersection, Bresenham rasterization, elevation corrections, the GIS
-functions (``crs_to_wkt``, ``write_raster``, ``average_rasters``, the
-file-format lookup) and ``plot_quivers``.
+datetime selection, pickles, histogram matching and CLAHE, ray and plane
+intersection, Bresenham rasterization, elevation corrections), with their
+examples, and the GDAL-free GIS helpers (``crs_to_wkt``, ``write_raster``,
+``average_rasters``, the file-format lookup, ``plot_quivers``).
+``crs_to_wkt`` passes a compound EPSG designation such as
+``"EPSG:4326+5773"`` through unchanged, where the reference raises.
 """
 import datetime
+import gzip
 import itertools
 import json
 import os
+import pickle
+import re
 import warnings
 from pathlib import Path
 from typing import Any, Iterable, List, Optional, Tuple, Union
@@ -132,7 +136,29 @@ def sorted_nearest(x: Iterable, y: Iterable) -> np.ndarray:
     return bracket[np.arange(len(y)), pick_right.astype(int)]
 
 
-# ---- JSON ---- #
+# ---- Pickle / JSON ---- #
+
+
+def write_pickle(
+    obj: Any, path: Union[str, Path], gz: bool = False, binary: bool = True, **kwargs: Any
+) -> None:
+    """Write an object to a (optionally gzipped) pickle file."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    mode = "wb" if binary else "w"
+    opener = gzip.open if gz else open
+    with opener(path, mode=mode) as fp:
+        pickle.dump(obj, fp, **kwargs)
+
+
+def read_pickle(
+    path: Union[str, Path], gz: bool = False, binary: bool = True, **kwargs: Any
+) -> Any:
+    """Read an object from a (optionally gzipped) pickle file."""
+    mode = "rb" if binary else "r"
+    opener = gzip.open if gz else open
+    with opener(path, mode=mode) as fp:
+        return pickle.load(fp, **kwargs)
 
 
 def read_json(path: Union[str, Path], **kwargs: Any) -> Union[dict, list]:
@@ -258,6 +284,107 @@ def maximum_filter(
         excluded = x == dtype_min
     x[excluded] = a[excluded]
     return x
+
+
+def compute_cdf(
+    a: np.ndarray, return_inverse: bool = False
+) -> Union[Tuple[np.ndarray, np.ndarray], Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Return (unique values, quantiles) CDF of an array."""
+    results = np.unique(a, return_inverse=return_inverse, return_counts=True)
+    quantiles = np.cumsum(results[-1]) / a.size
+    if return_inverse:
+        return results[0], quantiles, results[1]
+    return results[0], quantiles
+
+
+def match_cdf(
+    a: np.ndarray, cdf: Union[Tuple[Iterable, Iterable], np.ndarray]
+) -> np.ndarray:
+    """Transform array values to match a target CDF (histogram matching).
+
+    Examples:
+        >>> a = np.array([3, 2, 1, 2])
+        >>> b = np.array([4, 2, 1, 2, 4, 2, 1, 2])
+        >>> match_cdf(a, b)
+        array([4., 2., 1., 2.])
+    """
+    if isinstance(cdf, np.ndarray):
+        cdf = compute_cdf(cdf)
+    # Each element's empirical quantile is the fraction of elements <= it
+    # (right-continuous CDF), obtained by ranking against a sorted copy —
+    # no unique/inverse pass needed.
+    flat = np.ravel(a)
+    ranks = np.searchsorted(np.sort(flat), flat, side="right")
+    return np.interp(ranks / flat.size, cdf[1], cdf[0]).reshape(a.shape)
+
+
+def clahe(
+    a: np.ndarray,
+    clip_limit: float = 40.0,
+    tile_grid_size: Tuple[int, int] = (8, 8),
+) -> np.ndarray:
+    """Contrast-limited adaptive histogram equalization of a uint8 image.
+
+    Pure-NumPy stand-in for ``cv2.createCLAHE(...).apply`` (reference relies
+    on cv2 for this, optimize.py:2346-2365): the image is divided into a
+    ``tile_grid_size`` grid, each tile's 256-bin histogram is clipped at
+    ``clip_limit * tile_area / 256`` with the excess redistributed uniformly
+    (cv2 semantics), each clipped CDF becomes a tile LUT, and every pixel is
+    mapped by bilinear interpolation between the four nearest tile LUTs.
+    Differences from cv2 are sub-level rounding only.
+    """
+    a = np.asarray(a)
+    if a.dtype != np.uint8:
+        raise ValueError(f"clahe expects a uint8 image, got {a.dtype}")
+    if a.ndim != 2:
+        raise ValueError(f"clahe expects a 2-D image, got shape {a.shape}")
+    ty, tx = int(tile_grid_size[0]), int(tile_grid_size[1])
+    h, w = a.shape
+    # cv2 pads with BORDER_REFLECT_101 so dims divide the grid evenly.
+    th, tw = -(-h // ty), -(-w // tx)
+    padded = np.pad(a, ((0, th * ty - h), (0, tw * tx - w)), mode="reflect")
+    tiles = padded.reshape(ty, th, tx, tw).transpose(0, 2, 1, 3)  # (ty,tx,th,tw)
+    # Per-tile 256-bin histograms via a single bincount over offset values.
+    tile_ids = np.repeat(np.arange(ty * tx), th * tw)
+    hist = np.bincount(
+        tile_ids * 256 + tiles.reshape(ty * tx, -1).ravel().astype(np.intp),
+        minlength=ty * tx * 256,
+    ).reshape(ty * tx, 256)
+    if clip_limit > 0:
+        limit = max(int(clip_limit * th * tw / 256.0), 1)
+        excess = np.clip(hist - limit, 0, None).sum(axis=1)
+        hist = np.minimum(hist, limit)
+        # Uniform redistribution of the clipped mass: every bin gets
+        # excess//256, then the residual is spread one count per
+        # max(256//residual, 1) bins starting at 0 (cv2's exact scheme —
+        # first-bins-only redistribution skews the low-value CDF by up to
+        # residual counts, ~20 gray levels at default settings).
+        hist = hist + (excess // 256)[:, None]
+        residual = (excess % 256)[:, None]
+        step = np.maximum(256 // np.maximum(residual, 1), 1)
+        bins = np.arange(256)[None, :]
+        hist = hist + ((bins % step == 0) & (bins // step < residual))
+    lut_scale = 255.0 / (th * tw)
+    luts = np.rint(np.cumsum(hist, axis=1) * lut_scale).astype(np.float32)
+    luts = luts.reshape(ty, tx, 256)
+    # Bilinear interpolation between the 4 surrounding tile centres
+    # (cv2 convention: txf = x / tile_width - 0.5, no half-pixel offset).
+    yy = np.arange(h) / th - 0.5
+    xx = np.arange(w) / tw - 0.5
+    y0 = np.clip(np.floor(yy).astype(np.intp), 0, ty - 1)
+    x0 = np.clip(np.floor(xx).astype(np.intp), 0, tx - 1)
+    y1 = np.minimum(y0 + 1, ty - 1)
+    x1 = np.minimum(x0 + 1, tx - 1)
+    fy = np.clip(yy - y0, 0.0, 1.0)[:, None]
+    fx = np.clip(xx - x0, 0.0, 1.0)[None, :]
+    v = a.astype(np.intp)
+    top = luts[y0[:, None], x0[None, :], v] * (1 - fx) + luts[
+        y0[:, None], x1[None, :], v
+    ] * fx
+    bot = luts[y1[:, None], x0[None, :], v] * (1 - fx) + luts[
+        y1[:, None], x1[None, :], v
+    ] * fx
+    return np.clip(np.rint(top * (1 - fy) + bot * fy), 0, 255).astype(np.uint8)
 
 
 def _numpy_dropdims(a: np.ndarray, axis: int = None, keepdims: bool = False) -> Any:
@@ -521,6 +648,117 @@ def intersect_rays_box(
     return origin + tmin[:, None] * directions, origin + tmax[:, None] * directions
 
 
+def intersect_ray_planes(ray: Iterable, planes: Iterable) -> np.ndarray:
+    """Intersect one ray with many planes (NaN for parallel/behind)."""
+    ray = np.asarray(ray, dtype=float)
+    planes = np.atleast_2d(planes).astype(float)
+    points = np.full((planes.shape[0], 3), np.nan)
+    normals = np.cross(planes[:, 3:6], planes[:, 6:9])
+    dots = (ray[3:6] * normals).sum(axis=1)
+    mask = np.abs(dots) > 1e-14
+    shifts = planes[mask, :3] - ray[:3]
+    tvals = (normals[mask] * shifts).sum(axis=1) / dots[mask]
+    infront = tvals >= 0
+    mask[mask] &= infront
+    points[mask] = ray[:3] + tvals[infront, None] * ray[3:6]
+    return points
+
+
+def intersect_rays_plane(rays: Iterable, plane: Iterable) -> np.ndarray:
+    """Intersect many rays with one plane (NaN for parallel/behind)."""
+    rays = np.atleast_2d(rays).astype(float)
+    plane = np.asarray(plane, dtype=float)
+    points = np.full((rays.shape[0], 3), np.nan)
+    normal = np.cross(plane[3:6], plane[6:9])
+    dots = (normal * rays[:, 3:6]).sum(axis=1)
+    mask = np.abs(dots) > 1e-14
+    shifts = plane[:3] - rays[mask, :3]
+    tvals = (normal * shifts).sum(axis=1) / dots[mask]
+    infront = tvals >= 0
+    mask[mask] &= infront
+    points[mask] = rays[mask, :3] + tvals[infront, None] * rays[mask, 3:6]
+    return points
+
+
+def bresenham_line(start: Iterable[int], end: Iterable[int]) -> np.ndarray:
+    """Return grid indices along a line (Bresenham), fully vectorized.
+
+    Matches the classic run-length algorithm: exactly max(|dx|, |dy|) + 1
+    cells, stepping the minor axis when the accumulated error crosses zero.
+
+    Examples:
+        >>> bresenham_line((0, 0), (2, 1))
+        array([[0, 0],
+               [1, 0],
+               [2, 1]])
+        >>> bresenham_line((0, 0), (0, 2))
+        array([[0, 0],
+               [0, 1],
+               [0, 2]])
+    """
+    x1, y1 = int(start[0]), int(start[1])
+    x2, y2 = int(end[0]), int(end[1])
+    steep = abs(y2 - y1) > abs(x2 - x1)
+    if steep:
+        x1, y1, x2, y2 = y1, x1, y2, x2
+    swapped = x1 > x2
+    if swapped:
+        x1, x2, y1, y2 = x2, x1, y2, y1
+    dx = x2 - x1
+    abs_dy = abs(y2 - y1)
+    ystep = 1 if y1 < y2 else -1
+    xs = np.arange(x1, x2 + 1)
+    if dx == 0:
+        ys = np.array([y1])
+    else:
+        # error after k steps: e_k = floor(dx/2) - k*abs_dy; y increments when e < 0.
+        k = np.arange(dx + 1)
+        increments = (k * abs_dy - int(dx / 2) + dx - 1) // dx
+        increments = np.maximum(increments, 0)
+        ys = y1 + ystep * increments
+    points = np.column_stack((ys, xs) if steep else (xs, ys))
+    if swapped:
+        points = points[::-1]
+    return points
+
+
+def bresenham_circle(center: Iterable[Number], radius: float) -> np.ndarray:
+    """Return grid indices along a circle (midpoint algorithm), ordered CW."""
+    x0, y0 = center
+    octant_size = int(np.floor((np.sqrt(2) * (radius - 1) + 4) / 2))
+    n_points = 8 * octant_size
+    x, y = 0, radius
+    f = 1 - radius
+    dx, dy = 1, -2 * radius
+    xy = np.full((n_points, 2), np.nan)
+    xy[0] = [x0 + x, y0 + y]
+    xy[8 * octant_size - 1] = [x0 - x, y0 + y]
+    xy[4 * octant_size - 1] = [x0 + x, y0 - y]
+    xy[4 * octant_size] = [x0 - x, y0 - y]
+    xy[2 * octant_size - 1] = [x0 + y, y0 + x]
+    xy[6 * octant_size] = [x0 - y, y0 + x]
+    xy[2 * octant_size] = [x0 + y, y0 - x]
+    xy[6 * octant_size - 1] = [x0 - y, y0 - x]
+    for i in range(2, octant_size + 1):
+        if f > 0:
+            y -= 1
+            dy += 2
+            f += dy
+        x += 1
+        dx += 2
+        f += dx
+        xy[i - 1] = [x0 + x, y0 + y]
+        xy[8 * octant_size - i] = [x0 - x, y0 + y]
+        xy[4 * octant_size - i] = [x0 + x, y0 - y]
+        xy[4 * octant_size + i - 1] = [x0 - x, y0 - y]
+        xy[2 * octant_size - i] = [x0 + y, y0 + x]
+        xy[6 * octant_size + i - 1] = [x0 - y, y0 + x]
+        xy[2 * octant_size + i - 1] = [x0 + y, y0 - x]
+        xy[6 * octant_size - i] = [x0 - y, y0 - x]
+    unique = [True] + (np.diff(xy, axis=0) != 0).any(axis=1).tolist()
+    return xy[unique]
+
+
 def pairwise_distance(x: Iterable, y: Iterable, **kwargs: Any) -> np.ndarray:
     """Pairwise distances between two sets of points."""
     def as2d(p):
@@ -655,6 +893,23 @@ def polygons_to_mask(
     return mask.reshape(ny, nx)
 
 
+# ---- Physics ---- #
+
+
+def elevation_corrections(
+    squared_distances: Iterable, radius: float = 6.3781e6, refraction: float = 0.13
+) -> np.ndarray:
+    """Elevation corrections for earth curvature and atmospheric refraction.
+
+    Follows the (refraction - 1) d^2 / (2 radius) survey correction.
+
+    Examples:
+        >>> round(float(elevation_corrections(np.array([1e8]))[0]), 2)
+        -6.82
+    """
+    return (refraction - 1) * np.asarray(squared_distances) / (2 * radius)
+
+
 # ---- Time ---- #
 
 
@@ -726,3 +981,227 @@ def _parse_parallel(parallel: Union[int, bool]) -> int:
             raise NotImplementedError("Cannot determine number of CPUs")
         return count
     return int(parallel)
+
+
+# ---- GIS (GDAL-free) ---- #
+
+
+# WKT1 building blocks for the EPSG definitions this domain uses
+# (the original glimpse resolves arbitrary codes through GDAL's
+# SpatialReference; GDAL-free here, so the
+# common geographic/UTM/Alaska codes are generated from their published
+# EPSG parameters and anything else falls back to an "EPSG:<code>"
+# identifier string).
+_WKT_GEOGCS = {
+    # datum name, spheroid name, inverse flattening, datum code, geogcs code
+    "WGS 84": (
+        "WGS_1984", "WGS 84", 6378137, "298.257223563", 6326, 4326
+    ),
+    "NAD83": (
+        "North_American_Datum_1983", "GRS 1980", 6378137,
+        "298.257222101", 6269, 4269,
+    ),
+}
+
+
+def _wkt_geogcs(name: str) -> str:
+    datum, sph, a, inv_f, dcode, gcode = _WKT_GEOGCS[name]
+    return (
+        f'GEOGCS["{name}",DATUM["{datum}",SPHEROID["{sph}",{a},{inv_f},'
+        f'AUTHORITY["EPSG","{7030 if sph == "WGS 84" else 7019}"]],'
+        f'AUTHORITY["EPSG","{dcode}"]],'
+        f'PRIMEM["Greenwich",0,AUTHORITY["EPSG","8901"]],'
+        f'UNIT["degree",0.0174532925199433,AUTHORITY["EPSG","9122"]],'
+        f'AUTHORITY["EPSG","{gcode}"]]'
+    )
+
+
+def _wkt_projcs(name, geogcs, projection, parameters, code):
+    params = ",".join(
+        f'PARAMETER["{k}",{v}]' for k, v in parameters
+    )
+    return (
+        f'PROJCS["{name}",{_wkt_geogcs(geogcs)},'
+        f'PROJECTION["{projection}"],{params},'
+        f'UNIT["metre",1,AUTHORITY["EPSG","9001"]],'
+        f'AXIS["Easting",EAST],AXIS["Northing",NORTH],'
+        f'AUTHORITY["EPSG","{code}"]]'
+    )
+
+
+def _epsg_to_wkt(code: int) -> Optional[str]:
+    """WKT1 for an EPSG code, or None if outside the built-in table."""
+    if code in (4326, 4269):
+        return _wkt_geogcs("WGS 84" if code == 4326 else "NAD83")
+    if 32601 <= code <= 32660 or 32701 <= code <= 32760:  # WGS 84 / UTM
+        zone = code % 100
+        south = code >= 32701
+        return _wkt_projcs(
+            f"WGS 84 / UTM zone {zone}{'S' if south else 'N'}",
+            "WGS 84", "Transverse_Mercator",
+            [
+                ("latitude_of_origin", 0),
+                ("central_meridian", zone * 6 - 183),
+                ("scale_factor", 0.9996),
+                ("false_easting", 500000),
+                ("false_northing", 10000000 if south else 0),
+            ],
+            code,
+        )
+    if 26901 <= code <= 26923:  # NAD83 / UTM (Alaska imagery CRS family)
+        zone = code % 100
+        return _wkt_projcs(
+            f"NAD83 / UTM zone {zone}N", "NAD83", "Transverse_Mercator",
+            [
+                ("latitude_of_origin", 0),
+                ("central_meridian", zone * 6 - 183),
+                ("scale_factor", 0.9996),
+                ("false_easting", 500000),
+                ("false_northing", 0),
+            ],
+            code,
+        )
+    if code == 3338:  # NAD83 / Alaska Albers (Columbia Glacier rasters)
+        return _wkt_projcs(
+            "NAD83 / Alaska Albers", "NAD83", "Albers_Conic_Equal_Area",
+            [
+                ("latitude_of_center", 50),
+                ("longitude_of_center", -154),
+                ("standard_parallel_1", 55),
+                ("standard_parallel_2", 65),
+                ("false_easting", 0),
+                ("false_northing", 0),
+            ],
+            code,
+        )
+    if code == 3413:  # WGS 84 / NSIDC polar stereographic north
+        return _wkt_projcs(
+            "WGS 84 / NSIDC Sea Ice Polar Stereographic North",
+            "WGS 84", "Polar_Stereographic",
+            [
+                ("latitude_of_origin", 70),
+                ("central_meridian", -45),
+                ("false_easting", 0),
+                ("false_northing", 0),
+            ],
+            code,
+        )
+    return None
+
+
+def crs_to_wkt(crs: Union[int, str]) -> str:
+    """Convert a CRS designation to WKT where possible.
+
+    GDAL-free: integer EPSG codes (or "EPSG:<code>" strings) in the
+    built-in table — geographic WGS 84/NAD83, all WGS 84 and NAD83 UTM
+    zones, Alaska Albers (3338), NSIDC polar stereographic (3413) — are
+    expanded to real WKT1 from their published EPSG parameters, so written
+    GeoTIFFs round-trip through external GIS tools. Codes outside the
+    table degrade to the "EPSG:<code>" identifier (stored opaquely; the
+    framework itself never reprojects). WKT and Proj4 strings pass
+    through unchanged.
+    """
+    if isinstance(crs, str) and crs.upper().startswith("EPSG:"):
+        try:
+            crs = int(crs.split(":", 1)[1])
+        except ValueError:
+            # A compound designation (horizontal + vertical, "EPSG:4326+5773")
+            # is carried opaquely like any Proj4 string; anything else after
+            # the colon is malformed.
+            if not re.fullmatch(r"\d+(\+\d+)+", crs.split(":", 1)[1].strip()):
+                raise ValueError(f"Malformed EPSG designation: {crs}") from None
+            return crs
+    if isinstance(crs, (int, np.integer)):
+        wkt = _epsg_to_wkt(int(crs))
+        return wkt if wkt is not None else f"EPSG:{int(crs)}"
+    if isinstance(crs, str):
+        if "[" in crs or "+" in crs:
+            return crs
+        raise ValueError(f"String CRS format not Proj4, WKT, or EPSG: {crs}")
+    raise ValueError(f"Unsupported CRS format: {crs}")
+
+
+def write_raster(
+    a: np.ndarray,
+    path: Union[str, Path],
+    nan: Union[float, int] = None,
+    crs: Union[int, str] = None,
+    transform: Iterable[Union[int, float]] = None,
+    **kwargs: Any,
+) -> None:
+    """Write an array to a GeoTIFF (see glimpse_tpu_torch.io.geotiff.write)."""
+    from .io import geotiff
+
+    geotiff.write(
+        path, a, transform=transform,
+        crs=crs_to_wkt(crs) if crs is not None else None, nodata=nan,
+    )
+
+
+def average_rasters(paths: Iterable[Union[str, Path]]) -> np.ndarray:
+    """Return the mean of several same-shaped rasters (streamed)."""
+    from .io import geotiff
+
+    paths = [str(path) for path in paths]
+    base = np.atleast_3d(geotiff.read(paths[0])).astype(float)
+    n = len(paths)
+    total = base / n
+    for path in paths[1:]:
+        a = np.atleast_3d(geotiff.read(path)).astype(float)
+        if a.shape != base.shape:
+            raise ValueError(
+                f"Inconsistent shape at {path}: {a.shape} (expected {base.shape})"
+            )
+        total += a / n
+    return total
+
+
+def driver_from_path(path, raster: bool = True, vector: bool = True):
+    """Infer an IO driver name from a file extension.
+
+    GDAL-free stand-in for the reference's ``gdal_driver_from_path``
+    (helpers.py:651-678): returns the driver name string this package's IO
+    layer would use ('GTiff', 'JPEG', 'PNG', 'SVG', ...) or None when the
+    extension is unrecognized.
+    """
+    from pathlib import Path as _Path
+
+    ext = _Path(str(path)).suffix[1:].lower()
+    raster_drivers = {
+        "tif": "GTiff", "tiff": "GTiff", "jpg": "JPEG", "jpeg": "JPEG",
+        "png": "PNG", "bmp": "BMP", "gif": "GIF",
+    }
+    vector_drivers = {"svg": "SVG", "json": "GeoJSON", "geojson": "GeoJSON"}
+    if raster and ext in raster_drivers:
+        return raster_drivers[ext]
+    if vector and ext in vector_drivers:
+        return vector_drivers[ext]
+    return None
+
+
+#: Alias matching the reference name (returns a driver name string, not an
+#: osgeo.gdal.Driver — this package has no GDAL dependency).
+gdal_driver_from_path = driver_from_path
+
+
+def plot_quivers(x, dx, c=None, ax=None, **kwargs):
+    """Plot displacement quivers with map-scale defaults.
+
+    Parity: ``helpers.plot_quivers`` (reference helpers.py:1958-1993) —
+    arrows drawn in data units (scale=1), tail-pivoted, headless.
+    """
+    import matplotlib.pyplot as plt
+
+    defaults = dict(
+        width=5, headaxislength=0, headwidth=1, minlength=0,
+        pivot="tail", angles="xy", scale_units="xy", scale=1,
+    )
+    for key, value in defaults.items():
+        kwargs.setdefault(key, value)
+    x = np.asarray(x)
+    dx = np.asarray(dx)
+    args = [x[:, 0], x[:, 1], dx[:, 0], dx[:, 1]]
+    if c is not None:
+        args.append(c)
+    return (ax or plt.gca()).quiver(*args, **kwargs)
+

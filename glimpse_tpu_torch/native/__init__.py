@@ -10,6 +10,7 @@ a NumPy path, so the package works on a host without a compiler;
 instead of falling back.
 """
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -35,36 +36,63 @@ def library_path() -> Path:
     return BUILD_DIR / f"libglimpse_feeder-{digest}.so"
 
 
+class _BuildError(RuntimeError):
+    """The compiler is missing or refused the source: no retry will help."""
+
+
 def _build(lib: Path) -> None:
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
-        raise RuntimeError("no C++ compiler (g++) on this host")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        raise _BuildError("no C++ compiler (g++) on this host")
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True, timeout=120
+        [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True, timeout=600
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"{cxx} failed on feeder.cpp ({proc.returncode}):\n{proc.stderr}")
+        raise _BuildError(f"{cxx} failed on feeder.cpp ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)
+
+
+def _open_built() -> ctypes.CDLL:
+    """Build (once across processes) and open the library.
+
+    Processes that start at the same moment (test workers, a card's chip
+    run) serialize on an exclusive lock in ``BUILD_DIR``: the first builds,
+    the others find the finished file once the lock is theirs.
+    """
+    path = library_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{path.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            _build(path)
+        try:
+            return ctypes.CDLL(str(path))
+        except OSError as e:
+            raise _BuildError(f"cannot load {path}: {e}") from e
 
 
 def load(required: bool = False) -> Optional[ctypes.CDLL]:
     """Load (building if needed) the feeder library.
 
-    Returns None when it cannot be built or loaded, after one warning, so
-    callers take their NumPy path; with ``required`` that is an error.
+    Returns None when it cannot be built or loaded, after a warning, so
+    callers take their NumPy path; with ``required`` that is an error that
+    carries the failure's own text. Only a compiler's refusal or a complete
+    file that does not load is remembered for the process; any other
+    failure (a time limit, a file system error) is tried again next call.
     """
     global _lib, _load_error
     if _lib is None and _load_error is None:
         try:
-            path = library_path()
-            if not path.exists():
-                _build(path)
-            lib = ctypes.CDLL(str(path))
+            lib = _open_built()
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-            _load_error = str(e)
-            warnings.warn(f"glimpse_tpu_torch native feeder unavailable, using NumPy: {e}")
+            error = f"{type(e).__name__}: {e}"
+            if isinstance(e, _BuildError):
+                _load_error = error
+            warnings.warn(f"glimpse_tpu_torch native feeder unavailable, using NumPy: {error}")
+            if required:
+                raise RuntimeError(f"native feeder library unavailable: {error}") from e
+            return None
         else:
             i64, i32p = ctypes.c_int64, ctypes.POINTER(ctypes.c_int32)
             f32p, u8p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8)

@@ -15,14 +15,17 @@ The counterpart of :mod:`glimpse_tpu.optimize`:
   matches, with anchor frames held fixed: a chained Procrustes start
   (:meth:`ObserverCameras.initialize`) and the fit on an autograd objective
   (:meth:`ObserverCameras.fit`);
-- :func:`detect_keypoints_device` and :func:`match_keypoints_device`, thin
-  wrappers of :mod:`.ops.features` and :mod:`.ops.matching`.
-
-The reference's OpenCV keypoint path and ``KeypointMatcher`` (pickle caches,
-image reading, CLAHE) are not ported yet.
+- keypoints: :func:`detect_keypoints` and :func:`match_keypoints` (OpenCV
+  SIFT and FLANN on the host, imported at first use), their device
+  counterparts over :mod:`.ops.features` and :mod:`.ops.matching`, and
+  :class:`KeypointMatcher`, which detects, matches, refines and caches
+  (pickles) over a whole image sequence;
+- :func:`project_images`, a sequence reprojected into one ideal camera,
+  sampled in float64 on ``device``.
 """
 import collections
 import math
+from pathlib import Path
 from typing import Any, Dict, Generator, Iterable, List, Optional, Tuple, Type, Union
 
 import numpy as np
@@ -30,7 +33,7 @@ import scipy.optimize
 import scipy.sparse
 import torch
 
-from . import helpers
+from . import config, helpers
 from .camera import Camera
 from .ops import features, projection
 from .ops.matching import DescriptorMatcher, full_float32
@@ -1407,7 +1410,16 @@ class ObserverCameras:
         self.anchors = [0] if anchors is None else list(anchors)
         self.matches = matches
         self.device = torch.device(device)
+        self._matcher = None
         self.viewdirs = np.vstack([np.array(img.cam.viewdir, dtype=float) for img in self.observer.images])
+
+    @property
+    def matcher(self) -> "KeypointMatcher":
+        """A :class:`KeypointMatcher` over the observer's images on this
+        object's ``device`` (built on first use)."""
+        if self._matcher is None:
+            self._matcher = KeypointMatcher(images=self.observer.images, device=self.device)
+        return self._matcher
 
     def set_cameras(self, viewdirs) -> None:
         """Write view directions into the observer's cameras."""
@@ -1417,6 +1429,28 @@ class ObserverCameras:
     def reset_cameras(self) -> None:
         """Restore the original view directions."""
         self.set_cameras(viewdirs=self.viewdirs.copy())
+
+    def build_keypoints(self, **kwargs: Any) -> None:
+        """Keypoints of every image (:meth:`KeypointMatcher.build_keypoints`)."""
+        self.matcher.build_keypoints(**kwargs)
+
+    def build_matches(self, **kwargs: Any) -> None:
+        """Matches between images (:meth:`KeypointMatcher.build_matches`), as
+        :class:`RotationMatchesXYZ`."""
+        self.matcher.build_matches(**kwargs)
+        self.matcher.convert_matches(RotationMatchesXYZ)
+        self.matches = self.matcher.matches
+
+    def _flatten_matches(self):
+        """The match matrix as (xyA, xyB, imgA, imgB) arrays."""
+        matches = _coo(self.matches)
+        xa, xb, ia, ib = [], [], [], []
+        for m, i, j in zip(matches.data, matches.row, matches.col):
+            xa.append(m.xys[0])
+            xb.append(m.xys[1])
+            ia.append(np.full(m.size, i, dtype=np.int32))
+            ib.append(np.full(m.size, j, dtype=np.int32))
+        return np.vstack(xa), np.vstack(xb), np.concatenate(ia), np.concatenate(ib)
 
     def initialize(self, min_matches: int = 8) -> np.ndarray:
         """View directions (n_images, 3) chained from pairwise rotations.
@@ -1769,6 +1803,35 @@ def lbfgs(value_and_grad, x0, max_iter: int = 2000, gtol: float = 1e-7, memory: 
     return x, value, grad, n_iter
 
 
+# ---- Keypoints ---- #
+
+
+def _cv2():
+    """OpenCV, or None where it does not import (imported at first use)."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
+def detect_keypoints(array, mask=None, method=None, root: bool = False, **kwargs):
+    """Keypoints and descriptors on the host by OpenCV (SIFT by default,
+    RootSIFT with ``root``). Raises ImportError without OpenCV."""
+    cv2 = _cv2()
+    if cv2 is None:
+        raise ImportError("OpenCV is required for keypoint detection")
+    detector = (cv2.SIFT if method is None else method).create(**kwargs)
+    img8 = np.asarray(array, dtype=np.uint8)
+    mask8 = None if mask is None else np.asarray(mask, dtype=np.uint8)
+    keypoints, descriptors = detector.detectAndCompute(img8, mask=mask8)
+    if root and descriptors is not None:
+        # RootSIFT: L1-normalize, then take the elementwise square root.
+        l1 = descriptors.sum(axis=1, keepdims=True) + 1e-7
+        descriptors = np.sqrt(descriptors / l1)
+    return keypoints, descriptors
+
+
 # cv2.SIFT_create keyword names the device detector accepts (values are
 # translated, not emulated).
 _DEVICE_DETECTOR_KWARGS = {
@@ -1780,35 +1843,562 @@ _DEVICE_DETECTOR_KWARGS = {
 
 
 def detect_keypoints_device(arrays, masks=None, **kwargs):
-    """Keypoints on the device (:func:`ops.features.detect_and_describe`);
-    accepts the common ``cv2.SIFT_create`` keyword spellings. Returns
-    ``(pts (n, 2), descriptors (n, 128))`` per image."""
+    """Keypoints on the device (:func:`ops.features.detect_and_describe`,
+    which takes ``device=``); accepts the common ``cv2.SIFT_create`` keyword
+    spellings. Returns ``(pts (n, 2), descriptors (n, 128))`` per image."""
     for cv2_name, ours in _DEVICE_DETECTOR_KWARGS.items():
         if cv2_name in kwargs:
             kwargs[ours] = kwargs.pop(cv2_name)
     return features.detect_and_describe(arrays, masks=masks, **kwargs)
 
 
+def _empty_match(return_ratios: bool):
+    e = np.empty((0, 2), dtype=float)
+    return (e, e.copy(), np.empty(0, dtype=float)) if return_ratios else (e, e.copy())
+
+
 def match_keypoints_device(ka, kb, cross_check: bool = False, max_ratio: float = None, max_distance: float = None,
-                           return_ratios: bool = False, matcher=None):
+                           return_ratios: bool = False, matcher=None, device="cuda"):
     """Match two images' ``(keypoints, descriptors)`` on the device.
 
-    ``matcher`` is a :class:`ops.matching.DescriptorMatcher` (a new one on
-    the card when None). Returns ``(uva, uvb)``, plus the ratios with
-    ``return_ratios``; ``max_distance`` drops matches at least that many
-    pixels apart.
+    ``matcher`` is a :class:`ops.matching.DescriptorMatcher`; None (or a
+    string) takes the process's shared matcher on ``device``. Returns
+    ``(uva, uvb)``, plus the ratios with ``return_ratios``; ``max_distance``
+    drops matches at least that many pixels apart.
     """
-    matcher = matcher or DescriptorMatcher()
+    if matcher is None or isinstance(matcher, str):
+        matcher = _shared_device_matcher(device)
     pairs, ratios = matcher.match(ka[1], kb[1], max_ratio=max_ratio, cross_check=cross_check)
     if not len(pairs):
-        e = np.empty((0, 2), dtype=float)
-        return (e, e.copy(), np.empty(0, dtype=float)) if return_ratios else (e, e.copy())
-    uva = np.asarray(ka[0])[pairs[:, 0]]
-    uvb = np.asarray(kb[0])[pairs[:, 1]]
+        return _empty_match(return_ratios)
+    uva = _keypoint_pts(ka[0])[pairs[:, 0]]
+    uvb = _keypoint_pts(kb[0])[pairs[:, 1]]
     if max_distance:
         ok = np.linalg.norm(uva - uvb, axis=1) < max_distance
         uva, uvb, ratios = uva[ok], uvb[ok], ratios[ok]
     return (uva, uvb, ratios) if return_ratios else (uva, uvb)
+
+
+_KEYPOINT_PTS_CACHE: Dict[int, tuple] = {}
+
+
+def _keypoint_pts(keypoints) -> np.ndarray:
+    """(n, 2) coordinates of a ``cv2.KeyPoint`` list, cached by identity
+    (an image's keypoints serve all its pairs); device keypoints are
+    coordinate arrays already."""
+    if isinstance(keypoints, np.ndarray):
+        return keypoints
+    key = id(keypoints)
+    hit = _KEYPOINT_PTS_CACHE.get(key)
+    if hit is not None and hit[0] is keypoints:
+        return hit[1]
+    if len(_KEYPOINT_PTS_CACHE) > 256:
+        _KEYPOINT_PTS_CACHE.clear()
+    pts = np.array([k.pt for k in keypoints], dtype=float).reshape(-1, 2)
+    _KEYPOINT_PTS_CACHE[key] = (keypoints, pts)
+    return pts
+
+
+_DEVICE_MATCHERS: Dict[torch.device, DescriptorMatcher] = {}
+
+
+def _shared_device_matcher(device="cuda") -> DescriptorMatcher:
+    """One :class:`DescriptorMatcher` per device for the process, so its
+    cache of descriptor stacks on the device serves every call."""
+    device = torch.device(device)
+    if device not in _DEVICE_MATCHERS:
+        _DEVICE_MATCHERS[device] = DescriptorMatcher(device=device)
+    return _DEVICE_MATCHERS[device]
+
+
+def match_keypoints(ka, kb, mask=None, cross_check: bool = False, max_ratio: float = None,
+                    max_distance: float = None, return_ratios: bool = False, matcher=None, device="cuda"):
+    """Match keypoint descriptors (FLANN kNN with Lowe's ratio and a cross check).
+
+    ``matcher='device'``, or any matcher without ``knnMatch``, routes to
+    :func:`match_keypoints_device` on ``device``; a cv2 matcher is used as
+    given; None builds a FLANN matcher (ImportError without OpenCV).
+    """
+    if matcher == "device" or (matcher is not None and not hasattr(matcher, "knnMatch")):
+        return match_keypoints_device(
+            ka, kb, cross_check=cross_check, max_ratio=max_ratio, max_distance=max_distance,
+            return_ratios=return_ratios, matcher=None if isinstance(matcher, str) else matcher, device=device,
+        )
+    cv2 = _cv2()
+    if cv2 is None:
+        raise ImportError("OpenCV is required for keypoint matching")
+    if matcher is None:
+        matcher = cv2.FlannBasedMatcher()
+    if mask is not None:
+        mask = np.asarray(mask, dtype=np.uint8)
+    k = 2 if (max_ratio or return_ratios) else 1
+    if len(ka[0]) < k or len(kb[0]) < k:
+        return _empty_match(return_ratios)
+    matches = matcher.knnMatch(ka[1], kb[1], k=k, mask=mask)
+    if cross_check:
+        matches_ba = matcher.knnMatch(kb[1], ka[1], k=k, mask=mask)
+        ba = {(m[0].trainIdx, m[0].queryIdx) for m in matches_ba}
+        matches = [m for m in matches if (m[0].queryIdx, m[0].trainIdx) in ba]
+    if max_ratio:
+        # A zero second-nearest distance (duplicate descriptors) makes the
+        # ratio test degenerate: such matches are ambiguous, so they go.
+        matches = [m for m in matches if m[1].distance > 0 and m[0].distance / m[1].distance < max_ratio]
+    if not matches:
+        return _empty_match(return_ratios)
+    uva = _keypoint_pts(ka[0])[[m[0].queryIdx for m in matches]]
+    uvb = _keypoint_pts(kb[0])[[m[0].trainIdx for m in matches]]
+    if return_ratios:
+        ratios = np.array([m.distance / max(n_.distance, 1e-12) for m, n_ in matches])
+    if max_distance:
+        valid = np.linalg.norm(uva - uvb, axis=1) < max_distance
+        uva, uvb = uva[valid], uvb[valid]
+        if return_ratios:
+            ratios = ratios[valid]
+    return (uva, uvb, ratios) if return_ratios else (uva, uvb)
+
+
+class _NumpyCLAHE:
+    """A ``cv2.CLAHE``-like object over :func:`helpers.clahe` (``apply``)."""
+
+    def __init__(self, clip_limit: float, tile_grid_size) -> None:
+        self.clip_limit = float(clip_limit)
+        self.tile_grid_size = tuple(tile_grid_size)
+
+    def apply(self, array: np.ndarray) -> np.ndarray:
+        return helpers.clahe(array, self.clip_limit, self.tile_grid_size)
+
+
+class KeypointMatcher:
+    """Keypoints of an image sequence and matches between time-windowed pairs.
+
+    Keypoints and each pair's matches are cached as pickle files; the
+    matches are an upper-triangular COO matrix of :class:`Matches`. The
+    device detector, matcher and match refiner run on ``device``.
+    """
+
+    def __init__(self, images: Iterable, clahe=False, device="cuda") -> None:
+        ordered = list(images)
+        times = [img.datetime for img in ordered]
+        if any(b < a for a, b in zip(times, times[1:])):
+            raise ValueError("Images are not in ascending temporal order")
+        self.images = np.asarray(ordered, dtype=object)
+        self.clahe = self._make_clahe(clahe)
+        self.device = torch.device(device)
+        self.keypoints = None
+        self.matches = None
+
+    @staticmethod
+    def _make_clahe(spec):
+        if spec is False:
+            return None
+        cv2 = _cv2()
+        if cv2 is not None:
+            return cv2.createCLAHE(**({} if spec is True else spec))
+        # Without OpenCV: NumPy CLAHE under cv2's keyword names.
+        kwargs = {} if spec is True else dict(spec)
+        clip_limit = kwargs.pop("clipLimit", 40.0)
+        tile_grid_size = kwargs.pop("tileGridSize", (8, 8))
+        if kwargs:
+            raise TypeError(f"Unknown CLAHE options: {sorted(kwargs)}")
+        return _NumpyCLAHE(clip_limit, tile_grid_size)
+
+    def _basenames(self) -> List[str]:
+        basenames = [helpers.strip_path(img.path) for img in self.images]
+        if len(basenames) != len(set(basenames)):
+            raise ValueError("Image basenames are not unique")
+        return basenames
+
+    def _prepare_image(self, array: np.ndarray) -> np.ndarray:
+        if array.ndim > 2:
+            array = array.mean(axis=2)
+        array = array.astype(np.uint8, copy=False)
+        if self.clahe is not None:
+            array = self.clahe.apply(array)
+        return array
+
+    def build_keypoints(self, masks=None, path=None, overwrite: bool = False, clear_images: bool = True,
+                        clear_keypoints: bool = False, parallel=False, detector=None, **kwargs: Any) -> None:
+        """Detect (or load cached) keypoints for every image.
+
+        ``detector='device'`` detects in batches of one image shape on
+        ``device`` (:func:`detect_keypoints_device`); otherwise OpenCV on the
+        host, one image a task. Both keep one pickle an image under ``path``
+        and compute only what is neither in memory nor on disk (all of it
+        with ``overwrite``); ``clear_keypoints`` keeps nothing in memory.
+        """
+        if path:
+            path = Path(path)
+        if clear_keypoints and not path:
+            raise ValueError("path is required when clear_keypoints is True")
+        if path and path.is_file():
+            raise ValueError("path must be a directory")
+        basenames = self._basenames()
+        if masks is None or isinstance(masks, np.ndarray):
+            masks = [masks] * len(self.images)
+        parallel = helpers._parse_parallel(parallel)
+        if not self.keypoints:
+            self.keypoints = [None] * len(self.images)
+        if detector == "device":
+            self._build_keypoints_device(masks, path, basenames, overwrite=overwrite, clear_images=clear_images,
+                                         clear_keypoints=clear_keypoints, **kwargs)
+            return
+
+        def detect(i: int, img):
+            array = self._prepare_image(img.read())
+            found = detect_keypoints(array, mask=masks[i], **kwargs)
+            if clear_images:
+                img.array = None
+            return found
+
+        def job(i: int, img):
+            cache_file = path / f"{basenames[i]}.pkl" if path else None
+            on_disk = cache_file is not None and cache_file.exists()
+            known = self.keypoints[i]
+            if overwrite or (known is None and not on_disk):
+                known = detect(i, img)
+                if cache_file:
+                    helpers.write_pickle(known, path=cache_file)
+            elif known is not None:
+                if cache_file and not on_disk:
+                    helpers.write_pickle(known, path=cache_file)
+            elif not clear_keypoints:
+                known = helpers.read_pickle(cache_file)
+            return None if clear_keypoints else known
+
+        with config.backend(np=parallel) as pool:
+            self.keypoints = pool.map(func=job, sequence=tuple(enumerate(self.images)), star=True)
+
+    def _build_keypoints_device(self, masks, path, basenames, overwrite: bool, clear_images: bool,
+                                clear_keypoints: bool, **kwargs: Any) -> None:
+        """The device detector under the host path's cache contract."""
+        cache_files = [path / f"{basenames[i]}.pkl" if path else None for i in range(len(self.images))]
+        todo = []
+        for i in range(len(self.images)):
+            on_disk = cache_files[i] is not None and cache_files[i].exists()
+            if overwrite or (self.keypoints[i] is None and not on_disk):
+                todo.append(i)
+            elif self.keypoints[i] is not None:
+                if cache_files[i] and not on_disk:
+                    helpers.write_pickle(self.keypoints[i], path=cache_files[i])
+            elif not clear_keypoints:
+                self.keypoints[i] = helpers.read_pickle(cache_files[i])
+        arrays = {}
+        for i in todo:
+            arrays[i] = self._prepare_image(self.images[i].read())
+            if clear_images:
+                self.images[i].array = None
+        # One batch stream per image shape.
+        by_shape: Dict[tuple, list] = {}
+        for i in todo:
+            by_shape.setdefault(arrays[i].shape, []).append(i)
+        kwargs.setdefault("device", self.device)
+        for idxs in by_shape.values():
+            found = detect_keypoints_device([arrays[i] for i in idxs], masks=[masks[i] for i in idxs], **kwargs)
+            for i, kp in zip(idxs, found):
+                if cache_files[i]:
+                    helpers.write_pickle(kp, path=cache_files[i])
+                self.keypoints[i] = None if clear_keypoints else kp
+
+    def _matching_images(self, maxdt, seq, imgs) -> List[np.ndarray]:
+        """For each image, the later images it is matched to."""
+        n = len(self.images)
+        if maxdt is None and seq is None:
+            matching_images = [np.arange(i + 1, n) for i in range(n)]
+        elif maxdt is not None:
+            datetimes = np.array([img.datetime for img in self.images])
+            ends = np.searchsorted(datetimes, datetimes + maxdt, side="right")
+            matching_images = [np.arange(i + 1, end) for i, end in enumerate(ends)]
+        else:
+            matching_images = [np.array([], dtype=int) for _ in range(n)]
+        if seq is not None:
+            seq = np.asarray(seq)
+            seq = np.unique(seq[seq > 0])
+            for i, m in enumerate(matching_images):
+                iseq = seq + i
+                iseq = iseq[: np.searchsorted(iseq, n)]
+                matching_images[i] = np.unique(np.concatenate((m, iseq)))
+        if imgs is not None:
+            for i, m in enumerate(matching_images):
+                matching_images[i] = m if i in imgs else m[np.isin(m, imgs)]
+        return matching_images
+
+    def build_matches(self, maxdt=None, seq: Iterable[int] = None, imgs: Iterable[int] = None,
+                      keypoints_path=None, path=None, overwrite: bool = False, clear_keypoints: bool = True,
+                      clear_matches: bool = False, parallel=False, weights: bool = False, mtype=None,
+                      filter: dict = None, refine=False, **kwargs: Any) -> None:
+        """Match each image to its neighbours in time (``maxdt`` window,
+        ``seq`` offsets, restricted to ``imgs``).
+
+        With ``matcher='device'`` every pair not yet cached is matched up
+        front in batches on ``device`` (``DescriptorMatcher.match_pairs``);
+        ``refine`` (device matcher only; True or a dict of
+        :class:`ops.refine.MatchRefiner` options) then re-measures each
+        matched displacement by template correlation on images re-read
+        through the same grayscale and CLAHE preparation. Each pair is
+        cached as a pickle under ``path``. ``weights`` makes each match's
+        weight its inverse Lowe ratio; ``mtype`` converts, ``filter`` filters.
+        """
+        if path:
+            path = Path(path)
+        if keypoints_path:
+            keypoints_path = Path(keypoints_path)
+        if clear_matches and not path:
+            raise ValueError("path is required when clear_matches is True")
+        if path and path.is_file():
+            raise ValueError("path must be a directory")
+        parallel = helpers._parse_parallel(parallel)
+        kwargs = {**kwargs, "return_ratios": weights}
+        basenames = self._basenames()
+        if self.keypoints is None:
+            self.keypoints = [None] * len(self.images)
+        if any(k is None for k in self.keypoints) and not keypoints_path:
+            raise ValueError("Missing keypoints so keypoints_path is required")
+        n = len(self.images)
+        matching_images = self._matching_images(maxdt, seq, imgs)
+
+        def ensure_keypoints(k: int):
+            if self.keypoints[k] is None:
+                self.keypoints[k] = helpers.read_pickle(keypoints_path / f"{basenames[k]}.pkl")
+            return self.keypoints[k]
+
+        def pair_file(i, j):
+            return path / f"{basenames[i]}-{basenames[j]}.pkl" if path else None
+
+        # Device path: every pair not yet cached, matched up front in batches.
+        precomputed = None
+        if kwargs.get("matcher") == "device":
+            need = [
+                (int(i), int(j)) for i, js in enumerate(matching_images) for j in js
+                if overwrite or pair_file(i, j) is None or not pair_file(i, j).exists()
+            ]
+            precomputed = {}
+            if need:
+                involved = {k for ij in need for k in ij}
+                for k in involved:
+                    ensure_keypoints(k)
+                no_desc = np.empty((0, 1), dtype=np.float32)
+                descs = [
+                    self.keypoints[k][1]
+                    if k in involved and self.keypoints[k] is not None and self.keypoints[k][1] is not None
+                    else no_desc
+                    for k in range(n)
+                ]
+                found_all = _shared_device_matcher(self.device).match_pairs(
+                    descs, np.asarray(need, dtype=int), max_ratio=kwargs.get("max_ratio"),
+                    cross_check=kwargs.get("cross_check", False),
+                )
+                max_distance = kwargs.get("max_distance")
+                no_uv = np.empty((0, 2), dtype=float)
+                for (i, j), (idx, ratios) in zip(need, found_all):
+                    if len(idx):
+                        uva = _keypoint_pts(self.keypoints[i][0])[idx[:, 0]]
+                        uvb = _keypoint_pts(self.keypoints[j][0])[idx[:, 1]]
+                    else:
+                        uva, uvb = no_uv, no_uv.copy()
+                    if max_distance:
+                        ok = np.linalg.norm(uva - uvb, axis=1) < max_distance
+                        uva, uvb, ratios = uva[ok], uvb[ok], ratios[ok]
+                    precomputed[(i, j)] = (uva, uvb, ratios) if weights else (uva, uvb)
+                if refine and precomputed:
+                    from .ops.refine import MatchRefiner
+
+                    options = {"device": self.device, **(refine if isinstance(refine, dict) else {})}
+                    keys = list(precomputed)
+                    refined = MatchRefiner(**options).refine_pairs(
+                        keys, [precomputed[key][:2] for key in keys],
+                        lambda k: self._prepare_image(self.images[k].read()),
+                    )
+                    for key, ruv in zip(keys, refined):
+                        precomputed[key] = tuple(ruv) + precomputed[key][2:]
+
+        def match_pair(i: int, j: int):
+            """The pair's cached match, or a new one (cached); None when it
+            is not kept in memory."""
+            cams = (self.images[i].cam, self.images[j].cam)
+            cache_file = pair_file(i, j)
+            if cache_file and cache_file.exists() and not overwrite:
+                if clear_matches:
+                    return None
+                match = helpers.read_pickle(cache_file)
+                match.cams = cams
+            else:
+                found = precomputed.pop((int(i), int(j)), None) if precomputed is not None else None
+                if found is None:
+                    found = match_keypoints(ensure_keypoints(i), ensure_keypoints(j), device=self.device, **kwargs)
+                match = Matches(cams=cams, uvs=list(found[0:2]), weights=(1 / found[2]) if weights else None)
+                if cache_file:
+                    helpers.write_pickle(match, cache_file)
+                if clear_matches:
+                    return None
+            return match.to_type(mtype) if mtype is not None else match
+
+        def process(i: int, js: np.ndarray):
+            found = [match_pair(i, j) for j in js]
+            if clear_keypoints:
+                self.keypoints[i] = None
+            return None if clear_matches else found
+
+        def reduce(matches=None):
+            # A task that keeps nothing in memory returns None, and the pool
+            # then calls reduce() with no argument.
+            if filter and matches:
+                for match in matches:
+                    if match:
+                        match.filter(**filter)
+            return matches
+
+        with config.backend(np=parallel) as pool:
+            results = pool.map(func=process, reduce=reduce, star=True, sequence=tuple(enumerate(matching_images)))
+        if clear_matches:
+            self.matches = None
+            return
+        data = np.concatenate([np.asarray(r, dtype=object) for r in results])
+        rows = np.concatenate([np.full(len(row), i, dtype=int) for i, row in enumerate(matching_images)])
+        cols = np.concatenate(matching_images) if len(matching_images) else np.array([])
+        matches = scipy.sparse.coo_matrix((np.ones(len(data)), (rows, cols)))
+        matches.data = data
+        self.matches = matches
+        self._assign_cameras()
+
+    def _test_matches(self) -> None:
+        if self.matches is None:
+            raise ValueError("Matches have not been initialized. Run build_matches()")
+
+    def _assign_cameras(self) -> None:
+        for m, i, j in zip(self.matches.data, self.matches.row, self.matches.col):
+            m.cams = (self.images[i].cam, self.images[j].cam)
+
+    def convert_matches(self, mtype, clear_uvs: bool = False, parallel=False) -> None:
+        """Convert every match to another type (optionally dropping uvs)."""
+        self._test_matches()
+        for i, m in enumerate(self.matches.data):
+            m = m.to_type(mtype)
+            if clear_uvs and mtype in (RotationMatchesXY, RotationMatchesXYZ):
+                m.uvs = None
+            self.matches.data[i] = m
+
+    def filter_matches(self, clear_weights: bool = False, **kwargs: Any) -> None:
+        """Filter every match in place."""
+        self._test_matches()
+        for m in self.matches.data:
+            if kwargs:
+                m.filter(**kwargs)
+            if clear_weights:
+                m.weights = None
+
+    def _images_mask(self, imgs) -> np.ndarray:
+        if np.iterable(imgs):
+            return np.isin(self.matches.row, imgs) | np.isin(self.matches.col, imgs)
+        return (self.matches.row == imgs) | (self.matches.col == imgs)
+
+    def matches_per_image(self) -> np.ndarray:
+        """Matched points per image, over all its pairs."""
+        self._test_matches()
+        return np.array(
+            [np.sum([m.size for m in self.matches.data[self._images_mask(i)]]) for i in range(len(self.images))]
+        )
+
+    def images_per_image(self) -> np.ndarray:
+        """How many images each image has matches with."""
+        self._test_matches()
+        return np.array(
+            [np.sum([m.size > 0 for m in self.matches.data[self._images_mask(i)]]) for i in range(len(self.images))]
+        )
+
+    def drop_images(self, imgs) -> None:
+        """Drop images and all their matches, renumbering the rest densely."""
+        self._test_matches()
+        hit = self._images_mask(imgs)
+        self.matches.data[hit] = False
+        self.matches.eliminate_zeros()
+        survivors = np.union1d(self.matches.row, self.matches.col)
+        remap = np.full(len(self.images), -1, dtype=int)
+        remap[survivors] = np.arange(survivors.size)
+        self.matches.row = remap[self.matches.row]
+        self.matches.col = remap[self.matches.col]
+        self.matches._shape = (survivors.size, survivors.size)
+        self.images = self.images[survivors]
+
+    def match_breaks(self, min_matches: int = 0) -> np.ndarray:
+        """Images where the chain of matched pairs breaks: fewer than
+        ``max(1, min_matches)`` pairs start there (capped by how many later
+        images exist)."""
+        self._test_matches()
+        n = len(self.images)
+        pairs_from = np.zeros(n - 1, dtype=int)
+        starts, counts = np.unique(self.matches.row, return_counts=True)
+        pairs_from[starts] = counts
+        available = (n - 1) - np.arange(n - 1)
+        required = np.maximum(1, np.minimum(min_matches, available))
+        return np.flatnonzero(pairs_from < required)
+
+
+# ---- Batch reprojection ---- #
+
+
+def project_images(cam: Camera, images: Iterable, paths: Iterable, u: np.ndarray = None, v: np.ndarray = None,
+                   overwrite: bool = False, method: str = "linear", grayscale: bool = False, parallel=False,
+                   device="cuda") -> None:
+    """Reproject an image sequence into one ideal camera (a stabilized sequence).
+
+    The target grid (pixel centres, or the ``u`` x ``v`` grid) is cast out
+    once through ``cam`` in float64 on the host; each image projects it
+    through its own camera, and each band is sampled there in float64 on
+    ``device`` (:func:`ops.sampling.sample_grid`, bilinear or nearest;
+    outside the image 0), so the written arrays equal a float64 NumPy
+    evaluation. Each result is written as a GeoTIFF to its path; existing
+    files are kept unless ``overwrite``.
+    """
+    from .io import geotiff
+    from .ops import sampling
+
+    paths = [str(path) for path in paths]
+    if len(paths) != len(set(paths)):
+        raise ValueError("Image output paths are not unique")
+    if u is None:
+        u = np.linspace(0.5, cam.imgsz[0] - 0.5, int(cam.imgsz[0]))
+    if v is None:
+        v = np.linspace(0.5, cam.imgsz[1] - 0.5, int(cam.imgsz[1]))
+    U, V = np.meshgrid(u, v)
+    uv = np.column_stack((U.ravel(), V.ravel()))
+    dxyz = cam.uv_to_xyz(uv)
+    parallel = helpers._parse_parallel(parallel)
+    order = {"linear": 1, "nearest": 0}[method]
+    device = torch.device(device)
+
+    def process(image, path: str) -> None:
+        path = Path(path)
+        if path.exists() and not overwrite:
+            return None
+        puv = image.cam.xyz_to_uv(dxyz, directions=True)
+        finite = np.isfinite(puv).all(axis=1)
+        seen = puv[finite]
+        box_min = np.maximum(np.floor(seen.min(axis=0)).astype(int), 0)
+        box_max = np.minimum(np.ceil(seen.max(axis=0)).astype(int), image.cam.imgsz)
+        local = puv - box_min
+        array = image.read(box=[*box_min, *box_max])
+        if array.ndim < 3:
+            array = array[:, :, None]
+        if grayscale:
+            array = array.mean(axis=2, keepdims=True)
+        H, W = array.shape[0:2]
+        rows = local[:, 1] - 0.5
+        cols = local[:, 0] - 0.5
+        oob = ~finite | (rows < -0.5) | (rows > H - 0.5) | (cols < -0.5) | (cols > W - 0.5)
+        rows_t = torch.from_numpy(np.where(oob, 0.0, rows)).to(device)
+        cols_t = torch.from_numpy(np.where(oob, 0.0, cols)).to(device)
+        bands = []
+        for i in range(array.shape[2]):
+            band = torch.from_numpy(np.ascontiguousarray(array[:, :, i], dtype=float)).to(device)
+            vals = sampling.sample_grid(band, rows_t, cols_t, order=order).cpu().numpy()
+            vals[oob] = 0
+            bands.append(vals.reshape(len(v), len(u)).astype(array.dtype))
+        path.parent.mkdir(parents=True, exist_ok=True)
+        geotiff.write(str(path), np.dstack(bands))
+        return None
+
+    with config.backend(np=parallel) as pool:
+        pool.map(func=process, sequence=tuple(zip(images, paths)), star=True)
 
 
 # ---- RANSAC ---- #

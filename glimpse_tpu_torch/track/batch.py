@@ -24,6 +24,10 @@ The time loop is a Python loop. Randomness comes from an explicit
 ``torch.Generator``; ``noise=`` takes injected draws with the reference's
 keys and shapes, so both packages can run in lockstep. Nothing in a step
 waits for the device, so a host that streams frames runs ahead of it.
+
+With a ``mesh`` (:func:`glimpse_tpu_torch.parallel.get_mesh`) the
+constructor builds a :class:`glimpse_tpu_torch.parallel.tracker.MeshTracker`,
+which runs one tracker per contiguous slice of the points.
 """
 import dataclasses
 import functools
@@ -254,6 +258,11 @@ class BatchMotion:
             ),
             use_dem_sigma=dem_sigma is not None,
         )
+
+    def take(self, points: slice) -> "BatchMotion":
+        """The motion of a slice of the points (the DEMs are shared)."""
+        per_point = ("xy", "xy_sigma", "v_mean", "v_sigma", "a_mean", "a_sigma", "slope_sigma")
+        return dataclasses.replace(self, **{name: getattr(self, name)[points] for name in per_point})
 
     def to(self, device) -> "BatchMotion":
         moved = {
@@ -633,10 +642,20 @@ class BatchTracker:
             :class:`DeviceRaster`; a point whose particles leave its
             visible cells (value > 0) is marked invalid from that step on.
             Every point must start inside it on a visible cell.
+        mesh: optional :class:`glimpse_tpu_torch.parallel.mesh.Mesh`; with
+            one, the tracker is a
+            :class:`glimpse_tpu_torch.parallel.tracker.MeshTracker`.
     """
 
+    def __new__(cls, *args, mesh=None, **kwargs):
+        if mesh is not None and cls is BatchTracker:
+            from ..parallel.tracker import MeshTracker
+
+            cls = MeshTracker
+        return super().__new__(cls)
+
     def __init__(self, camera_vectors, corrections, sigmas, motion: BatchMotion,
-                 config: BatchConfig = None, device="cuda", viewshed=None) -> None:
+                 config: BatchConfig = None, device="cuda", viewshed=None, mesh=None) -> None:
         self.device = torch.device(device)
         self.camera_vectors = _as_tensor(camera_vectors, self.device)
         self.n_observers = self.camera_vectors.shape[0]
@@ -655,15 +674,18 @@ class BatchTracker:
             if not isinstance(viewshed, DeviceRaster):
                 viewshed = DeviceRaster.from_raster(viewshed, device=self.device)
             self.viewshed = viewshed.to(self.device)
+        if mesh is not None:
+            raise TypeError(f"{type(self).__name__} takes no mesh; build BatchTracker(..., mesh=mesh)")
+        self.mesh = None
 
     @classmethod
     def from_observers(cls, observers, motion: BatchMotion, config: BatchConfig = None,
-                       device="cuda", viewshed=None) -> "BatchTracker":
+                       device="cuda", viewshed=None, mesh=None) -> "BatchTracker":
         """Build a device tracker from host :class:`Observer` sequences.
 
         Camera vectors, elevation corrections and pixel-noise sigmas come
-        from each observer's first image; ``device`` and ``viewshed`` go to
-        the constructor. Frames are supplied separately (for example by
+        from each observer's first image; ``device``, ``viewshed`` and
+        ``mesh`` go to the constructor. Frames are supplied separately (for example by
         :func:`glimpse_tpu_torch.track.feeder.stream_track`).
         """
         cams = [obs.images[0].cam for obs in observers]
@@ -671,7 +693,7 @@ class BatchTracker:
             camera_vectors=np.stack([cam.to_array() for cam in cams]),
             corrections=[cam._correction_tuple for cam in cams],
             sigmas=[obs.sigma for obs in observers],
-            motion=motion, config=config, device=device, viewshed=viewshed,
+            motion=motion, config=config, device=device, viewshed=viewshed, mesh=mesh,
         )
 
     def _cameras(self, camera_vectors):
@@ -705,6 +727,8 @@ class BatchTracker:
         cfg = self.config
         th, tw = cfg.template_size
         cams = self._cameras(camera_vectors)
+        if isinstance(images0, torch.Tensor):
+            images0 = images0.to(self.device)
         present = (True,) * self.n_observers if obs_mask0 is None else _host_flags(obs_mask0)
         particles = self.motion.initialize(generator, cfg.n_particles, noise=noise)
         N = particles.shape[0]
@@ -756,6 +780,10 @@ class BatchTracker:
         noise = noise or {}
         generator = state.generator
         cams = self._cameras(camera_vectors)
+        if isinstance(images, torch.Tensor):
+            images = images.to(self.device)
+        if isinstance(dt, torch.Tensor):
+            dt = dt.to(self.device)
         particles = self.motion.evolve(generator, state.particles, dt, noise=noise)
         valid = state.valid * _particle_validity(particles, self.viewshed).to(cfg.dtype)
         templates, template_table, template_duv = state.templates, state.template_table, state.template_duv

@@ -260,7 +260,8 @@ def test_native_feeder_functions_match(backend, monkeypatch) -> None:
         with pytest.raises(RuntimeError, match="unavailable"):
             native.load(required=True)
     else:
-        assert native.load(required=True) is not None and native.backend() == "native"
+        lib = native.load(required=True)
+        assert lib is not None and native.backend() == "native", native._load_error
         path = native.library_path()
         assert path.exists() and path.parent.name == "glimpse_tpu_torch" and path.parent.parent.name == "build"
     rng = np.random.default_rng(5)
@@ -275,3 +276,82 @@ def test_native_feeder_functions_match(backend, monkeypatch) -> None:
         native.normalize_tiles_f32(tiles.copy()), ref_native.normalize_tiles_f32(tiles.copy()), atol=1e-5, rtol=0)
     np.testing.assert_allclose(
         native.median_highpass_f32(tiles, (5, 5)), ref_native.median_highpass_f32(tiles, (5, 5)), atol=1e-6, rtol=0)
+
+
+RACE_WORKER = """
+import importlib.util, pathlib, sys, time
+spec = importlib.util.spec_from_file_location("feeder_native", sys.argv[1])
+native = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(native)
+native.BUILD_DIR = pathlib.Path(sys.argv[2])
+while time.time() < float(sys.argv[3]):
+    pass
+native.load(required=True)
+print(native.library_path().name)
+"""
+
+
+def test_native_feeder_builds_once_under_concurrent_loads(tmp_path) -> None:
+    """Eight processes call ``load(required=True)`` at the same moment
+    against an empty build directory: all load the library, the compiler
+    runs once (the others wait on the lock and find the finished file), and
+    no partial file is left. ``CXX`` names a wrapper that logs each run."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    log = tmp_path / "cxx.log"
+    wrapper = tmp_path / "cxx.sh"
+    wrapper.write_text(f'#!/bin/sh\necho run >> "{log}"\nexec g++ "$@"\n')
+    wrapper.chmod(0o755)
+    build = tmp_path / "build"
+    source = native.__file__
+    start = time.time() + 3.0
+    env = dict(os.environ, CXX=str(wrapper))
+    procs = [
+        subprocess.Popen([sys.executable, "-c", RACE_WORKER, source, str(build), str(start)],
+                         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(8)
+    ]
+    results = [p.communicate(timeout=600) for p in procs]
+    for p, (out, err) in zip(procs, results):
+        assert p.returncode == 0, err[-2000:]
+        assert out.strip() == native.library_path().name
+    assert log.read_text().count("run") == 1
+    assert sorted(f.name for f in build.iterdir() if not f.name.endswith(".lock")) == [native.library_path().name]
+
+
+def test_native_feeder_retries_after_a_failure_that_is_not_the_compilers(monkeypatch, tmp_path) -> None:
+    """A build cut by its time limit is not remembered: the next call builds
+    and loads. A compiler's refusal is remembered, and ``load(required=True)``
+    raises with its text."""
+    import subprocess
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_error", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    real_build = native._build
+    calls = []
+
+    def flaky(path):
+        calls.append(path)
+        if len(calls) == 1:
+            raise subprocess.TimeoutExpired("g++", 600)
+        real_build(path)
+
+    monkeypatch.setattr(native, "_build", flaky)
+    with pytest.warns(UserWarning, match="TimeoutExpired"):
+        assert native.load() is None
+    assert native._load_error is None
+    assert native.load(required=True) is not None and len(calls) == 2
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "other")
+
+    def refuse(path):
+        raise native._BuildError("g++ failed on feeder.cpp (1): no such thing")
+
+    monkeypatch.setattr(native, "_build", refuse)
+    with pytest.raises(RuntimeError, match="no such thing"), pytest.warns(UserWarning):
+        native.load(required=True)
+    assert "no such thing" in native._load_error

@@ -285,8 +285,10 @@ def test_json_pickle_and_config(tmp_path) -> None:
             assert pool.map(lambda a: (a, a), [1, 2], reduce=lambda a, b: a + b) == [2, 4]
         with cfg.thread_pool(2) as pool:
             assert list(pool.map(abs, [-1, 2])) == [1, 2]
-    # What no ported module uses has not come across yet (ROADMAP.md).
-    assert not hasattr(helpers, "crs_to_wkt") and not hasattr(helpers, "clahe")
+    # Every function the reference's helpers define has its counterpart.
+    defined = {name for name, value in vars(ref_helpers).items()
+               if callable(value) and getattr(value, "__module__", None) == ref_helpers.__name__}
+    assert {"crs_to_wkt", "clahe"} <= defined and defined <= set(dir(helpers))
 
 
 # ---- Image, Exif, render ---- #

@@ -267,10 +267,11 @@ def test_highpass_windows_outside_the_kernels_domain(size) -> None:
 
 
 def test_package_surface() -> None:
-    """``import glimpse_tpu_torch`` gives what ``import glimpse_tpu`` gives,
-    for the modules the port has: ``optimize``, ``svg``, ``Tracker``,
-    ``__all__`` (every name of it defined, each also a name of the JAX
-    package's or one of the port's own three) and ``__version__``."""
+    """``import glimpse_tpu_torch`` gives what ``import glimpse_tpu`` gives:
+    ``optimize``, ``svg``, ``convert``, ``parallel``, ``profiling``,
+    ``Tracker``, ``__all__`` (every name of it defined, each also a name of
+    the JAX package's or one of the port's own three, and every name of the
+    JAX package's in it) and ``__version__``."""
     import glimpse_tpu
     import glimpse_tpu_torch
 
@@ -282,5 +283,7 @@ def test_package_surface() -> None:
     assert all(hasattr(glimpse_tpu_torch, name) for name in names)
     assert {"optimize", "svg", "Tracker"} <= names
     assert names - set(glimpse_tpu.__all__) == {"kernels", "track", "Motion"}
-    assert set(glimpse_tpu.__all__) - names == {"convert", "parallel", "profiling"}  # still to port
+    assert set(glimpse_tpu.__all__) - names == set()
+    assert glimpse_tpu_torch.convert.Converter and glimpse_tpu_torch.parallel.get_mesh
+    assert glimpse_tpu_torch.profiling.Timer
     assert set(glimpse_tpu_torch.track.__all__) == set(glimpse_tpu.track.__all__)
