@@ -115,17 +115,40 @@ each:
     seconds by ``profiling.Timer``;
 19. camera model conversion: each of ``tests/assets``' four calibration
     files (MATLAB, OpenCV, Agisoft, PhotoModeler) to a ``Camera``, then to
-    each other format and back by ``convert.Converter`` fits with the exact
-    Jacobian, on the card and on the CPU: every parameter within 1e-9
-    relative card against CPU;
+    each other format and back by ``convert.Converter`` fits: the default
+    fit (the reference's, scipy's 2-point differences on the host), and the
+    fit with the exact Jacobian on the card and on the CPU, whose every
+    parameter must agree within 1e-9 relative card against CPU;
 20. phase 6's tracker with its points cut into four mesh slices on one
-    card (``parallel.get_mesh(devices=["cuda"] * 4)``) beside the tracker
+    card (``parallel.get_mesh(devices=["cuda"] * 4)``), each slice's state
+    and generator its own and nothing joined a step, beside the tracker
     with no mesh, from the same injected draws: four launches of each
     kernel a step, the outputs as phase 7 holds a free run, then one step
-    under ``profiling.device_trace`` (a Chrome trace under ``chiprun_out/``).
+    under ``profiling.device_trace`` (a Chrome trace under ``phase20_trace/``);
+    a 4-slice ``MeshState`` checkpointed after 2 steps of generator draws
+    and resumed for 2 must equal the uninterrupted run bit for bit;
+21. one process a slice: phase 6's width (10,240 x 2,048 x 10) and phase
+    5's (1,024 x 1,024 x 50) in 1, 2 and 4 processes sharing the card, each
+    process joined by ``parallel.initialize_distributed`` (gloo) and
+    tracking its ``local_points_slice`` from the same injected draws; the
+    means stitched by ``parallel.gather_points`` held to the one-process
+    run as phase 7 holds a free run, the ``all_reduce``'d sum equal on
+    every rank, both kernels launched in every process; aggregate
+    point-steps/s (points x steps over the slowest rank's seconds) and each
+    rank's peak memory;
+22. phase 6's tracker in ``sse_sample_mode`` ``'nearest'`` and
+    ``'bilinear'`` (``sse_upsample=8``) beside the exact ``'einsum'``, from
+    the same injected draws: point-steps/s, peak memory, the median and
+    largest |diff| of the means against the exact mode, one profiled step
+    of each; then each mode on the card against the CPU at 16 x 256, each
+    step from a shared state within 1e-3.
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
+
+``python3 chip_smoke.py --scaling`` on a machine with several cards runs
+phases 20-21's tracker across 1, 2 and 4 cards instead (see
+:func:`scaling`); ``--worker`` is phase 21's process.
 """
 import concurrent.futures
 import dataclasses
@@ -134,6 +157,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -353,14 +377,40 @@ def cartesian_motion(points_xy, xy_sigma, v_sigma, a_sigma, device):
     )
 
 
-def make_tracker(camera, points_xy, n_particles, device, mesh=None):
+def make_tracker(camera, points_xy, n_particles, device, mesh=None, **settings):
     from glimpse_tpu_torch.track import batch
 
     motion = cartesian_motion(points_xy, 1.5, (3.0, 3.0, 0.0), (0.2, 0.2, 0.0), device)
     config = batch.BatchConfig(
-        n_particles=n_particles, template_size=(15, 15), search_size=(41, 41)
+        n_particles=n_particles, template_size=(15, 15), search_size=(41, 41), **settings
     )
     return batch.BatchTracker(camera[None], [None], [0.3], motion, config, device=device, mesh=mesh)
+
+
+def injected_draws(n: int, p: int, t: int, device, seed: int) -> dict:
+    """Standard normals and uniforms for ``track(noise=)`` of n points x p
+    particles x t steps, drawn on ``device`` from a generator seeded with
+    ``seed``: the same numbers in every process on the same card."""
+    import torch
+
+    draws = torch.Generator(device=device).manual_seed(seed)
+    return {
+        "init": {k: torch.randn((n, p, w), generator=draws, device=device) for k, w in (("xy", 2), ("v", 3))},
+        "a": torch.randn((t, n, p, 3), generator=draws, device=device),
+        "resample_u": torch.rand((t, n), generator=draws, device=device),
+    }
+
+
+def free_run_bounds(got, want):
+    """(step 1's, the median point's and the worst point's largest |diff|)
+    of two free runs' means (T, N, 6), held as phase 7 holds them: 1e-3,
+    1e-2 and 0.5."""
+    per_point = np.abs(got - want).max(axis=(0, 2))
+    step1 = float(np.abs(got[0] - want[0]).max())
+    if step1 > 1e-3 or np.median(per_point) > 1e-2 or per_point.max() > 0.5:
+        raise AssertionError(f"free runs part: step 1 {step1}, median point {np.median(per_point)},"
+                             f" worst point {per_point.max()}")
+    return step1, float(np.median(per_point)), float(per_point.max())
 
 
 def run_tracker(tracker, frames, seed=0):
@@ -1557,12 +1607,14 @@ CALIBRATION_SENSORSZ = (23.6, 15.8)  # mm; PhotoModeler's model needs a sensor s
 def conversion_phase(devices) -> str:
     """Phase 19: each of ``tests/assets``' four calibration files read,
     turned into a ``Camera`` (fit where the models differ), that camera
-    into each of the other three formats and back, each fit with the exact
-    Jacobian on the card and on the CPU. The host residuals are the same
-    NumPy on both and the Jacobians agree bit for bit, so card and CPU must
-    give parameters within 1e-9 relative, even along a direction the
-    residuals barely see (PhotoModeler's focal length, sensor size and
-    principal point share one scale). Returns the line to print."""
+    into each of the other three formats and back. Every fit runs twice
+    over: by default (the reference's algorithm: scipy's 2-point differences
+    of the host residual; no device), and with the exact Jacobian on the
+    card and on the CPU. The host residuals are the same NumPy on both and
+    the exact Jacobians agree bit for bit, so card and CPU must give
+    parameters within 1e-9 relative, even along a direction the residuals
+    barely see (PhotoModeler's focal length, sensor size and principal
+    point share one scale). Returns the line to print."""
     from glimpse_tpu_torch import convert
 
     assets = os.path.join(REPO, "tests", "assets")
@@ -1576,12 +1628,14 @@ def conversion_phase(devices) -> str:
         return getattr(getattr(convert, name), reader)(os.path.join(assets, filename), **kwargs)
 
     runs = {}
-    for kind, device in devices.items():
+    fits = {"default": (devices["cpu"], {}), "card": (devices["card"], {"jac": "exact"}),
+            "cpu": (devices["cpu"], {"jac": "exact"})}
+    for kind, (device, fit) in fits.items():
         rows = []
         for source in CALIBRATION_FILES:
             xcam = read(source)
             start = time.perf_counter()
-            cam = xcam.to_camera(device=device)
+            cam = xcam.to_camera(device=device, **fit)
             seconds = time.perf_counter() - start
             residual = convert.Converter(xcam, cam, device=device).residuals()
             rows.append((f"{source}->Camera", cam.to_array(), residual, seconds))
@@ -1592,8 +1646,8 @@ def conversion_phase(devices) -> str:
                     continue
                 fmt = getattr(convert, target)
                 start = time.perf_counter()
-                out = fmt.from_camera(cam) if target == "OpenCV" else fmt.from_camera(cam, device=device)
-                back = out.to_camera(device=device)
+                out = fmt.from_camera(cam) if target == "OpenCV" else fmt.from_camera(cam, device=device, **fit)
+                back = out.to_camera(device=device, **fit)
                 seconds = time.perf_counter() - start
                 residual = np.concatenate([convert.Converter(out, c, device=device).residuals() for c in (cam, back)])
                 rows.append((f"{source}->{target}->Camera", np.concatenate([flat(out), back.to_array()]), residual,
@@ -1606,11 +1660,16 @@ def conversion_phase(devices) -> str:
             raise AssertionError(f"conversion {label}: card and CPU parameters differ by {relative} relative (limit"
                                  f" 1e-9), residuals by {np.abs(res_a - res_b).max()} px")
         worst = max(worst, relative)
+    apart = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+                for (_, a, _, _), (_, b, _, _) in zip(runs["default"], runs["card"]))
     return (
-        f"{len(runs['card'])} conversions of 4 files (residual max px, card s / CPU s): "
-        + "; ".join(f"{label} {np.abs(res).max():.3g} px {sec:.2f}/{cpu[3]:.2f} s"
-                    for (label, _, res, sec), cpu in zip(runs["card"], runs["cpu"]))
-        + f"; card against CPU: every conversion's parameters within {worst:.3g} relative (limit 1e-9)"
+        f"{len(runs['card'])} conversions of 4 files (residual max px of the default fit / the exact fit on the card;"
+        " s default / exact on the card / exact on the CPU): "
+        + "; ".join(f"{label} {np.abs(res).max():.3g}/{np.abs(card[2]).max():.3g} px"
+                    f" {sec:.2f}/{card[3]:.2f}/{cpu[3]:.2f} s"
+                    for (label, _, res, sec), card, cpu in zip(runs["default"], runs["card"], runs["cpu"]))
+        + f"; exact fits card against CPU: every conversion's parameters within {worst:.3g} relative (limit 1e-9);"
+        f" default against exact fits at most {apart:.3g} relative apart"
     )
 
 
@@ -1643,12 +1702,7 @@ def mesh_phase(camera, frames, points_xy, cuda, trace_dir: str, n_slices: int = 
     from glimpse_tpu_torch.kernels.resample import systematic_resample
 
     n = len(points_xy)
-    draws = torch.Generator(device=cuda).manual_seed(20)
-    noise = {
-        "init": {k: torch.randn((n, n_particles, w), generator=draws, device=cuda) for k, w in (("xy", 2), ("v", 3))},
-        "a": torch.randn((n_steps, n, n_particles, 3), generator=draws, device=cuda),
-        "resample_u": torch.rand((n_steps, n), generator=draws, device=cuda),
-    }
+    noise = injected_draws(n, n_particles, n_steps, cuda, seed=20)
     images = frames[: n_steps + 1, None]
     dts = torch.ones(n_steps, device=cuda)
     trackers = {
@@ -1674,11 +1728,7 @@ def mesh_phase(camera, frames, points_xy, cuda, trace_dir: str, n_slices: int = 
         raise AssertionError(f"the mesh run launched {launches}, not {n_slices} of each kernel a step")
     out_none, seconds_none = run(trackers["none"])
     diffs = {k: float((out_mesh[k] - out_none[k]).abs().max()) for k in out_none}
-    mean_mesh, mean_none = (o["mean"].cpu().numpy() for o in (out_mesh, out_none))
-    per_point = np.abs(mean_mesh - mean_none).max(axis=(0, 2))
-    step1 = float(np.abs(mean_mesh[0] - mean_none[0]).max())
-    if step1 > 1e-3 or np.median(per_point) > 1e-2 or per_point.max() > 0.5:
-        raise AssertionError(f"the mesh run parts from the run without: step 1 {step1}, per point {per_point.max()}")
+    step1, median_point, worst_point = free_run_bounds(*(o["mean"].cpu().numpy() for o in (out_mesh, out_none)))
     mesh = trackers["mesh"]
     state = mesh.initialize(torch.Generator(device=cuda).manual_seed(0), images[0])
     frame = images[1]
@@ -1705,13 +1755,406 @@ def mesh_phase(camera, frames, points_xy, cuda, trace_dir: str, n_slices: int = 
     line = (
         f"{n}x{n_particles}x{n_steps} steps in {n_slices} mesh slices on one card against no mesh, same draws:"
         f" max |diff| " + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
-        + f" (step 1 {step1:.3g}, limit 1e-3; median point {np.median(per_point):.3g}, limit 1e-2; worst point"
-        f" {per_point.max():.3g}, limit 0.5); launches {launches}, {n_slices} of each kernel a step;"
+        + f" (step 1 {step1:.3g}, limit 1e-3; median point {median_point:.3g}, limit 1e-2; worst point"
+        f" {worst_point:.3g}, limit 0.5); launches {launches}, {n_slices} of each kernel a step;"
         f" mesh {n * n_steps / seconds_mesh:.1f} point-steps/s ({seconds_mesh:.3f} s), no mesh"
         f" {n * n_steps / seconds_none:.1f} ({seconds_none:.3f} s); one mesh step traced to"
         f" {os.path.relpath(trace_dir, REPO)}/trace.json: {top}"
     )
     return line, launches
+
+
+def mesh_checkpoint(camera, frames, points_xy, cuda, path: str, n_slices: int = 4, n_particles: int = 1024) -> str:
+    """Phase 20's checkpoint: a ``MeshState`` of ``n_slices`` slices on the
+    card, each drawing from its own generator, saved after 2 steps and
+    resumed for 2 more, against the 4 uninterrupted steps: outputs and every
+    slice's particles bit-equal. Returns the line's part."""
+    import torch
+
+    from glimpse_tpu_torch import parallel
+    from glimpse_tpu_torch.track import checkpoint
+
+    tracker = make_tracker(camera, points_xy, n_particles, cuda, mesh=parallel.get_mesh(devices=[cuda] * n_slices))
+    dt = torch.tensor(1.0, device=cuda)
+
+    def run(state, lo, hi):
+        outs = []
+        for t in range(lo, hi):
+            state, out = tracker.step(state, frames[1 + t][None], dt)
+            outs.append(out)
+        return state, outs
+
+    def fresh():
+        return tracker.initialize(torch.Generator(device=cuda).manual_seed(11), frames[0][None])
+
+    whole, whole_outs = run(fresh(), 0, 4)
+    half, _ = run(fresh(), 0, 2)
+    start = time.perf_counter()
+    checkpoint.save_state(half, path)
+    restored = checkpoint.load_state(path)
+    seconds = time.perf_counter() - start
+    resumed, resumed_outs = run(restored, 2, 4)
+    equal = all(torch.equal(a.particles, b.particles) for a, b in zip(resumed.parts, whole.parts)) and all(
+        torch.equal(a[k], b[k]) for a, b in zip(resumed_outs, whole_outs[2:]) for k in a
+    )
+    if not equal:
+        raise AssertionError("the mesh run resumed from its checkpoint differs from the uninterrupted run")
+    devices = sorted({str(p.generator.device) for p in restored.parts})
+    return (
+        f"{len(points_xy)}x{n_particles} in {n_slices} slices, each drawing from its own generator on {devices}:"
+        f" saved after step 2 and resumed for 2 ({seconds:.2f} s to save and load), outputs and particles bit-equal"
+        " to the uninterrupted run"
+    )
+
+
+PROCESS_WIDTHS = {"phase 6": (10240, 2048, 10), "phase 5": (1024, 1024, 50)}
+
+
+def process_problem(width: str, device):
+    """Phase 6's or phase 5's tracking problem, the same in every process:
+    (frames (T, H, W) on ``device``, camera vector, points (N, 2), injected
+    draws on ``device``)."""
+    import torch
+
+    n, p, t = PROCESS_WIDTHS[width]
+    frames_np, camera, scene_rng = make_scene(t + 1)
+    if width == "phase 5":
+        points_xy = scene_rng.uniform(128, 384, size=(n, 2))
+    else:
+        points_xy = np.random.default_rng(2).uniform(128, 384, size=(n, 2))
+    return torch.from_numpy(frames_np).to(device), camera, points_xy, injected_draws(n, p, t, device, seed=21)
+
+
+def process_worker(spec: dict) -> None:
+    """One process of phase 21: join the group over gloo, track this
+    process's ``local_points_slice`` of each width (a warm-up pass, then two
+    passes, each started at a barrier), stitch the means with
+    ``gather_points`` and sum them with one ``all_reduce``; the results go
+    to ``spec["outdir"]`` as JSON, and rank 0's stitched means as .npy."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from glimpse_tpu_torch import parallel
+    from glimpse_tpu_torch.kernels.highpass import median_highpass
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+
+    cuda = torch.device(spec["device"])
+    if cuda.index is not None:
+        torch.cuda.set_device(cuda)
+    rank, world = spec["rank"], spec["world"]
+    parallel.initialize_distributed(f"localhost:{spec['port']}", num_processes=world, process_id=rank)
+    results = {}
+    for width in spec["widths"]:
+        n, p, t = PROCESS_WIDTHS[width]
+        frames, camera, points_xy, noise = process_problem(width, cuda)
+        local = parallel.local_points_slice(n)
+        # Copies of this process's rows, so the whole draw is freed.
+        noise = {"init": {k: v[local].clone() for k, v in noise["init"].items()}, "a": noise["a"][:, local].clone(),
+                 "resample_u": noise["resample_u"][:, local].clone()}
+        tracker = make_tracker(camera, points_xy[local], p, cuda)
+        dts = torch.ones(t, device=cuda)
+
+        def run():
+            dist.barrier()
+            start = time.perf_counter()
+            _, out = tracker.track(torch.Generator(device=cuda).manual_seed(0), frames[:, None], dts, noise=noise)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - start
+
+        run()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        median_highpass.launches = 0
+        systematic_resample.launches = 0
+        out, first = run()
+        launches = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
+        out, second = run()
+        peak = torch.cuda.max_memory_allocated(cuda)
+        means = parallel.gather_points(out["mean"], n, axis=1)
+        total = out["mean"].double().sum(dim=(0, 1)).cpu()
+        dist.all_reduce(total)
+        if rank == 0:
+            np.save(os.path.join(spec["outdir"], f"{width.replace(' ', '')}_{world}.npy"), means.cpu().numpy())
+        results[width] = {"seconds": [first, second], "peak": peak, "launches": launches, "total": total.tolist(),
+                          "points": [local.start, local.stop]}
+    with open(os.path.join(spec["outdir"], f"rank{rank}_{world}.json"), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def run_processes(devices, outdir: str, widths) -> list:
+    """One :func:`process_worker` a device of ``devices`` (a device may
+    repeat), joined over gloo on a free localhost port; waits for all of
+    them (400 s at most) and returns each rank's results."""
+    import socket
+
+    world = len(devices)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             json.dumps({"rank": rank, "world": world, "port": port, "outdir": outdir, "widths": list(widths),
+                         "device": str(device)})],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for rank, device in enumerate(devices)
+    ]
+    try:
+        outs = [proc.communicate(timeout=400) for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    for rank, (proc, (_, err)) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"process {rank} of {world} exited {proc.returncode}: {err[-3000:]}")
+    ranks = []
+    for rank in range(world):
+        with open(os.path.join(outdir, f"rank{rank}_{world}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def process_phase(cuda, outdir: str, worlds=(1, 2, 4), widths=tuple(PROCESS_WIDTHS)):
+    """Phase 21: ``worlds`` processes on the one card, each tracking its
+    slice of each width (:func:`process_worker`); the stitched means of
+    every world held to the one-process run's as phase 7 holds a free run,
+    the collective's sum equal on every rank, both kernels launched in every
+    process. Returns (the line, each kernel's launches summed over the
+    processes of the largest world's first timed pass of the first width)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    found = {}
+    parts = []
+    for world in worlds:
+        start = time.perf_counter()
+        ranks = run_processes([cuda] * world, outdir, widths)
+        wall = time.perf_counter() - start
+        found[world] = ranks
+        for width in widths:
+            n, p, t = PROCESS_WIDTHS[width]
+            totals = [r[width]["total"] for r in ranks]
+            if any(total != totals[0] for total in totals):
+                raise AssertionError(f"phase 21 {world} processes, {width}: the all_reduce differs by rank: {totals}")
+            for rank, r in enumerate(ranks):
+                if r[width]["launches"]["median_highpass"] < t + 1 or r[width]["launches"]["systematic_resample"] != t:
+                    raise AssertionError(f"phase 21 process {rank} of {world}, {width}: launches {r[width]['launches']}")
+            means = np.load(os.path.join(outdir, f"{width.replace(' ', '')}_{world}.npy"))
+            if means.shape != (t, n, 6) or not np.isfinite(means).all():
+                raise AssertionError(f"phase 21 {world} processes, {width}: means {means.shape}")
+            one = np.load(os.path.join(outdir, f"{width.replace(' ', '')}_1.npy"))
+            bounds = free_run_bounds(means, one)
+            parting = int((np.abs(means - one).max(axis=(0, 2)) > 1e-3).sum())
+            # Each pass starts at a barrier: the slowest rank's seconds are the pass's.
+            seconds = min(max(r[width]["seconds"][i] for r in ranks) for i in range(2))
+            peaks = "/".join(f"{r[width]['peak'] / 2**30:.2f}" for r in ranks)
+            counts = "/".join("{median_highpass}+{systematic_resample}".format(**r[width]["launches"]) for r in ranks)
+            parts.append(
+                f"{world} process{'es' if world > 1 else ''} at {width}'s {n}x{p}x{t}:"
+                f" {n * t / seconds:.1f} point-steps/s ({seconds:.3f} s, the slowest rank of the better pass),"
+                f" peak {peaks} GiB a rank, launches (high-pass+resample) a rank {counts},"
+                f" against 1 process step 1 {bounds[0]:.3g}, median point {bounds[1]:.3g}, worst point {bounds[2]:.3g},"
+                f" {parting} points apart by over 1e-3"
+            )
+        parts[-len(widths)] += f" [{wall:.1f} s with the processes' start]"
+    largest = found[max(worlds)]
+    launches = {k: sum(r[widths[0]]["launches"][k] for r in largest) for k in ("median_highpass", "systematic_resample")}
+    return "; ".join(parts) + "; the all_reduce'd sum equal on every rank", launches
+
+
+def sse_modes_phase(camera, frames, points_xy, cuda, noise, devices, n_particles: int = 2048, n_steps: int = 10,
+                    small=(16, 256, 6)):
+    """Phase 22: phase 6's tracker in each ``sse_sample_mode`` from the same
+    injected draws: point-steps/s (best of two passes after a warm-up), peak
+    memory, |diff| of the means against the exact mode, one profiled step;
+    then each mode on the card against the CPU at ``small`` = (points,
+    particles, frames), each step from a shared state within 1e-3. Returns
+    (the line, each kernel's launches in the timed passes of every mode)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels.highpass import median_highpass
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+
+    modes = {"einsum": {}, "nearest": {"sse_sample_mode": "nearest", "sse_upsample": 8},
+             "bilinear": {"sse_sample_mode": "bilinear", "sse_upsample": 8}}
+    n = len(points_xy)
+    images = frames[: n_steps + 1, None]
+    dts = torch.ones(n_steps, device=cuda)
+    means, parts = {}, []
+    launches = {"median_highpass": 0, "systematic_resample": 0}
+    for mode, settings in modes.items():
+        tracker = make_tracker(camera, points_xy, n_particles, cuda, **settings)
+
+        def run():
+            start = time.perf_counter()
+            _, out = tracker.track(torch.Generator(device=cuda).manual_seed(0), images, dts, noise=noise)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - start
+
+        run()
+        torch.cuda.reset_peak_memory_stats()
+        median_highpass.launches = 0
+        systematic_resample.launches = 0
+        timed = [run() for _ in range(2)]
+        launches["median_highpass"] += median_highpass.launches
+        launches["systematic_resample"] += systematic_resample.launches
+        peak = torch.cuda.max_memory_allocated()
+        means[mode] = timed[-1][0]["mean"].cpu().numpy()
+        if not np.isfinite(means[mode]).all():
+            raise AssertionError(f"phase 22 {mode}: non-finite means")
+        seconds = min(r[1] for r in timed)
+        state = tracker.initialize(torch.Generator(device=cuda).manual_seed(0), images[0])
+        per_point = np.abs(means[mode] - means["einsum"]).max(axis=(0, 2))
+        parts.append(
+            f"{mode}{' x' + str(settings['sse_upsample']) if settings else ''}: {n * n_steps / seconds:.1f}"
+            f" point-steps/s ({seconds:.3f} s), peak {peak / 2**30:.2f} GiB, |diff| of the means against einsum"
+            f" median point {np.median(per_point):.3g} worst {per_point.max():.3g}; "
+            + profile_step(tracker, state, images[1])
+        )
+    n22, p22, t22 = small
+    draws = np.random.default_rng(22)
+    small_noise = {
+        "init": {"xy": draws.normal(size=(n22, p22, 2)).astype(np.float32),
+                 "v": draws.normal(size=(n22, p22, 3)).astype(np.float32)},
+        "a": draws.normal(size=(t22 - 1, n22, p22, 3)).astype(np.float32),
+        "resample_u": draws.random((t22 - 1, n22)).astype(np.float32),
+    }
+    host_images = frames[:t22, None].cpu().numpy()
+    carried = {}
+    for mode, settings in modes.items():
+        pair = {k: make_tracker(camera, points_xy[:n22], p22, d, **settings) for k, d in devices.items()}
+        carried[mode], flags = lockstep_from_shared_state(pair["card"], pair["cpu"], host_images, small_noise, t22 - 1)
+        if carried[mode] > 1e-3 or flags:
+            raise AssertionError(f"phase 22 {mode}: card and CPU part by {carried[mode]} from a shared state,"
+                                 f" {flags} validity flags differ")
+    return (
+        f"{n}x{n_particles}x{n_steps}, 41x41 search boxes, 15x15 templates: " + "; ".join(parts)
+        + f"; card against CPU at {n22}x{p22}x{t22 - 1}, each step from a shared state: "
+        + ", ".join(f"{mode} {v:.3g}" for mode, v in carried.items()) + " (limit 1e-3)"
+    ), launches
+
+
+def scaling() -> None:
+    """``python3 chip_smoke.py --scaling`` on a machine with several cards:
+    phase 6's and phase 5's widths on 1, 2 and 4 cards (as many as there
+    are), three ways: a ``MeshTracker`` over the cards with one thread
+    issuing every slice (the package's design), the same with a thread a
+    slice, and one process a card (:func:`process_worker`); each the better
+    of two passes after a warm-up, generator draws for the meshes, the
+    injected draws of phase 21 for the processes. Then each way on the most
+    cards against one card from injected draws, held as phase 7 holds a free
+    run, and one mesh step under the profiler: device-busy milliseconds by
+    card beside the step's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, REPO)
+    from glimpse_tpu_torch import parallel
+    from glimpse_tpu_torch.kernels import _build
+    from glimpse_tpu_torch.parallel.tracker import MeshState, MeshTracker, _noise_slice, _to
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        raise SystemExit("chip_smoke.py --scaling needs two CUDA cards or more")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        list(pool.map(_build.load, ("highpass", "resample")))
+    count = torch.cuda.device_count()
+    cards = [k for k in (1, 2, 4) if k <= count]
+    first = torch.device("cuda", 0)
+
+    class Threaded(MeshTracker):
+        """A thread a slice issues that slice's launches."""
+
+        def _advance(self, state, images, dt, noise=None, **kwargs):
+            def one(i):
+                part = self.parts[i]
+                with torch.cuda.device(part.device):
+                    return part.step(state.parts[i], _to(images, part.device), _to(dt, part.device),
+                                     noise=_noise_slice(noise, self.slices[i]), **kwargs)
+
+            steps = list(self.pool.map(one, range(len(self.parts))))
+            return MeshState([s for s, _ in steps]), [o for _, o in steps]
+
+    def sync():
+        for d in range(count):
+            torch.cuda.synchronize(d)
+
+    def tracker(way, width, k):
+        n, p, t = PROCESS_WIDTHS[width]
+        frames, camera, points_xy, _ = process_problem(width, first)
+        built = make_tracker(camera, points_xy, p, first,
+                             mesh=parallel.get_mesh(devices=[torch.device("cuda", i) for i in range(k)]))
+        if way == "mesh, a thread a slice":
+            # The same tracker, each slice's step issued from a thread of its own.
+            built.__class__ = Threaded
+            built.pool = concurrent.futures.ThreadPoolExecutor(k)
+        return built, frames
+
+    for width in PROCESS_WIDTHS:
+        n, p, t = PROCESS_WIDTHS[width]
+        for k in cards:
+            for way in ("mesh, one thread", "mesh, a thread a slice"):
+                built, frames = tracker(way, width, k)
+                dts = torch.ones(t, device=first)
+
+                def run(seed):
+                    sync()
+                    start = time.perf_counter()
+                    built.track(torch.Generator(device=first).manual_seed(seed), frames[:, None], dts)
+                    sync()
+                    return time.perf_counter() - start
+
+                run(0)
+                seconds = min(run(seed) for seed in (1, 2))
+                line = f"{width}'s {n}x{p}x{t} on {k} card{'s' if k > 1 else ''}, {way}: {n * t / seconds:.1f} point-steps/s"
+                if width == "phase 6":
+                    state = built.initialize(torch.Generator(device=first).manual_seed(0), frames[0][None])
+                    built.step(state, frames[1][None], dts[0])
+                    sync()
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        start = time.perf_counter()
+                        built.step(state, frames[1][None], dts[0])
+                        sync()
+                        window = (time.perf_counter() - start) * 1e3
+                    busy = {}
+                    for event in prof.events():
+                        if event.device_type == torch.autograd.DeviceType.CUDA:
+                            us = getattr(event, "device_time_total", None) or getattr(event, "cuda_time_total", 0)
+                            busy[event.device_index] = busy.get(event.device_index, 0.0) + us / 1e3
+                    line += (f"; one step under the profiler {window:.3f} ms, device busy ms by card "
+                             + ", ".join(f"{d}: {ms:.3f}" for d, ms in sorted(busy.items())))
+                print(line, flush=True)
+                del built, frames
+                torch.cuda.empty_cache()
+    n, p, t = PROCESS_WIDTHS["phase 6"]
+    frames, camera, points_xy, noise = process_problem("phase 6", first)
+    dts = torch.ones(t, device=first)
+    _, want = make_tracker(camera, points_xy, p, first).track(
+        torch.Generator(device=first).manual_seed(0), frames[:, None], dts, noise=noise)
+    for way in ("mesh, one thread", "mesh, a thread a slice"):
+        built, _ = tracker(way, "phase 6", cards[-1])
+        _, out = built.track(torch.Generator(device=first).manual_seed(0), frames[:, None], dts, noise=noise)
+        bounds = free_run_bounds(out["mean"].cpu().numpy(), want["mean"].cpu().numpy())
+        print(f"{way} on {cards[-1]} cards against one card, injected draws: step 1 {bounds[0]:.3g}, median point"
+              f" {bounds[1]:.3g}, worst point {bounds[2]:.3g}", flush=True)
+    del noise, frames, want
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="scaling_", dir=os.path.join(REPO, "build")) as outdir:
+        for k in cards:
+            ranks = run_processes([torch.device("cuda", r) for r in range(k)], outdir, PROCESS_WIDTHS)
+            for width, (n, p, t) in PROCESS_WIDTHS.items():
+                seconds = min(max(r[width]["seconds"][i] for r in ranks) for i in range(2))
+                means = np.load(os.path.join(outdir, f"{width.replace(' ', '')}_{k}.npy"))
+                bounds = free_run_bounds(means, np.load(os.path.join(outdir, f"{width.replace(' ', '')}_1.npy")))
+                print(f"{width}'s {n}x{p}x{t} on {k} card{'s' if k > 1 else ''}, a process a card:"
+                      f" {n * t / seconds:.1f} point-steps/s, peak "
+                      + "/".join(f"{r[width]['peak'] / 2**30:.2f}" for r in ranks)
+                      + f" GiB a rank; against one process step 1 {bounds[0]:.3g}, median point {bounds[1]:.3g},"
+                      f" worst point {bounds[2]:.3g}", flush=True)
 
 
 def main() -> None:
@@ -2162,23 +2605,35 @@ def main() -> None:
     say(calibration_phase(devices, card), flush=True)
 
     # Phase 18: stabilization from image files at full size.
-    import tempfile
-
     with tempfile.TemporaryDirectory(prefix="phase18_", dir=os.path.join(REPO, "build")) as workdir:
         say("phase 18 stabilization from files: " + stabilize_from_files(1000, cuda, workdir), flush=True)
 
     # Phase 19: camera model conversion, card against CPU.
     say("phase 19 conversion: " + conversion_phase(devices), flush=True)
 
-    # Phase 20: the north-star width in four mesh slices on one card.
+    # Phase 20: the north-star width in four mesh slices on one card, and a
+    # mesh checkpoint resumed.
     line20, launches20 = mesh_phase(camera, frames, big_xy, cuda, os.path.join(REPO, "chiprun_out", "phase20_trace"))
+    line20 += "; checkpoint: " + mesh_checkpoint(
+        camera, frames, points_xy, cuda, os.path.join(REPO, "build", "chip_smoke", "mesh_state.npz"))
     say("phase 20 mesh: " + line20, flush=True)
 
-    # The kernels at phase 8's shapes; ``launches`` are phase 20's, this
-    # slice's path that runs them (the tracker in four mesh slices; phases
-    # 18-19 launch neither), and ``launches_by_path`` every main path's, each
-    # counted from 0 just before its run (phase 5's and phase 8's counts are
-    # one timed pass's). Each bound is
+    # Phase 21: one process a slice, 1, 2 and 4 processes on the card.
+    with tempfile.TemporaryDirectory(prefix="phase21_", dir=os.path.join(REPO, "build")) as workdir:
+        line21, launches21 = process_phase(cuda, workdir)
+    say("phase 21 processes: " + line21, flush=True)
+
+    # Phase 22: the SSE sampling modes at the north-star width.
+    line22, launches22 = sse_modes_phase(camera, frames, big_xy, cuda,
+                                         injected_draws(n_big, p_big, steps_big, cuda, seed=20), devices)
+    say("phase 22 SSE modes: " + line22, flush=True)
+
+    # The kernels at phase 8's shapes; ``launches`` are phase 20's (the
+    # tracker in four mesh slices; phases 18-19 launch neither), and
+    # ``launches_by_path`` every main path's, each counted from 0 just before
+    # its run (phase 5's and phase 8's counts are one timed pass's; phase
+    # 21's the four processes' first timed pass at phase 6's width, summed;
+    # phase 22's the timed passes of the three SSE modes). Each bound is
     # the bytes the function must move (every input read once, every output
     # written once) over the device memory rate: the high-pass reads and
     # writes 4 bytes a pixel; the resample reads a float32 threshold and 7
@@ -2191,7 +2646,8 @@ def main() -> None:
     bound_rs = 10240 * 2048 * 60 / HBM_BYTES_PER_S * 1e3
     by_path = {
         name: {"phase 5": launches[name], "phase 8": launches8[name], "phase 14": launches14[name],
-               "phase 16": launches16[name], "phase 20": launches20[name]}
+               "phase 16": launches16[name], "phase 20": launches20[name], "phase 21": launches21[name],
+               "phase 22": launches22[name]}
         for name in ("median_highpass", "systematic_resample")
     }
     if any(count < 1 for counts in by_path.values() for count in counts.values()):
@@ -2243,4 +2699,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        process_worker(json.loads(sys.argv[2]))
+    elif sys.argv[1:2] == ["--scaling"]:
+        scaling()
+    else:
+        main()

@@ -6,25 +6,19 @@ parameters are fit by least squares to minimize them. External cameras with
 an *outgoing* distortion model implement ``_xy_to_uv``; those with an
 *incoming* model implement ``_uv_to_xy``.
 
-The residuals are the host's float64 NumPy values, as in the reference; the
-Jacobian handed to :func:`scipy.optimize.least_squares` is exact, by
+By default a fit runs the reference's algorithm: the residuals are the
+host's float64 NumPy values and :func:`scipy.optimize.least_squares` takes
+its own 2-point differences of them, with unit parameter scales. So the
+default fit gives the reference's parameters bit for bit, also where the
+residuals do not pin them (a port camera's k1-k6 against a model with fewer
+radial terms; PhotoModeler's focal length, sensor size and principal point,
+which share one scale).
+
+``jac="exact"`` is an option: the Jacobian handed to scipy is exact, by
 ``torch.func.jacfwd`` over the same residual written on float64 tensors on
 ``device`` (through the camera's undistortion by the implicit function
-theorem at its Oulu fixed point), where the reference takes 2-point
-differences. With it the trust region is scaled by the Jacobian's columns
-(``x_scale="jac"``) unless the caller says otherwise. PhotoModeler's focal
-length, sensor size and principal point share one scale that leaves the
-residuals unchanged, and with unit scales the exact fit walks far along it:
-fit to a camera of ``fmm=(3100, 3200)`` (``tests/test_torch_convert.py``),
-it ends at a cost of 4.989e-12 px^2 against 1.046e-22 with column scales
-(the reference's 1.261e-22); the other fits of those tests end at the same
-cost either way.
-
-Where the residuals pin the parameters, the exact fit gives the reference's
-within 6e-11 relative. Where they do not, it reaches the reference's cost,
-or a lower one, at other parameters: a port camera's k1-k6 fit to a model
-with fewer radial terms (up to 11 % apart) and PhotoModeler's k1-k3 (0.3 %).
-``jac="2-point"`` runs the reference's algorithm and gives its parameters.
+theorem at its Oulu fixed point), and the trust region is scaled by the
+Jacobian's columns (``x_scale="jac"``) unless the caller says otherwise.
 """
 import copy
 from typing import Any, Callable, Dict, Iterable, Union
@@ -118,11 +112,22 @@ class Converter:
         """The exact Jacobian at ``x`` of ``build(x)``, the flat residual."""
         return torch.func.jacfwd(build)(self._const(x)).cpu().numpy()
 
-    def optimize_cam(self, params: Parameters, jac: str = "exact", **kwargs: Any) -> None:
+    def optimize_cam(self, params: Parameters, jac: str = "2-point", **kwargs: Any) -> None:
         """Least-squares fit of selected cam parameters to xcam.
 
-        ``jac="exact"`` differentiates the residual on ``device``; any other
-        value goes to :func:`scipy.optimize.least_squares` as its ``jac``.
+        ``jac`` goes to :func:`scipy.optimize.least_squares`; its default,
+        scipy's own, gives the reference's parameters bit for bit.
+        ``jac="exact"`` differentiates the residual on ``device`` instead,
+        with ``x_scale="jac"`` unless ``kwargs`` set one. Where the residuals
+        pin the parameters (Matlab's and Agisoft's distortion fit to a port
+        camera) the exact fit gives the reference's within 6e-11 relative;
+        where they do not, it reaches the reference's cost or a lower one at
+        other parameters (a port camera's k1-k6 against fewer radial terms,
+        up to 11 % apart; PhotoModeler's k1-k3, 0.3 %). With unit scales the
+        exact PhotoModeler fit of a camera of ``fmm=(3100, 3200)`` walks along
+        the common scale of focal length, sensor size and principal point and
+        ends at a cost of 4.989e-12 px^2 against 1.046e-22 with column scales
+        (the reference's 1.261e-22), hence ``x_scale="jac"``.
         """
         mask, _ = optimize_module.Cameras.parse_params(params)
         vector = self.cam._vector
@@ -188,7 +193,7 @@ class Converter:
             setattr(xcam, name, value if values.size > 1 else value[0])
         return xcam
 
-    def optimize_xcam(self, params: Parameters, jac: str = "exact", **kwargs: Any) -> None:
+    def optimize_xcam(self, params: Parameters, jac: str = "2-point", **kwargs: Any) -> None:
         """Least-squares fit of selected xcam attributes to cam (``jac`` as
         in :meth:`optimize_cam`)."""
         slots = self._xcam_slots(params)

@@ -102,6 +102,21 @@ def median_filter(tile, size: Tuple[int, int] = (5, 5)):
     return torch.where(torch.isnan(ordered[..., -1]), ordered[..., -1], middle)
 
 
+def median_network(values):
+    """Median of a sequence of equal-shape tensors by odd-even transposition:
+    k passes of min/max compare-exchanges, no sort. An even count gives the
+    mean of the two middle values. ``torch.minimum``/``maximum`` propagate
+    NaN, so an element with a NaN among its values gives NaN."""
+    vals = list(values)
+    k = len(vals)
+    for pass_ in range(k):
+        for i in range(pass_ % 2, k - 1, 2):
+            vals[i], vals[i + 1] = torch.minimum(vals[i], vals[i + 1]), torch.maximum(vals[i], vals[i + 1])
+    if k % 2:
+        return vals[k // 2]
+    return 0.5 * (vals[k // 2 - 1] + vals[k // 2])
+
+
 def highpass(tile, size: Tuple[int, int] = (5, 5)):
     """Median high-pass: tile minus its median-filtered low-pass."""
     return tile - median_filter(tile, size=size)

@@ -2,9 +2,10 @@
 
 The counterpart of :mod:`glimpse_tpu.ops.ncc`: :func:`sse_map_batched` is its
 'conv' form, SSE(u, v) = sum_patch S^2 - 2 (S * T)(u, v) + sum T^2, for the
-batched tracker; :func:`sse_map` the direct sliding sum for one pair, as its
-``sse_map_numpy``, for the host tracker.
+batched tracker; :func:`sse_map` the direct sliding sum for one pair, for
+the host tracker; :func:`sse_map_numpy` that sum on NumPy arrays.
 """
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,3 +36,12 @@ def sse_map(search, template):
     windows = search.unfold(0, th, 1).unfold(1, tw, 1)  # (oh, ow, th, tw)
     diff = windows - template
     return torch.einsum("uvij,uvij->uv", diff, diff)
+
+
+def sse_map_numpy(search: np.ndarray, template: np.ndarray) -> np.ndarray:
+    """SSE map of one search tile (sh, sw) against one template (th, tw) on
+    NumPy arrays, by the direct sliding-window sum (a reference value for
+    tests). Returns (sh - th + 1, sw - tw + 1)."""
+    windows = np.lib.stride_tricks.sliding_window_view(search, template.shape)
+    diff = windows - template
+    return np.einsum("uvij,uvij->uv", diff, diff)

@@ -75,12 +75,19 @@ def resample_np(
 def systematic_thresholds(weights, u):
     """Threshold table t (N, P) in float32 from weights (N, P) and offsets u (N,).
 
-    Float32 always: the table must hold particle counts exactly.
+    Float32 always: the table must hold particle counts exactly. The
+    cumulative sum accumulates in float64 and is rounded to float32, as the
+    CPU's float32 ``cumsum`` does: a card's float32 scan takes its order
+    from the number of rows (at 1,024 x 1,024 the first 512 rows of a batch
+    scan otherwise than 512 rows alone), so a run cut into slices would
+    resample other rows than the whole; in float64 the order is lost in the
+    rounding. On the CPU the table is what a float32 ``cumsum`` gives.
     """
     P = weights.shape[-1]
     w = weights.to(torch.float32)
     w = w / torch.sum(w, dim=-1, keepdim=True)
-    return P * torch.cumsum(w, dim=-1) - u.to(torch.float32).reshape(-1, 1)
+    cumulative = torch.cumsum(w, dim=-1, dtype=torch.float64).to(torch.float32)
+    return P * cumulative - u.to(torch.float32).reshape(-1, 1)
 
 
 def systematic_indices(t):

@@ -1,12 +1,40 @@
-"""Grid sampling on tensors: bilinear and exact cubic B-spline.
+"""Grid sampling on tensors: nearest, bilinear and exact cubic B-spline.
 
-The counterpart of :mod:`glimpse_tpu.ops.sampling` for the tracker's and the
-match refiner's paths. Samples are read by plain gathers at any grid size.
+The counterpart of :mod:`glimpse_tpu.ops.sampling`. Samples are read by plain
+gathers at any grid size: the reference's gather-free forms (the one-hot
+``grid_sample_*_dense`` matmuls, the dense spline basis) are TPU devices, and
+here they are functions of the same name that compute the same values.
 """
 import functools
 
 import numpy as np
 import torch
+
+__all__ = [
+    "nearest_sample",
+    "bilinear_sample",
+    "grid_sample_nearest_dense",
+    "grid_sample_bilinear_dense",
+    "DENSE_SAMPLE_MAX_CELLS",
+    "bspline_prefilter_matrix",
+    "bspline_prefilter_2d",
+    "bspline_sample",
+    "bspline_pad_coeffs",
+    "bspline_sample_padded",
+    "bspline_eval_matrix",
+    "bspline_upsample",
+    "bspline_basis_dense",
+    "cubic_bspline_kernel",
+    "sample_grid",
+    "bspline_derivatives",
+    "sample_grid_host",
+]
+
+#: The largest raster (cells) the reference samples by its one-hot matmuls
+#: (``glimpse_tpu/ops/sampling.py``); its callers gather beyond it. The
+#: port's ``grid_sample_*_dense`` gather at every size, so nothing here
+#: depends on it: it is kept for callers that choose by it.
+DENSE_SAMPLE_MAX_CELLS = 65536
 
 
 def nearest_sample(values, rows, cols):
@@ -16,6 +44,28 @@ def nearest_sample(values, rows, cols):
     r = torch.round(rows).long().clamp(0, H - 1)
     c = torch.round(cols).long().clamp(0, W - 1)
     return values[..., r, c]
+
+
+def grid_sample_nearest_dense(values, ri, ci):
+    """``values[ri, ci]`` of a grid (H, W) at integer index tensors of any
+    one shape, by a gather.
+
+    The reference computes this with one-hot row matmuls and masked column
+    sums, for up to :data:`DENSE_SAMPLE_MAX_CELLS` cells, and there a NaN
+    cell poisons every sample in its column (0 * NaN). Here the gather runs
+    at any grid size, and a NaN cell reaches only the samples taken at it.
+    Indices must lie in the grid, as on the reference's domain.
+    """
+    return values[ri.long(), ci.long()]
+
+
+def grid_sample_bilinear_dense(values, rows, cols):
+    """:func:`bilinear_sample` of a grid (H, W) under the reference's name
+    for its one-hot form: the same values (edge extrapolation included), by
+    four gathers, at any grid size. A NaN cell reaches only the samples
+    whose four-cell stencil holds it, where the reference's one-hot matmul
+    spreads it down its column."""
+    return bilinear_sample(values, rows, cols)
 
 
 def bilinear_sample(values, rows, cols):
@@ -141,6 +191,111 @@ def bspline_sample(coeffs, rows, cols):
     return out
 
 
+def cubic_bspline_kernel(x):
+    """The cubic B-spline kernel b3(x) (support |x| < 2)."""
+    ax = torch.abs(x)
+    ax2 = ax * ax
+    inner = (4.0 - 6.0 * ax2 + 3.0 * ax2 * ax) / 6.0
+    t = torch.clamp(2.0 - ax, min=0.0)
+    outer = t * t * t / 6.0
+    return torch.where(ax < 1.0, inner, outer)
+
+
+def bspline_basis_dense(q, n: int, dtype=None):
+    """Dense natural-BC cubic B-spline basis: B of shape ``q.shape + (n,)``
+    with ``B @ c`` the spline of coefficients c (n,) at queries q in
+    [0, n - 1]. The ghosts c[-1] = 2 c[0] - c[1] and c[n] = 2 c[n-1] - c[n-2]
+    are folded into the end columns, as in :func:`bspline_sample`."""
+    dtype = dtype or q.dtype
+    grid = torch.arange(n, dtype=dtype, device=q.device)
+    B = cubic_bspline_kernel(q[..., None] - grid)
+    fold_lo = np.zeros(n, np.float64)
+    fold_lo[0] += 2.0
+    fold_lo[min(1, n - 1)] -= 1.0
+    fold_hi = np.zeros(n, np.float64)
+    fold_hi[n - 1] += 2.0
+    fold_hi[max(n - 2, 0)] -= 1.0
+    B = B + cubic_bspline_kernel(q + 1.0)[..., None] * torch.as_tensor(fold_lo, dtype=dtype, device=q.device)
+    return B + cubic_bspline_kernel(q - n)[..., None] * torch.as_tensor(fold_hi, dtype=dtype, device=q.device)
+
+
+def bspline_pad_coeffs(coeffs):
+    """Coefficients (..., H, W) with the natural-BC ghosts folded into a
+    one-cell border (..., H + 2, W + 2): c[-1] = 2 c[0] - c[1] and
+    c[n] = 2 c[n-1] - c[n-2] on each axis, so each tap is one gather."""
+    c = torch.cat([2 * coeffs[..., :1, :] - coeffs[..., 1:2, :], coeffs,
+                   2 * coeffs[..., -1:, :] - coeffs[..., -2:-1, :]], dim=-2)
+    return torch.cat([2 * c[..., :1] - c[..., 1:2], c, 2 * c[..., -1:] - c[..., -2:-1]], dim=-1)
+
+
+def bspline_sample_padded(padded, rows, cols):
+    """Evaluate cubic B-splines from ghost-padded coefficients: 16 taps.
+
+    ``padded`` (B, H + 2, W + 2) from :func:`bspline_pad_coeffs`; ``rows``
+    and ``cols`` (B, Q) index the unpadded grid. Equals :func:`bspline_sample`
+    for indices within one cell of the grid, which every clamped index is.
+    """
+    B, H2, W2 = padded.shape
+    flat = padded.reshape(B, H2 * W2)
+    rb = torch.floor(rows)
+    cb = torch.floor(cols)
+    wr = _cubic_bspline_weights(rows - rb)
+    wc = _cubic_bspline_weights(cols - cb)
+    rb = rb.long() + 1  # into the padded frame
+    cb = cb.long() + 1
+    out = torch.zeros_like(rows)
+    for dr in range(4):
+        ri = torch.clamp(rb + (dr - 1), 0, H2 - 1)
+        for dc in range(4):
+            ci = torch.clamp(cb + (dc - 1), 0, W2 - 1)
+            out = out + wr[dr] * wc[dc] * flat.gather(1, ri * W2 + ci)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def bspline_eval_matrix(n: int, factor: int) -> np.ndarray:
+    """E (n * factor, n), float64: ``E @ coeffs`` is the 1-D cubic B-spline
+    at fine positions (j + 0.5) / factor - 0.5, j in [0, n * factor): fine
+    cells centred over the coarse grid, natural-BC ghosts folded in."""
+    m = n * factor
+    positions = (np.arange(m) + 0.5) / factor - 0.5
+    E = np.zeros((m, n))
+    base = np.floor(positions).astype(int)
+    w = _cubic_bspline_weights(positions - base)
+    for tap in range(4):
+        idx = base + (tap - 1)
+        for j in range(m):
+            i = idx[j]
+            wt = w[tap][j]
+            if i < 0:
+                E[j, 0] += 2 * wt
+                E[j, min(1, n - 1)] -= wt
+            elif i > n - 1:
+                E[j, n - 1] += 2 * wt
+                E[j, max(n - 2, 0)] -= wt
+            else:
+                E[j, i] += wt
+    return E
+
+
+@functools.lru_cache(maxsize=16)
+def _eval_tensor(n: int, factor: int, device, dtype) -> torch.Tensor:
+    # Kept on the device, as the prefilter's matrices are.
+    return torch.as_tensor(bspline_eval_matrix(n, factor)).to(device, dtype)
+
+
+def bspline_upsample(coeffs, factor: int, dtype=None):
+    """The 2-D cubic B-spline of coefficients (..., H, W) on a
+    ``factor``-times finer grid (..., H * factor, W * factor), by two
+    matmuls: fine cell (i, j) is centred at coarse index
+    ((i + 0.5) / factor - 0.5, (j + 0.5) / factor - 0.5)."""
+    H, W = coeffs.shape[-2], coeffs.shape[-1]
+    dtype = dtype or coeffs.dtype
+    Er = _eval_tensor(H, factor, coeffs.device, dtype)
+    Ec = _eval_tensor(W, factor, coeffs.device, dtype)
+    return torch.matmul(torch.matmul(Er, coeffs.to(dtype)), Ec.T)
+
+
 def _cubic_bspline_slopes(t):
     """First and second derivatives in t of :func:`_cubic_bspline_weights`."""
     t2 = t * t
@@ -160,11 +315,7 @@ def bspline_derivatives(coeffs, rows, cols):
     derivatives; a tap beyond the ghost has weight and slopes 0 there.
     """
     B, H, W = coeffs.shape
-    # Fold the ghost coefficients c[-1] = 2 c[0] - c[1] and c[n] = 2 c[n-1] -
-    # c[n-2] into a one-cell border, so each tap is one gather.
-    c = torch.cat([2 * coeffs[:, :1] - coeffs[:, 1:2], coeffs, 2 * coeffs[:, -1:] - coeffs[:, -2:-1]], dim=1)
-    c = torch.cat([2 * c[:, :, :1] - c[:, :, 1:2], c, 2 * c[:, :, -1:] - c[:, :, -2:-1]], dim=2)
-    flat = c.reshape(B, (H + 2) * (W + 2))
+    flat = bspline_pad_coeffs(coeffs).reshape(B, (H + 2) * (W + 2))
     rb = torch.floor(rows)
     cb = torch.floor(cols)
     tr = rows - rb

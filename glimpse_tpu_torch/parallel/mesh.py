@@ -5,15 +5,23 @@ sequence of ``torch.device`` entries over the *points* axis: per-point
 arrays (particles, weights, templates, motion parameters) are cut into one
 contiguous slice per entry and each slice lives on its entry's device;
 images and cameras are replicated. Every tracker operation is pointwise
-over points, so the slices never exchange data: a step runs each slice in
-turn and concatenates the outputs in point order.
+over points, so the slices never exchange data (see
+:class:`~glimpse_tpu_torch.parallel.tracker.MeshTracker`).
 
 A device may repeat in a mesh: ``get_mesh(devices=["cuda"] * 4)`` holds
 four slices on one card, and ``["cpu"] * 3`` three on the host.
 
-Several processes (one per card or host) set up with
-:func:`initialize_distributed` and each track their
-:func:`local_points_slice`; the step needs no collective.
+Several processes (one per card, or several sharing one) set up with
+:func:`initialize_distributed`, each track their
+:func:`local_points_slice` on a tracker of their own, and one collective,
+:func:`gather_points`, stitches the results; the step needs no collective.
+
+The two cuts differ. :class:`PointsSharding` (a mesh within one process)
+cuts by ``numpy.array_split``: the first ``n % size`` slices hold one point
+more than the others. :func:`local_points_slice` (one slice a process) cuts
+as the reference does, ceil-divided: every process but the last holds
+``ceil(n / processes)`` points, the last the rest, possibly none. For 10
+points over 4 they are (3, 3, 2, 2) and (3, 3, 3, 1).
 """
 import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple, Union
@@ -140,7 +148,7 @@ def shard_batch(tree, mesh: Mesh, points_axes: dict = None) -> list:
 
 
 def initialize_distributed(coordinator_address: str = None, num_processes: int = None,
-                           process_id: int = None, backend: str = None) -> None:
+                           process_id: int = None, backend: str = "gloo") -> None:
     """Join the processes of one multi-process run
     (``torch.distributed.init_process_group``).
 
@@ -148,10 +156,14 @@ def initialize_distributed(coordinator_address: str = None, num_processes: int =
     ``tcp://`` prefix may be given); ``num_processes`` and ``process_id``
     are the world size and this process's rank. Arguments left None come
     from torch's environment variables (``MASTER_ADDR``, ``MASTER_PORT``,
-    ``WORLD_SIZE``, ``RANK``). ``backend`` defaults to ``nccl`` where CUDA
-    is available, else ``gloo``. The group is for set-up only: each process
-    then tracks its :func:`local_points_slice`, and the step itself has no
-    collective.
+    ``WORLD_SIZE``, ``RANK``).
+
+    ``backend`` defaults to ``gloo`` on every host, with cards or without:
+    the group carries the set-up and one host-side collective of results
+    (:func:`gather_points`), and the tracker's step has none, so nothing
+    needs NCCL; and NCCL refuses two ranks on one card, which is how several
+    processes share a card. Each process then tracks its
+    :func:`local_points_slice` on a device of its choosing.
     """
     import torch.distributed as dist
 
@@ -163,24 +175,50 @@ def initialize_distributed(coordinator_address: str = None, num_processes: int =
         kwargs["world_size"] = num_processes
     if process_id is not None:
         kwargs["rank"] = process_id
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
     dist.init_process_group(backend=backend, **kwargs)
+
+
+def _world() -> Tuple[int, int]:
+    """(world size, rank) of the running group, (1, 0) without one."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1, 0
+    return dist.get_world_size(), dist.get_rank()
 
 
 def local_points_slice(n_points: int, mesh: Mesh = None) -> slice:
     """The slice of the global points axis owned by this process.
 
     One process owns every point; under :func:`initialize_distributed`
-    each of the world's processes owns a contiguous ceil-divided share.
+    each of the world's processes owns a contiguous ceil-divided share (the
+    reference's cut; see the module's docstring).
     """
-    import torch.distributed as dist
-
-    if not (dist.is_available() and dist.is_initialized()):
-        return slice(0, n_points)
-    n_procs = dist.get_world_size()
+    n_procs, rank = _world()
     if n_procs == 1:
         return slice(0, n_points)
     per_host = -(-n_points // n_procs)
-    start = dist.get_rank() * per_host
+    start = rank * per_host
     return slice(start, min(start + per_host, n_points))
+
+
+def gather_points(local: torch.Tensor, n_points: int, axis: int = 0) -> torch.Tensor:
+    """Every process's :func:`local_points_slice` of a result, stitched in
+    point order on every process: one ``all_gather`` over the group, on host
+    copies (``gloo``). ``local`` holds this process's slice along ``axis``;
+    the result, on ``local``'s device, holds all ``n_points``. Without a
+    group it returns ``local``.
+    """
+    import torch.distributed as dist
+
+    n_procs, _ = _world()
+    if n_procs == 1:
+        return local
+    per_host = -(-n_points // n_procs)
+    host = local.detach().cpu()
+    pad = list(host.shape)
+    pad[axis] = per_host - host.shape[axis]
+    host = torch.cat([host, host.new_zeros(pad)], dim=axis).contiguous()
+    parts = [torch.empty_like(host) for _ in range(n_procs)]
+    dist.all_gather(parts, host)
+    return torch.cat(parts, dim=axis).narrow(axis, 0, n_points).to(local.device)

@@ -12,10 +12,11 @@ The counterpart of :mod:`glimpse_tpu.track.batch` on one device. One step:
    (kernel ``median_highpass``, one launch for all observers, for the
    windows the kernel covers: odd taps, at most 49; any other window takes
    the plain version, chosen by ``kernels.highpass.covers`` before a launch);
-4. SSE map against the template, then the cubic B-spline (or bilinear
-   interpolation) of the SSE surface at every particle gives its negative
-   log likelihood; an observation mask zeroes the observers without an
-   image this step;
+4. SSE map against the template, then the cubic B-spline of the SSE
+   surface (exact at each particle, or on an upsampled grid read at the
+   nearest cell or bilinearly; or bilinear interpolation of the surface) at
+   every particle gives its negative log likelihood; an observation mask
+   zeroes the observers without an image this step;
 5. weights (fresh each step, or accumulated under an effective-sample-size
    threshold), moments, then resampling: systematic through the kernel
    ``systematic_resample``, the other methods by a row gather.
@@ -27,7 +28,8 @@ waits for the device, so a host that streams frames runs ahead of it.
 
 With a ``mesh`` (:func:`glimpse_tpu_torch.parallel.get_mesh`) the
 constructor builds a :class:`glimpse_tpu_torch.parallel.tracker.MeshTracker`,
-which runs one tracker per contiguous slice of the points.
+which runs one tracker per contiguous slice of the points, each on its
+mesh entry's device.
 """
 import dataclasses
 import functools
@@ -42,6 +44,7 @@ from ..ops import imageproc, ncc, projection, resampling, sampling
 
 MOTION_KINDS = ("cartesian", "cylindrical", "tangent", "tangent_cylindrical")
 RESAMPLE_METHODS = ("systematic",) + tuple(resampling.METHODS)
+SSE_SAMPLE_MODES = ("einsum", "nearest", "bilinear")
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -347,6 +350,16 @@ class BatchConfig:
     resamples only the points whose effective sample size falls below
     ``resample_threshold * n_particles``. ``dtype`` takes only float32, the
     kernels' type.
+
+    ``sse_sample_mode`` chooses how the cubic spline of the SSE surface is
+    read at the particles (``interpolation_order`` 3): ``'einsum'``, the
+    default, evaluates the exact spline at each particle (16 taps; the name
+    is the reference's, whose form is a dense-basis contraction);
+    ``'nearest'`` and ``'bilinear'`` evaluate it once on an
+    ``sse_upsample``-times finer grid (two matmuls) and read that grid at
+    the nearest fine cell (one gather) or bilinearly (four). With
+    ``sse_upsample`` <= 1 those two modes take the exact 16 taps from
+    ghost-padded coefficients.
     """
 
     n_particles: int = 500
@@ -355,6 +368,8 @@ class BatchConfig:
     highpass_size: Tuple[int, int] = (5, 5)
     n_quantiles: int = 256
     interpolation_order: int = 3
+    sse_upsample: int = 8
+    sse_sample_mode: str = "einsum"  # 'einsum' | 'nearest' | 'bilinear'
     resample_method: str = "systematic"
     resample_threshold: Optional[float] = None
     return_covariances: bool = False
@@ -365,6 +380,12 @@ class BatchConfig:
             raise NotImplementedError(
                 f"dtype={self.dtype!r} is not ported yet; only torch.float32 (see ROADMAP.md)"
             )
+        if self.sse_sample_mode not in SSE_SAMPLE_MODES:
+            raise ValueError(
+                f"sse_sample_mode must be 'einsum', 'nearest', or 'bilinear', got {self.sse_sample_mode!r}"
+            )
+        if not isinstance(self.sse_upsample, (int, np.integer)) or isinstance(self.sse_upsample, bool):
+            raise ValueError(f"sse_upsample must be an integer, got {self.sse_upsample!r}")
         if self.resample_method not in RESAMPLE_METHODS:
             raise ValueError(f"resample_method must be one of {RESAMPLE_METHODS}, got {self.resample_method!r}")
         if self.interpolation_order not in (1, 3):
@@ -506,12 +527,39 @@ def _project_and_extract(image, camera_vector, correction, particles, template_d
     return search, cols, rows
 
 
-def _sample_sse_surface(sse, rows_c, cols_c, order: int = 3):
-    """SSE surfaces (B, oh, ow) at clamped indices (B, P): the exact cubic
-    B-spline (order 3) or bilinear interpolation (order 1)."""
-    if order == 1:
+def _sample_sse_surface(sse, rows_c, cols_c, cfg: BatchConfig):
+    """SSE surfaces (B, oh, ow) at clamped indices (B, P): the cubic
+    B-spline read as ``cfg.sse_sample_mode`` says (order 3), or bilinear
+    interpolation of the surface (order 1)."""
+    if cfg.interpolation_order == 1:
         return torch.vmap(sampling.bilinear_sample)(sse, rows_c, cols_c)
-    return sampling.bspline_sample(sampling.bspline_prefilter_2d(sse), rows_c, cols_c)
+    coeffs = sampling.bspline_prefilter_2d(sse)
+    if cfg.sse_sample_mode == "einsum":
+        return sampling.bspline_sample(coeffs, rows_c, cols_c)
+    if cfg.sse_upsample > 1:
+        factor = cfg.sse_upsample
+        fine = sampling.bspline_upsample(coeffs, factor)
+        fr = (rows_c + 0.5) * factor - 0.5
+        fc = (cols_c + 0.5) * factor - 0.5
+        if cfg.sse_sample_mode == "bilinear":
+            return torch.vmap(sampling.bilinear_sample)(fine, fr, fc)
+        fh, fw = fine.shape[-2:]
+        # torch.round rounds half to even, as the reference's jnp.round.
+        ri = torch.round(fr).long().clamp(0, fh - 1)
+        ci = torch.round(fc).long().clamp(0, fw - 1)
+        return fine.reshape(fine.shape[0], fh * fw).gather(1, ri * fw + ci)
+    return sampling.bspline_sample_padded(sampling.bspline_pad_coeffs(coeffs), rows_c, cols_c)
+
+
+def observer_log_likelihoods(image, camera_vector, correction, sigma, particles, templates, template_table,
+                             template_duv, weights, cfg: BatchConfig):
+    """Per-particle negative log likelihood (N, P) from one observer's image
+    (H, W): :func:`observer_log_likelihoods_multi` of one observer, with
+    templates (N, th, tw), template_table (N, K) and template_duv (N, 2)."""
+    return observer_log_likelihoods_multi(
+        image[None], camera_vector[None], [correction], [sigma], particles, templates[None], template_table[None],
+        template_duv[None], weights, cfg,
+    )
 
 
 def observer_log_likelihoods_multi(images, camera_vectors, corrections, sigmas, particles, templates,
@@ -548,7 +596,7 @@ def observer_log_likelihoods_multi(images, camera_vectors, corrections, sigmas, 
     cols_c = torch.clamp(cols, 0.0, ow - 1.0)
     rows_c = torch.clamp(rows, 0.0, oh - 1.0)
     oob_d2 = (cols - cols_c) ** 2 + (rows - rows_c) ** 2
-    sampled = _sample_sse_surface(sse, rows_c, cols_c, cfg.interpolation_order)
+    sampled = _sample_sse_surface(sse, rows_c, cols_c, cfg)
     inv_2s2 = _inverse_two_sigma_squared(tuple(float(s) for s in sigmas), particles.device)
     ll = sampled.reshape(O, N, P) * inv_2s2[:, None, None] + oob_d2.reshape(O, N, P)
     if obs_mask is not None:
@@ -875,6 +923,20 @@ class BatchTracker:
                 plan.setdefault(int(fires[0]) + 1, []).append(o)
         return mask0, {b: tuple(obs) for b, obs in plan.items()}
 
+    def _advance(self, state, images, dt, **kwargs):
+        """One step of :meth:`track` and :meth:`track_stream`: (new state,
+        the step's outputs as the tracker holds them until :meth:`_join` or
+        :meth:`_collect` gathers them)."""
+        return self.step(state, images, dt, **kwargs)
+
+    def _join(self, out) -> dict:
+        """One step's outputs from :meth:`_advance` as a dict on ``device``."""
+        return out
+
+    def _collect(self, outs: list) -> dict:
+        """Steps' outputs from :meth:`_advance`, stacked on a leading time axis."""
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
     def _empty_outputs(self, n_points: int) -> dict:
         """Outputs with a leading time axis of 0."""
         shapes = {"mean": (0, n_points, 6), "sigma": (0, n_points, 6), "valid": (0, n_points)}
@@ -914,14 +976,14 @@ class BatchTracker:
         state = self.initialize(generator, images[0], noise=noise.get("init"), obs_mask0=mask0)
         outs = []
         for i in range(dts.shape[0]):
-            state, out = self.step(
+            state, out = self._advance(
                 state, images[1 + i], dts[i], noise={k: x[i] for k, x in step_noise.items()},
                 obs_mask=None if masks is None else masks[i], init_template_for=plan.get(i + 1, ()),
             )
             outs.append(out)
         if not outs:
-            return state, self._empty_outputs(state.particles.shape[0])
-        return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            return state, self._empty_outputs(self.motion.n_points)
+        return state, self._collect(outs)
 
     def _upload(self, frames) -> torch.Tensor:
         """Host frames, stacked, in one copy to the device (pinned and
@@ -960,7 +1022,7 @@ class BatchTracker:
         )
 
         def one(state, t, frame):
-            return self.step(
+            return self._advance(
                 state, frame, dts[t - 1], camera_vectors=None if cams is None else cams[t],
                 obs_mask=None if masks is None else masks[t - 1], init_template_for=plan.get(t, ()),
             )
@@ -972,7 +1034,7 @@ class BatchTracker:
                 if t > n_steps:
                     break
                 state, out = one(state, t, self._upload([frame])[0])
-                outputs.append(out)
+                outputs.append(self._join(out))
             return state, outputs
         t = 1
         while t <= n_steps:
@@ -983,8 +1045,8 @@ class BatchTracker:
                 state, out = one(state, t + k, frames[k])
                 outs.append(out)
             if any(b in plan for b in range(t, t_end + 1)):
-                outputs.extend({key: x[None] for key, x in out.items()} for out in outs)
+                outputs.extend(self._collect([out]) for out in outs)
             else:
-                outputs.append({key: torch.stack([o[key] for o in outs]) for key in outs[0]})
+                outputs.append(self._collect(outs))
             t = t_end + 1
         return state, outputs

@@ -4,16 +4,17 @@ The fourteen cases of ``tests/test_convert.py``, each run on the port
 (``device="cpu"``) with the reference's assertions, and held to the
 reference's own result on the same input: readers give identical
 attributes and exact conversions agree within 1e-12 (residuals and camera
-vectors). Optimized ones run twice. With ``jac="2-point"`` the port runs
-the reference's algorithm and its fitted parameters agree within 1e-6
-relative (they come out identical). With the default exact Jacobian, the
-fits of Matlab's and Agisoft's distortion coefficients to a port camera
-agree within 1e-6 relative too (6e-11 measured). The others are not
-identifiable to that precision: a port camera's (f, c, k1-k6, p) against a
-model with fewer radial terms (k4-k6 are nearly collinear with k1-k3; up to
-11 % apart at equal cost), PhotoModeler's focal length with its sensor size
-and principal point (one common scale leaves the residuals unchanged, and
-the exact fit walks along it), and PhotoModeler's k1-k3 (0.3 % apart).
+vectors). A fit with no ``jac`` runs the reference's algorithm (scipy's
+2-point differences of the host residual) and gives the reference's
+parameters bit for bit in all four formats. Optimized conversions also run
+with ``jac="2-point"`` given, and with ``jac="exact"``. With the exact
+Jacobian, the fits of Matlab's and Agisoft's distortion coefficients to a
+port camera agree within 1e-6 relative too (6e-11 measured). The others are
+not identifiable to that precision: a port camera's (f, c, k1-k6, p) against
+a model with fewer radial terms (k4-k6 are nearly collinear with k1-k3; up
+to 11 % apart at equal cost), PhotoModeler's focal length with its sensor
+size and principal point (one common scale leaves the residuals unchanged,
+and the exact fit walks along it), and PhotoModeler's k1-k3 (0.3 % apart).
 Those are held to a cost (sum of squared residuals) no larger than the
 reference's, within 1e-9 relative.
 """
@@ -306,3 +307,33 @@ def test_exact_jacobian_matches_central_differences(which) -> None:
         host(x0)
         scale = np.abs(column).max()
         np.testing.assert_allclose(jac[:, i], column, rtol=0, atol=1e-6 * scale + 1e-9)
+
+
+def flat_xcam(xcam) -> np.ndarray:
+    return np.concatenate([np.atleast_1d(np.asarray(v, dtype=float)) for v in vars(xcam).values()])
+
+
+@pytest.mark.parametrize("fmt", ["Matlab", "Agisoft", "PhotoModeler", "OpenCV"])
+def test_default_fit_gives_the_references_parameters_bit_for_bit(fmt) -> None:
+    """With no ``jac`` given, each format's optimized conversion from a port
+    camera (where the format has one) and back to a port camera equals the
+    reference's, parameter for parameter, bit for bit."""
+    if fmt == "PhotoModeler":
+        cam, rcam = both_cameras(imgsz=(4288, 2848), fmm=(3100, 3200), cmm=(0.5, -0.4), sensorsz=(35.1, 24.2),
+                                 k=(0.1, -0.05), p=(0.03, 0.04))
+    else:
+        cam, rcam = both_cameras(**(OPENCV_CAM if fmt == "OpenCV" else DISTORTED_K4))
+    port, ref_fmt = getattr(convert, fmt), getattr(ref_convert, fmt)
+    if fmt == "OpenCV":
+        xcam, rxcam = port.from_camera(cam), ref_fmt.from_camera(rcam)
+        xcam.s1 = rxcam.s1 = 1e-5
+    else:
+        xcam, rxcam = port.from_camera(cam, **CPU), ref_fmt.from_camera(rcam)
+        np.testing.assert_array_equal(flat_xcam(xcam), flat_xcam(rxcam))
+    if fmt == "Matlab":
+        xcam.alpha_c = rxcam.alpha_c = 1e-6
+    if fmt == "Agisoft":
+        for x in (xcam, rxcam):
+            x.k4 = 1e-7
+            x.b2 = 1e-12
+    np.testing.assert_array_equal(xcam.to_camera(**CPU).to_array(), rxcam.to_camera().to_array())

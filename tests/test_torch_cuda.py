@@ -327,3 +327,79 @@ def test_exact_jacobian_on_card_against_cpu(cuda, problem) -> None:
     assert J.dtype == np.float64 and np.isfinite(J).all()
     assert (np.abs(J - J_cpu) / np.abs(J_cpu).max(axis=0)).max() < 1e-9
     assert on_card.fit(full=True, jac="exact").success
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest", "bilinear", "upsample1"])
+def test_sse_modes_on_card_against_cpu(cuda, mode) -> None:
+    """Each SSE sampling mode on the card against the CPU at 16 x 256, each
+    step from a shared state within 1e-3 (chip_smoke phase 22's check)."""
+    from chip_smoke import lockstep_from_shared_state, make_scene, make_tracker
+
+    settings = {"nearest": dict(sse_sample_mode="nearest", sse_upsample=8),
+                "bilinear": dict(sse_sample_mode="bilinear", sse_upsample=8),
+                "upsample1": dict(sse_sample_mode="bilinear", sse_upsample=1)}[mode]
+    frames, camera, rng = make_scene(6)
+    points = rng.uniform(128, 384, size=(16, 2))
+    draws = np.random.default_rng(22)
+    noise = {"init": {"xy": draws.normal(size=(16, 256, 2)).astype(np.float32),
+                      "v": draws.normal(size=(16, 256, 3)).astype(np.float32)},
+             "a": draws.normal(size=(5, 16, 256, 3)).astype(np.float32),
+             "resample_u": draws.random((5, 16)).astype(np.float32)}
+    card = make_tracker(camera, points, 256, cuda, **settings)
+    cpu = make_tracker(camera, points, 256, torch.device("cpu"), **settings)
+    carried, flags = lockstep_from_shared_state(card, cpu, frames[:, None], noise, 5)
+    assert carried <= 1e-3 and flags == 0
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.cuda
+def test_mesh_on_two_cards_keeps_each_slice_on_its_card(two_cards, tmp_path) -> None:
+    """A mesh over two cards: each slice's state and generator on its card,
+    the outputs on the tracker's device; from injected draws the run agrees
+    with the unsliced one as a free run (cuDNN picks algorithms by batch
+    size); a MeshState resumes bit for bit on the same cards."""
+    from chip_smoke import free_run_bounds, injected_draws, make_scene, make_tracker
+    from glimpse_tpu_torch import parallel
+    from glimpse_tpu_torch.track import checkpoint
+
+    frames_np, camera, rng = make_scene(6)
+    points = rng.uniform(128, 384, size=(37, 2))
+    frames = torch.from_numpy(frames_np).to(two_cards[0])
+    noise = injected_draws(37, 256, 5, two_cards[0], seed=3)
+    mesh = make_tracker(camera, points, 256, two_cards[0], mesh=parallel.get_mesh(devices=two_cards))
+    plain = make_tracker(camera, points, 256, two_cards[0])
+    dts = torch.ones(5, device=two_cards[0])
+    state, out = mesh.track(torch.Generator(device=two_cards[0]).manual_seed(0), frames[:, None], dts, noise=noise)
+    _, want = plain.track(torch.Generator(device=two_cards[0]).manual_seed(0), frames[:, None], dts, noise=noise)
+    assert out["mean"].device == two_cards[0]
+    free_run_bounds(out["mean"].cpu().numpy(), want["mean"].cpu().numpy())
+    for part, card in zip(state.parts, two_cards):
+        assert part.generator.device == card and part.particles.device == card and part.templates.device == card
+    checkpoint.save_state(state, tmp_path / "mesh.npz")
+    restored = checkpoint.load_state(tmp_path / "mesh.npz")
+    assert [p.generator.device for p in restored.parts] == two_cards
+    a, _ = mesh.step(state, frames[1][None], dts[0])
+    b, _ = mesh.step(restored, frames[1][None], dts[0])
+    for x, y in zip(a.parts, b.parts):
+        assert torch.equal(x.particles, y.particles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, p", [(1024, 1024), (10240, 2048)])
+def test_systematic_thresholds_do_not_depend_on_the_batch(cuda, n, p) -> None:
+    """The first rows of a batch's threshold table equal those rows' table
+    alone, bit for bit: a sliced run (a mesh, or one process a slice)
+    resamples the rows the whole run resamples."""
+    rng = np.random.default_rng(0)
+    weights = torch.from_numpy(np.exp(3 * rng.normal(size=(n, p))).astype(np.float32)).to(cuda)
+    u = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+    whole = systematic_thresholds(weights, u)
+    for m in (n // 2, n // 4):
+        assert torch.equal(whole[:m], systematic_thresholds(weights[:m].contiguous(), u[:m].contiguous()))

@@ -164,7 +164,9 @@ def test_bilinear_sse_sampling_matches_reference() -> None:
             jnp.asarray(sse), jnp.asarray(rows), jnp.asarray(cols), jax_batch.BatchConfig(interpolation_order=1)
         )
     )
-    got = batch._sample_sse_surface(torch.from_numpy(sse), torch.from_numpy(rows), torch.from_numpy(cols), order=1)
+    got = batch._sample_sse_surface(
+        torch.from_numpy(sse), torch.from_numpy(rows), torch.from_numpy(cols), batch.BatchConfig(interpolation_order=1)
+    )
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
 
 
