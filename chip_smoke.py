@@ -141,7 +141,22 @@ each:
     the same injected draws: point-steps/s, peak memory, the median and
     largest |diff| of the means against the exact mode, one profiled step
     of each; then each mode on the card against the CPU at 16 x 256, each
-    step from a shared state within 1e-3.
+    step from a shared state within 1e-3;
+23. precisions: (a) both kernels in bfloat16, float16 and float64 against
+    their plain versions on the card, bit for bit, at the main path's
+    shapes ((20,480, 31, 31), (10,240, 41, 41), (10,240, 15, 15); 10,240 x
+    2,048), timed (CUDA events, the mean of 20 after 3 warm-ups) beside
+    their plain versions and their byte bounds, then phase 3's held cases
+    (ties, NaN, +-inf, every window, the smallest tiles, a stack one element
+    past a 16-byte line) and the resample at N = 37 with thresholds tied to
+    slots; (b) phase 6's tracker in float32, bfloat16, float16 and float64
+    from the same generator draws: point-steps/s, peak memory, launches of
+    each kernel a step, the median and worst point's distance from the
+    float32 run; (c) phase 8's Columbia recipe in bfloat16 beside its
+    float32 run: final RMSE against the truth; (d) bfloat16 on the card
+    against the CPU at 16 x 256 x 5, each step from a shared state, held by
+    the CPU tests' rule (|card - CPU| <= max |CPU bfloat16 - CPU float32| +
+    one bfloat16 ulp).
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
@@ -238,15 +253,17 @@ def highpass_check_cases():
     return cases
 
 
-def highpass_case_tiles(shape, specials: bool, misaligned: bool, device, seed: int = 0):
-    """A case's tiles on ``device``; misaligned ones start one float into
-    their storage."""
+def highpass_case_tiles(shape, specials: bool, misaligned: bool, device, seed: int = 0, dtype=None):
+    """A case's tiles on ``device``, of ``dtype`` (float32 by default);
+    misaligned ones start one element into their storage (4 bytes past a
+    16-byte line in float32, 2 in 16 bits, 8 in float64)."""
     import torch
 
-    tiles = torch.from_numpy(highpass_tiles(shape, seed, specials))
+    dtype = dtype or torch.float32
+    tiles = torch.from_numpy(highpass_tiles(shape, seed, specials)).to(dtype)
     if not misaligned:
         return tiles.to(device)
-    storage = torch.empty(tiles.numel() + 1, device=device)
+    storage = torch.empty(tiles.numel() + 1, device=device, dtype=dtype)
     return storage[1:].view(shape).copy_(tiles)
 
 
@@ -2037,6 +2054,185 @@ def sse_modes_phase(camera, frames, points_xy, cuda, noise, devices, n_particles
     ), launches
 
 
+# Phase 23's element types: every dtype the tracker takes, float32 first.
+PRECISIONS = ("float32", "bfloat16", "float16", "float64")
+# The main path's high-pass stacks, 5x5 taps: phase 8's search tiles, phase
+# 14's search tiles and templates.
+PRECISION_TILES = ((20480, 31, 31), (10240, 41, 41), (10240, 15, 15))
+
+
+def dtype_ulp(dtype, magnitude: float) -> float:
+    """The spacing of ``dtype`` at ``magnitude``."""
+    import torch
+
+    finfo = torch.finfo(dtype)
+    return finfo.eps * 2.0 ** np.floor(np.log2(max(magnitude, finfo.tiny)))
+
+
+def precision_tiles(shape, dtype, device, seed: int):
+    """Normal tiles (N, h, w) of ``dtype`` on ``device``; float64 ones hold
+    values float32 cannot."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    tiles = rng.normal(size=shape)
+    if dtype != torch.float64:
+        tiles = tiles.astype(np.float32)
+    return torch.from_numpy(tiles).to(device, dtype)
+
+
+def precision_kernels(cuda, hbm_bytes_per_s: float):
+    """Phase 23 (a): both kernels in bfloat16, float16 and float64 against
+    their plain versions on the card, bit for bit, at the main path's
+    shapes, then on phase 3's held cases (ties, NaN, +-inf, every window,
+    the smallest tiles, one stack one element past a 16-byte line) and the
+    resample at N = 37 with thresholds tied to slots. Returns (the line,
+    {kernel: [one record a dtype and shape]}, the largest mismatch)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels.highpass import kernel_variant, median_highpass, median_highpass_plain
+    from glimpse_tpu_torch.kernels.resample import systematic_resample, systematic_resample_plain
+    from glimpse_tpu_torch.ops.resampling import systematic_thresholds
+
+    records = {"median_highpass": [], "systematic_resample": []}
+    parts, err = [], 0.0
+    for name in PRECISIONS[1:]:
+        dtype = getattr(torch, name)
+        size = torch.finfo(dtype).bits // 8
+        for k, shape in enumerate(PRECISION_TILES):
+            tiles = precision_tiles(shape, dtype, cuda, seed=230 + k)
+            got, want = median_highpass(tiles, (5, 5)), median_highpass_plain(tiles, (5, 5))
+            if got.dtype != dtype or not torch.equal(got, want):
+                raise AssertionError(f"phase 23 median_highpass {name} {shape} differs from its plain version")
+            ms = _cuda_ms(lambda: median_highpass(tiles, (5, 5)))
+            plain_ms = _cuda_ms(lambda: median_highpass_plain(tiles, (5, 5)))
+            bound = 2 * int(np.prod(shape)) * size / hbm_bytes_per_s * 1e3
+            records["median_highpass"].append({"dtype": name, "shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                                               "bound_ms": bound, "bound_share": bound / ms})
+            del tiles, got, want
+        held = 0
+        for label, shape, window, specials, misaligned in highpass_check_cases():
+            tiles = highpass_case_tiles(shape, specials, misaligned, cuda, dtype=dtype)
+            got, want = median_highpass(tiles, window), median_highpass_plain(tiles, window)
+            torch.testing.assert_close(
+                got, want, rtol=0, atol=0, equal_nan=True,
+                msg=lambda m: f"phase 23 median_highpass ({kernel_variant(window, dtype)}) on {label} {shape}: {m}",
+            )
+            err = max(err, highpass_mismatch(got, want))
+            held += 1
+        rng = np.random.default_rng(231)
+        for n, p in ((10240, 2048), (37, 1024)):
+            weights = torch.from_numpy(np.exp(3 * rng.normal(size=(n, p))).astype(np.float32)).to(cuda, dtype)
+            u = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+            t = systematic_thresholds(weights, u)
+            if n == 37:
+                t[::2] = torch.round(t[::2] * 4) / 4  # thresholds tied with slots
+            particles = precision_tiles((n, p, 6), dtype, cuda, seed=232)
+            got, want = systematic_resample(t, particles, weights), systematic_resample_plain(t, particles, weights)
+            if got[0].dtype != dtype or not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"phase 23 systematic_resample {name} {n}x{p} differs from its plain version")
+            if n == 37:
+                continue
+            ms = _cuda_ms(lambda: systematic_resample(t, particles, weights))
+            plain_ms = _cuda_ms(lambda: systematic_resample_plain(t, particles, weights))
+            bound = n * p * (4 + 14 * size) / hbm_bytes_per_s * 1e3
+            records["systematic_resample"].append({"dtype": name, "shape": [n, p], "ms": ms, "plain_ms": plain_ms,
+                                                   "bound_ms": bound, "bound_share": bound / ms})
+        hp = [r for r in records["median_highpass"] if r["dtype"] == name]
+        rs = records["systematic_resample"][-1]
+        parts.append(
+            f"{name}: high-pass 5x5 ({kernel_variant((5, 5), dtype)}) "
+            + ", ".join(f"{r['shape'][1]}x{r['shape'][2]}x{r['shape'][0]} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
+                        f" bound {r['bound_ms']:.4f}, {100 * r['bound_share']:.1f} %)" for r in hp)
+            + f", {held} held cases; resample 10240x2048 {rs['ms']:.4f} ms (plain {rs['plain_ms']:.4f}, bound"
+            f" {rs['bound_ms']:.4f}, {100 * rs['bound_share']:.1f} %), N = 37 with tied thresholds bit-equal"
+        )
+    return "; ".join(parts), records, err
+
+
+def precision_trackers(camera, frames, points_xy, cuda, n_particles: int = 2048, n_steps: int = 10):
+    """Phase 23 (b): phase 6's tracker in each dtype from the same generator
+    draws (a warm-up pass, then one timed pass with the launch counts set
+    to 0 just before it): point-steps/s, peak memory, each kernel's launches
+    a step, and the median and worst point's distance at the last step from
+    the float32 run. Returns (the line, {dtype: launches})."""
+    import torch
+
+    from glimpse_tpu_torch.kernels.highpass import median_highpass
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+
+    n = len(points_xy)
+    parts, launches, last = [], {}, {}
+    for name in PRECISIONS:
+        dtype = getattr(torch, name)
+        tracker = make_tracker(camera, points_xy, n_particles, cuda, dtype=dtype)
+        run_tracker(tracker, frames[: n_steps + 1], seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        median_highpass.launches = 0
+        systematic_resample.launches = 0
+        out, seconds = run_tracker(tracker, frames[: n_steps + 1], seed=2)
+        launches[name] = {"median_highpass": median_highpass.launches,
+                          "systematic_resample": systematic_resample.launches}
+        if launches[name]["median_highpass"] < n_steps + 1 or launches[name]["systematic_resample"] != n_steps:
+            raise AssertionError(f"phase 23 {name}: the kernels did not carry the run: {launches[name]}")
+        peak = torch.cuda.max_memory_allocated()
+        if out["mean"].dtype != dtype or not torch.isfinite(out["mean"]).all():
+            raise AssertionError(f"phase 23 {name}: means of {out['mean'].dtype}, finite {torch.isfinite(out['mean']).all()}")
+        last[name] = out["mean"][-1, :, 0:2].double().cpu().numpy()
+        distance = np.linalg.norm(last[name] - last["float32"], axis=-1)
+        parts.append(
+            f"{name} {n * n_steps / seconds:.1f} point-steps/s ({seconds:.3f} s), peak {peak / 2**30:.2f} GiB,"
+            f" launches {launches[name]['median_highpass']} high-pass (one a step and the templates') and"
+            f" {launches[name]['systematic_resample']} resample in {n_steps} steps, distance from float32 at step"
+            f" {n_steps} median {np.median(distance):.4g} worst {distance.max():.4g}"
+        )
+        del tracker, out
+    return f"{n}x{n_particles}x{n_steps}: " + "; ".join(parts), launches
+
+
+def precision_lockstep(camera, frames_np, points_xy, devices, dtype, small=(16, 256, 6)):
+    """Phase 23 (d): the tracker in ``dtype`` on the card and on the CPU,
+    each step from the CPU's carried state, held by the CPU tests' rule:
+    |card - CPU| <= max |CPU in dtype - CPU in float32| + one ulp of the
+    dtype at the means' magnitude. Returns (largest |card - CPU|, its
+    budget)."""
+    import torch
+
+    n, p, t = small
+    draws = np.random.default_rng(23)
+    noise = {
+        "init": {"xy": draws.normal(size=(n, p, 2)).astype(np.float32),
+                 "v": draws.normal(size=(n, p, 3)).astype(np.float32)},
+        "a": draws.normal(size=(t - 1, n, p, 3)).astype(np.float32),
+        "resample_u": draws.random((t - 1, n)).astype(np.float32),
+    }
+    cpu, cuda = devices["cpu"], devices["card"]
+    card = make_tracker(camera, points_xy[:n], p, cuda, dtype=dtype)
+    host = make_tracker(camera, points_xy[:n], p, cpu, dtype=dtype)
+    wide = make_tracker(camera, points_xy[:n], p, cpu)
+    images = torch.from_numpy(frames_np[:t, None])
+    state = host.initialize(torch.Generator().manual_seed(0), images[0], noise=noise["init"])
+    state32 = wide.initialize(torch.Generator().manual_seed(0), images[0], noise=noise["init"])
+    error, budget = 0.0, 0.0
+    for i in range(t - 1):
+        step_noise = {"a": noise["a"][i], "resample_u": noise["resample_u"][i]}
+        on_card = dataclasses.replace(
+            state, generator=torch.Generator(device=cuda),
+            **{k: getattr(state, k).to(cuda) for k in ("particles", "weights", "templates", "template_table",
+                                                        "template_duv", "valid")},
+        )
+        _, card_out = card.step(on_card, images[i + 1].to(cuda), torch.tensor(1.0, device=cuda), noise=step_noise)
+        state, host_out = host.step(state, images[i + 1], torch.tensor(1.0), noise=step_noise)
+        state32, wide_out = wide.step(state32, images[i + 1], torch.tensor(1.0), noise=step_noise)
+        got, want, ref32 = (x["mean"].double().cpu() for x in (card_out, host_out, wide_out))
+        step_error = float((got - want).abs().max())
+        step_budget = float((want - ref32).abs().max()) + dtype_ulp(dtype, float(want.abs().max()))
+        if step_error > step_budget:
+            raise AssertionError(f"phase 23 {dtype} step {i + 1}: |card - CPU| {step_error} > {step_budget}")
+        error, budget = max(error, step_error), max(budget, step_budget)
+    return error, budget
+
+
 def scaling() -> None:
     """``python3 chip_smoke.py --scaling`` on a machine with several cards:
     phase 6's and phase 5's widths on 1, 2 and 4 cards (as many as there
@@ -2195,8 +2391,11 @@ def main() -> None:
         _build.load(name)
         seconds = time.perf_counter() - start
         log = _build.library_path(name).with_suffix(".log")
-        registers = re.findall(r"Used (\d+) registers", log.read_text()) if log.exists() else []
-        return f"{seconds:.1f} s, registers {'/'.join(registers) or 'cached'}"
+        text = log.read_text() if log.exists() else ""
+        registers = re.findall(r"Used (\d+) registers", text)
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill stores", text)]
+        return (f"{seconds:.1f} s, registers {'/'.join(registers) or 'cached'},"
+                f" largest spill {max(spills, default=0)} bytes")
 
     def build_feeder():
         from glimpse_tpu_torch import native
@@ -2210,10 +2409,10 @@ def main() -> None:
         feeder_built = pool.submit(build_feeder)
         built = dict(zip(names, pool.map(build, names)))
         built["host feeder"] = feeder_built.result()
-    main_kernel = next(r for r in sass.count_built("highpass") if r[0] == "separable_kernel<5,5,8>")
+    main_kernels = [r for r in sass.count_built("highpass") if r[0].startswith("separable_kernel<5,5,")]
     say(
         "phase 2 build: " + "; ".join(f"{k} {v}" for k, v in built.items())
-        + f"; SASS of the 5x5 high-pass {sass.describe(main_kernel)}",
+        + f"; SASS of the 5x5 high-pass in each type: {'; '.join(sass.describe(r) for r in main_kernels)}",
         flush=True,
     )
 
@@ -2628,6 +2827,45 @@ def main() -> None:
                                          injected_draws(n_big, p_big, steps_big, cuda, seed=20), devices)
     say("phase 22 SSE modes: " + line22, flush=True)
 
+    # Phase 23: precisions. (a) both kernels in 16 and 64 bits; (b) phase
+    # 6's tracker in each dtype; (c) phase 8's Columbia recipe in bfloat16
+    # beside its float32 run, from the same generator seed; (d) bfloat16 on
+    # the card against the CPU from a shared state.
+    line23a, records23, err23 = precision_kernels(cuda, HBM_BYTES_PER_S)
+    hp_err = max(hp_err, err23)
+    say("phase 23 (a) kernels in 16 and 64 bits, bit-equal to their plain versions: " + line23a, flush=True)
+    line23b, launches23 = precision_trackers(camera, frames, big_xy, cuda)
+    say("phase 23 (b) phase 6's tracker in each dtype: " + line23b, flush=True)
+    columbia16 = columbia_tracker(cams, viewshed, starts, p8, cuda, dtype=torch.bfloat16)
+    median_highpass.launches = 0
+    systematic_resample.launches = 0
+    start23 = time.perf_counter()
+    _, outputs23 = columbia16.track_stream(
+        torch.Generator(device=cuda).manual_seed(2), frame(0), (frame(i) for i in range(1, t8)),
+        np.ones(t8 - 1, np.float32), obs_masks=masks8, obs_mask0=mask0, chunk=chunk,
+    )
+    torch.cuda.synchronize()
+    seconds23 = time.perf_counter() - start23
+    launches23["columbia bfloat16"] = {"median_highpass": median_highpass.launches,
+                                       "systematic_resample": systematic_resample.launches}
+    mean23 = torch.cat([o["mean"] for o in outputs23])
+    if mean23.dtype != torch.bfloat16 or not torch.isfinite(mean23).all():
+        raise AssertionError(f"phase 23 Columbia in bfloat16: means of {mean23.dtype}, finite {torch.isfinite(mean23).all()}")
+    rmse23 = float(np.sqrt(np.mean(np.sum((mean23[-1, :, 0:2].double().cpu().numpy() - truth) ** 2, axis=-1))))
+    say(
+        f"phase 23 (c) columbia {n8}x{p8}x2 observers x{t8 - 1} steps in bfloat16 (chunk {chunk}, one pass,"
+        f" {n8 * (t8 - 1) / seconds23:.1f} point-steps/s): final RMSE {rmse23:.4f} px against float32's"
+        f" {rmse8:.4f} px (phase 8, the same seed), ratio {rmse23 / rmse8:.3f};"
+        f" launches {launches23['columbia bfloat16']}",
+        flush=True,
+    )
+    error23, budget23 = precision_lockstep(camera, frames_np, points_xy, devices, torch.bfloat16)
+    say(
+        f"phase 23 (d) bfloat16 card against CPU at 16x256x5, each step from a shared state: max |diff| of the"
+        f" means {error23:.4g}, within max |CPU bfloat16 - CPU float32| + 1 ulp = {budget23:.4g}",
+        flush=True,
+    )
+
     # The kernels at phase 8's shapes; ``launches`` are phase 20's (the
     # tracker in four mesh slices; phases 18-19 launch neither), and
     # ``launches_by_path`` every main path's, each counted from 0 just before
@@ -2647,7 +2885,7 @@ def main() -> None:
     by_path = {
         name: {"phase 5": launches[name], "phase 8": launches8[name], "phase 14": launches14[name],
                "phase 16": launches16[name], "phase 20": launches20[name], "phase 21": launches21[name],
-               "phase 22": launches22[name]}
+               "phase 22": launches22[name], **{f"phase 23 {k}": v[name] for k, v in launches23.items()}}
         for name in ("median_highpass", "systematic_resample")
     }
     if any(count < 1 for counts in by_path.values() for count in counts.values()):
@@ -2671,6 +2909,21 @@ def main() -> None:
     ]
     rs20 = [{"shape": [2560, 2048], "ms": rs_times[(2560, 2048)][0], "plain_ms": rs_times[(2560, 2048)][1],
              "bound_ms": 2560 * 2048 * 60 / HBM_BYTES_PER_S * 1e3}]
+    # Each dtype's times at the main path's shapes: float32 from phases 3
+    # and 4, the others from phase 23 (a). The bound counts the dtype's
+    # bytes: 2 E a pixel for the high-pass, 4 + 14 E a particle for the
+    # resample, with E-byte elements.
+    hp_dtypes = [
+        {"dtype": "float32", "shape": list(shape), "ms": hp_times[(shape, (5, 5))][0],
+         "plain_ms": hp_times[(shape, (5, 5))][1], "bound_ms": 2 * int(np.prod(shape)) * 4 / HBM_BYTES_PER_S * 1e3}
+        for shape in PRECISION_TILES
+    ]
+    rs_dtypes = [{"dtype": "float32", "shape": [10240, 2048], "ms": main_rs[0], "plain_ms": main_rs[1],
+                  "bound_ms": bound_rs}]
+    for record in hp_dtypes + rs_dtypes:
+        record["bound_share"] = record["bound_ms"] / record["ms"]
+    hp_dtypes += records23["median_highpass"]
+    rs_dtypes += records23["systematic_resample"]
     print(json.dumps({"kernels": [
         {
             "name": "median_highpass", "route": "cuda",
@@ -2680,7 +2933,7 @@ def main() -> None:
             "ms": main_hp[0], "plain_ms": main_hp[1], "bound_ms": bound_hp, "bound_by": "bytes",
             "bound_share": bound_hp / main_hp[0], "library_ms": None, "shape": [20480, 31, 31],
             "launches_by_path": by_path["median_highpass"], "phase_14_shapes": hp14, "phase_16_shapes": hp16,
-            "phase_16_tile_shapes": len(shapes16), "phase_20_shapes": hp20,
+            "phase_16_tile_shapes": len(shapes16), "phase_20_shapes": hp20, "dtypes": hp_dtypes,
         },
         {
             "name": "systematic_resample", "route": "cuda",
@@ -2689,7 +2942,7 @@ def main() -> None:
             "launches": launches20["systematic_resample"], "max_abs_err": rs_err,
             "ms": main_rs[0], "plain_ms": main_rs[1], "bound_ms": bound_rs, "bound_by": "bytes",
             "bound_share": bound_rs / main_rs[0], "library_ms": None, "shape": [10240, 2048],
-            "launches_by_path": by_path["systematic_resample"], "phase_20_shapes": rs20,
+            "launches_by_path": by_path["systematic_resample"], "phase_20_shapes": rs20, "dtypes": rs_dtypes,
         },
     ]}))
     print(json.dumps({

@@ -2,12 +2,13 @@
 //
 // Replaces the TPU kernel glimpse_tpu/kernels/highpass_pallas.py
 // (median_highpass, body _median_hp_kernel). Same function, same domain:
-// float32 tiles (N, h, w), odd kh and kw with kh * kw <= 49, h >= kh / 2 + 1,
+// tiles (N, h, w) of float32, float64, float16 or bfloat16, the output in the
+// input's type, odd kh and kw with kh * kw <= 49, h >= kh / 2 + 1,
 // w >= kw / 2 + 1, symmetric padding that includes the edge pixel (row -1
 // reads row 0, row h reads row h - 1), as numpy's mode="symmetric".
 //
 // What bounds it on the card: the issue of min/max, not bytes. Each tile is
-// read once and written once (8 bytes a pixel: 157 MB, 47 us at 3.35 TB/s
+// read once and written once (8 bytes a pixel in float32: 157 MB, 47 us at 3.35 TB/s
 // for the (20,480, 31, 31) stack of the main path), but a median network
 // costs tens of min/max a pixel, and Hopper issues min.NaN.f32 (FMNMX) at 62
 // a clock per SM, half its FP32 add rate (bench_highpass.py measures both).
@@ -40,8 +41,8 @@
 //    median where it was, read through a table of offsets built once a
 //    block, and reduced by Batcher's merge sort, of which the compiler keeps
 //    only what reaches the middle wire (202 min/max for S = 25).
-//    glimpse_median_highpass picks the kernel; glimpse_median_highpass_variant
-//    names the one it picks.
+//    glimpse_median_highpass_typed picks the kernel;
+//    glimpse_median_highpass_variant_typed names the one it picks.
 // 3. NaN that propagates. Every min and max is PTX min.NaN.f32 / max.NaN.f32:
 //    if either input is NaN the result is NaN. In a selection network every
 //    input of a window reaches its median through some chain of min and max,
@@ -58,6 +59,15 @@
 //    each thread reflects its strip's row and column indices once. TMA does
 //    not fit: a 31-float row (124 bytes) is not the multiple of 16 bytes a
 //    tensor map's stride needs.
+// 5. Element types. Every kernel is a template on the tile's type T. A
+//    float16 or bfloat16 tile widens to float at the load (exact, and order
+//    and NaN are kept), runs the float32 network and rounds once at the
+//    store, so its bytes halve but its min/max issue does not. A float64
+//    tile runs the network on double (compare and select: PTX has no
+//    min.NaN.f64) with half the float32 strip height, for registers. The
+//    staging counts in elements of T, so 16-byte lines hold 8, 4 or 2 of
+//    them; the elements before the first line and after the last go by
+//    cp.async for 4 and 8 bytes and by a plain copy for 2.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -85,27 +95,38 @@ __host__ __device__ __forceinline__ float max_nan(float a, float b) {
 #endif
 }
 
-// A list of N values held in registers (every index is a compile-time constant
-// once the networks below are unrolled).
-template <int N>
+// PTX has no min.NaN.f64: the float64 kernels compare and select, NaN if
+// either input is NaN, on the card as on the host.
+__host__ __device__ __forceinline__ double min_nan(double a, double b) {
+  return (a != a || b != b) ? static_cast<double>(NAN) : (b < a ? b : a);
+}
+
+__host__ __device__ __forceinline__ double max_nan(double a, double b) {
+  return (a != a || b != b) ? static_cast<double>(NAN) : (a < b ? b : a);
+}
+
+// A list of N values of type V held in registers (every index is a
+// compile-time constant once the networks below are unrolled). V is float
+// for the float32 and 16-bit kernels, double for the float64 ones.
+template <int N, typename V = float>
 struct Vec {
-  float v[N > 0 ? N : 1];
-  __host__ __device__ __forceinline__ float& operator[](int i) { return v[i]; }
-  __host__ __device__ __forceinline__ const float& operator[](int i) const { return v[i]; }
+  V v[N > 0 ? N : 1];
+  __host__ __device__ __forceinline__ V& operator[](int i) { return v[i]; }
+  __host__ __device__ __forceinline__ const V& operator[](int i) const { return v[i]; }
 };
 
-template <int K, int LO, int M>
-__host__ __device__ __forceinline__ Vec<K> slice(const Vec<M>& a) {
-  Vec<K> out;
+template <int K, int LO, int M, typename V>
+__host__ __device__ __forceinline__ Vec<K, V> slice(const Vec<M, V>& a) {
+  Vec<K, V> out;
 #pragma unroll
   for (int i = 0; i < K; ++i) out[i] = a[LO + i];
   return out;
 }
 
 // Batcher's odd-even merge of sorted a (M) and sorted b (N), any sizes.
-template <int M, int N>
-__host__ __device__ __forceinline__ Vec<M + N> merge(const Vec<M>& a, const Vec<N>& b) {
-  Vec<M + N> out;
+template <int M, int N, typename V>
+__host__ __device__ __forceinline__ Vec<M + N, V> merge(const Vec<M, V>& a, const Vec<N, V>& b) {
+  Vec<M + N, V> out;
   if constexpr (M == 0) {
 #pragma unroll
     for (int i = 0; i < N; ++i) out[i] = b[i];
@@ -116,10 +137,10 @@ __host__ __device__ __forceinline__ Vec<M + N> merge(const Vec<M>& a, const Vec<
     out[0] = min_nan(a[0], b[0]);
     out[1] = max_nan(a[0], b[0]);
   } else {
-    Vec<(M + 1) / 2> a_even;
-    Vec<M / 2> a_odd;
-    Vec<(N + 1) / 2> b_even;
-    Vec<N / 2> b_odd;
+    Vec<(M + 1) / 2, V> a_even;
+    Vec<M / 2, V> a_odd;
+    Vec<(N + 1) / 2, V> b_even;
+    Vec<N / 2, V> b_odd;
 #pragma unroll
     for (int i = 0; i < M; ++i) {
       if (i % 2 == 0) a_even[i / 2] = a[i]; else a_odd[i / 2] = a[i];
@@ -128,11 +149,11 @@ __host__ __device__ __forceinline__ Vec<M + N> merge(const Vec<M>& a, const Vec<
     for (int i = 0; i < N; ++i) {
       if (i % 2 == 0) b_even[i / 2] = b[i]; else b_odd[i / 2] = b[i];
     }
-    const Vec<(M + 1) / 2 + (N + 1) / 2> v = merge(a_even, b_even);
-    const Vec<M / 2 + N / 2> w = merge(a_odd, b_odd);
-    constexpr int V = (M + 1) / 2 + (N + 1) / 2;
-    constexpr int W = M / 2 + N / 2;
-    constexpr int P = W < V - 1 ? W : V - 1;  // compare-exchange w[i] with v[i + 1]
+    const Vec<(M + 1) / 2 + (N + 1) / 2, V> v = merge(a_even, b_even);
+    const Vec<M / 2 + N / 2, V> w = merge(a_odd, b_odd);
+    constexpr int NV = (M + 1) / 2 + (N + 1) / 2;
+    constexpr int NW = M / 2 + N / 2;
+    constexpr int P = NW < NV - 1 ? NW : NV - 1;  // compare-exchange w[i] with v[i + 1]
     out[0] = v[0];
 #pragma unroll
     for (int i = 0; i < P; ++i) {
@@ -140,16 +161,16 @@ __host__ __device__ __forceinline__ Vec<M + N> merge(const Vec<M>& a, const Vec<
       out[2 + 2 * i] = max_nan(w[i], v[i + 1]);
     }
 #pragma unroll
-    for (int i = P; i < W; ++i) out[1 + P + i] = w[i];
+    for (int i = P; i < NW; ++i) out[1 + P + i] = w[i];
 #pragma unroll
-    for (int i = P + 1; i < V; ++i) out[P + i] = v[i];
+    for (int i = P + 1; i < NV; ++i) out[P + i] = v[i];
   }
   return out;
 }
 
 // Batcher's merge sort.
-template <int N>
-__host__ __device__ __forceinline__ Vec<N> sort(const Vec<N>& a) {
+template <int N, typename V>
+__host__ __device__ __forceinline__ Vec<N, V> sort(const Vec<N, V>& a) {
   if constexpr (N <= 1) {
     return a;
   } else {
@@ -160,15 +181,15 @@ __host__ __device__ __forceinline__ Vec<N> sort(const Vec<N>& a) {
 
 // Rank T (0-based) of the union of sorted a (M) and sorted b (N):
 // min over i + j = T + 1 of max(a[i - 1], b[j - 1]), an absent side left out.
-template <int M, int N, int T>
-__host__ __device__ __forceinline__ float select(const Vec<M>& a, const Vec<N>& b) {
-  float r = 0.0f;
+template <int M, int N, int T, typename V>
+__host__ __device__ __forceinline__ V select(const Vec<M, V>& a, const Vec<N, V>& b) {
+  V r = V(0);
   bool first = true;
 #pragma unroll
   for (int i = 0; i <= T + 1; ++i) {
     const int j = T + 1 - i;
     if (i > M || j > N) continue;
-    const float term = i == 0 ? b[j - 1] : (j == 0 ? a[i - 1] : max_nan(a[i - 1], b[j - 1]));
+    const V term = i == 0 ? b[j - 1] : (j == 0 ? a[i - 1] : max_nan(a[i - 1], b[j - 1]));
     r = first ? term : min_nan(r, term);
     first = false;
   }
@@ -184,10 +205,10 @@ constexpr int floor_pow2(int x) {
   return p;
 }
 
-template <int B, int E0, int E1, int NB>
-__host__ __device__ __forceinline__ Vec<(E1 - E0) * B> merge_range(const Vec<B> (&blocks)[NB]) {
+template <int B, int E0, int E1, int NB, typename V>
+__host__ __device__ __forceinline__ Vec<(E1 - E0) * B, V> merge_range(const Vec<B, V> (&blocks)[NB]) {
   if constexpr (E1 - E0 <= 0) {
-    return Vec<0>{};
+    return Vec<0, V>{};
   } else if constexpr (E1 - E0 == 1) {
     return blocks[E0];
   } else {
@@ -212,15 +233,15 @@ constexpr Keep keep(int m, int t, int n) {
 // Outputs LO..HI of one column of a strip: output r takes the sorted row
 // segments r .. r + KH - 1 (each of B values). `core` holds the kept ranks
 // of the segments all of LO..HI share; the windows want rank T of N values.
-template <int KH, int R, int B, int LO, int HI, int M, int T, int N>
-__host__ __device__ __forceinline__ void tree(const Vec<B> (&rows)[R + KH - 1], const Vec<M>& core,
-                                              float (&med)[R]);
+template <int KH, int R, int B, int LO, int HI, int M, int T, int N, typename V>
+__host__ __device__ __forceinline__ void tree(const Vec<B, V> (&rows)[R + KH - 1], const Vec<M, V>& core,
+                                              V (&med)[R]);
 
-template <int KH, int R, int B, int A, int Z, int E0, int E1, int M, int T, int N>
-__host__ __device__ __forceinline__ void child(const Vec<B> (&rows)[R + KH - 1], const Vec<M>& core,
-                                               float (&med)[R]) {
+template <int KH, int R, int B, int A, int Z, int E0, int E1, int M, int T, int N, typename V>
+__host__ __device__ __forceinline__ void child(const Vec<B, V> (&rows)[R + KH - 1], const Vec<M, V>& core,
+                                               V (&med)[R]) {
   constexpr Keep kx = keep((E1 - E0) * B, T, N);
-  const Vec<kx.count> extra = slice<kx.count, kx.lo>(merge_range<B, E0, E1>(rows));
+  const Vec<kx.count, V> extra = slice<kx.count, kx.lo>(merge_range<B, E0, E1>(rows));
   if constexpr (A == Z) {
     static_assert(M + kx.count == kx.n, "a leaf holds its whole window");
     med[A] = select<M, kx.count, kx.t>(core, extra);
@@ -230,9 +251,9 @@ __host__ __device__ __forceinline__ void child(const Vec<B> (&rows)[R + KH - 1],
   }
 }
 
-template <int KH, int R, int B, int LO, int HI, int M, int T, int N>
-__host__ __device__ __forceinline__ void tree(const Vec<B> (&rows)[R + KH - 1], const Vec<M>& core,
-                                              float (&med)[R]) {
+template <int KH, int R, int B, int LO, int HI, int M, int T, int N, typename V>
+__host__ __device__ __forceinline__ void tree(const Vec<B, V> (&rows)[R + KH - 1], const Vec<M, V>& core,
+                                              V (&med)[R]) {
   if constexpr (LO == HI) {
     static_assert(M == N, "a leaf holds its whole window");
     med[LO] = core[T];
@@ -250,15 +271,15 @@ __host__ __device__ __forceinline__ void tree(const Vec<B> (&rows)[R + KH - 1], 
 
 // The medians of an R x 2 strip of outputs from its (R + KH - 1) x (KW + 1)
 // window x: med[c][r] is the median of x[r .. r + KH - 1][c .. c + KW - 1].
-template <int KH, int KW, int R>
-__host__ __device__ __forceinline__ void strip_medians(const float (&x)[R + KH - 1][KW + 1], float (&med)[2][R]) {
-  Vec<KW> rows[2][R + KH - 1];
+template <int KH, int KW, int R, typename V>
+__host__ __device__ __forceinline__ void strip_medians(const V (&x)[R + KH - 1][KW + 1], V (&med)[2][R]) {
+  Vec<KW, V> rows[2][R + KH - 1];
 #pragma unroll
   for (int i = 0; i < R + KH - 1; ++i) {
-    Vec<1> e[KW + 1];
+    Vec<1, V> e[KW + 1];
 #pragma unroll
     for (int j = 0; j < KW + 1; ++j) e[j][0] = x[i][j];
-    const Vec<KW - 1> shared = merge_range<1, 1, KW>(e);
+    const Vec<KW - 1, V> shared = merge_range<1, 1, KW>(e);
     rows[0][i] = merge(shared, e[0]);
     rows[1][i] = merge(shared, e[KW]);
   }
@@ -267,58 +288,118 @@ __host__ __device__ __forceinline__ void strip_medians(const float (&x)[R + KH -
   constexpr Keep k = keep((ROOT_END - (R - 1)) * KW, N / 2, N);
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
-    const Vec<k.count> core = slice<k.count, k.lo>(merge_range<KW, R - 1, ROOT_END>(rows[c]));
+    const Vec<k.count, V> core = slice<k.count, k.lo>(merge_range<KW, R - 1, ROOT_END>(rows[c]));
     tree<KH, R, KW, 0, R - 1, k.count, k.t, k.n>(rows[c], core, med[c]);
   }
 }
 
 // ---- Kernels ---------------------------------------------------------------
 
+}  // namespace
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cstdio>
+
+namespace {
+
 constexpr int kThreads = 128;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory one block may use on Hopper
+
+// The element types, by the code the wrapper passes (kernels/highpass.py:
+// DTYPE_CODES). A tile is loaded in its type T and its network runs on
+// Compute<T>: float for float32, float16 and bfloat16 (the widening is exact
+// and keeps order and NaN), double for float64. The difference is taken in
+// that type and rounded once to T at the store, as the plain version's
+// (x.float() - median.float()).to(T).
+enum Dtype { kFloat32 = 0, kFloat64 = 1, kFloat16 = 2, kBFloat16 = 3 };
+
+template <typename T>
+struct Compute {
+  using type = float;
+};
+template <>
+struct Compute<double> {
+  using type = double;
+};
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void store(double* dst, double x) { *dst = x; }
+__device__ __forceinline__ void store(__half* dst, float x) { *dst = __float2half_rn(x); }
+__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16_rn(x); }
+
+// Strip height of separable_kernel<KH, KW, R> for T: half the float32 one
+// for float64, whose window and network take twice the registers.
+template <typename T>
+constexpr int strip_rows(int r) {
+  return sizeof(T) == 8 ? (r / 2 > 1 ? r / 2 : 1) : r;
+}
 
 // Symmetric reflection into [0, n): -i - 1 below 0, 2n - 1 - i from n on;
 // 0 from 2n on, where only rows that feed unstored outputs land.
 __device__ __forceinline__ int reflect(int i, int n) { return max(min(max(i, ~i), 2 * n - 1 - i), 0); }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src) : "memory");
+// One element into shared memory: cp.async for 4 and 8 bytes, a plain copy
+// for 2 (cp.async copies 4, 8 or 16 bytes).
+template <typename T>
+__device__ __forceinline__ void copy_element(T* dst, const T* src) {
+  if constexpr (sizeof(T) >= 4) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(s), "l"(src), "n"(sizeof(T)) : "memory");
+  } else {
+    *reinterpret_cast<unsigned short*>(dst) = *reinterpret_cast<const unsigned short*>(src);
+  }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
 }
 
-// Floats of one staging buffer for `elems` values: 3 of slack so a group can
-// sit at the same offset modulo 4 floats as in device memory, rounded to 4.
-__host__ __device__ __forceinline__ int buffer_floats(int elems) { return (elems + 3 + 3) & ~3; }
+// Elements of one staging buffer for `elems` values of T, with V = 16 /
+// sizeof(T) elements to a 16-byte line: V - 1 of slack so a group can sit at
+// the same offset modulo 16 bytes as in device memory, rounded up to V.
+template <typename T>
+__host__ __device__ __forceinline__ int buffer_elements(int elems) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  return (elems + 2 * (V - 1)) & ~(V - 1);
+}
 
-// Copy `count` floats from src + start into the buffer at dst_base, shifted by
-// their address's offset modulo 16 bytes; returns that shift in floats.
-__device__ __forceinline__ int stage(float* dst_base, const float* src, long long start, int count) {
-  const float* from = src + start;
-  const int shift = static_cast<int>((reinterpret_cast<unsigned long long>(from) >> 2) & 3);
-  float* dst = dst_base + shift;
-  const int head = min((4 - shift) & 3, count);
-  const int body = (count - head) / 4;
-  for (int e = threadIdx.x; e < head; e += blockDim.x) cp_async4(dst + e, from + e);
-  for (int k = threadIdx.x; k < body; k += blockDim.x) cp_async16(dst + head + 4 * k, from + head + 4 * k);
-  for (int e = head + 4 * body + threadIdx.x; e < count; e += blockDim.x) cp_async4(dst + e, from + e);
+// Copy `count` elements from src + start into the buffer at dst_base, shifted
+// by their address's offset modulo 16 bytes; returns that shift in elements.
+// The 16-byte lines between go by cp.async; the elements before the first
+// and after the last by copy_element.
+template <typename T>
+__device__ __forceinline__ int stage(T* dst_base, const T* src, long long start, int count) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const T* from = src + start;
+  const int shift = static_cast<int>((reinterpret_cast<unsigned long long>(from) / sizeof(T)) & (V - 1));
+  T* dst = dst_base + shift;
+  const int head = min((V - shift) & (V - 1), count);
+  const int body = (count - head) / V;
+  for (int e = threadIdx.x; e < head; e += blockDim.x) copy_element(dst + e, from + e);
+  for (int k = threadIdx.x; k < body; k += blockDim.x) cp_async16(dst + head + V * k, from + head + V * k);
+  for (int e = head + V * body + threadIdx.x; e < count; e += blockDim.x) copy_element(dst + e, from + e);
   return shift;
 }
 
-template <int KH, int KW, int R>
-__global__ void __launch_bounds__(kThreads) separable_kernel(const float* __restrict__ in, float* __restrict__ out,
+template <int KH, int KW, int R, typename T>
+__global__ void __launch_bounds__(kThreads) separable_kernel(const T* __restrict__ in, T* __restrict__ out,
                                                              int n, int h, int w, int per_block, int groups) {
-  extern __shared__ __align__(16) float smem[];
+  using C = typename Compute<T>::type;
+  extern __shared__ __align__(16) unsigned char glimpse_smem[];
+  T* smem = reinterpret_cast<T*>(glimpse_smem);
   const int tile = h * w;
   const int strips = (h + R - 1) / R;
   const int pairs = (w + 1) / 2;
   const int per_tile = strips * pairs;
   const long long total = static_cast<long long>(n) * tile;
-  const int stride = buffer_floats(per_block * tile);
+  const int stride = buffer_elements<T>(per_block * tile);
   auto count_of = [&](int g) {
     const long long start = static_cast<long long>(g) * per_block * tile;
     return static_cast<int>(min(static_cast<long long>(per_block) * tile, total - start));
@@ -338,7 +419,7 @@ __global__ void __launch_bounds__(kThreads) separable_kernel(const float* __rest
     asm volatile("cp.async.wait_group 1;" ::: "memory");
     __syncthreads();
 
-    const float* group = smem + buf * stride + shift[buf];
+    const T* group = smem + buf * stride + shift[buf];
     for (int item = threadIdx.x; item < per_block * per_tile; item += blockDim.x) {
       const int local = item / per_tile;
       const long long t = static_cast<long long>(g) * per_block + local;
@@ -347,27 +428,27 @@ __global__ void __launch_bounds__(kThreads) separable_kernel(const float* __rest
       const int s = rest / pairs;
       const int y0 = s * R;
       const int x0 = 2 * (rest - s * pairs);
-      const float* src = group + local * tile;
+      const T* src = group + local * tile;
       int cols[KW + 1];
 #pragma unroll
       for (int j = 0; j < KW + 1; ++j) cols[j] = reflect(x0 - KW / 2 + j, w);
-      float x[R + KH - 1][KW + 1];
+      C x[R + KH - 1][KW + 1];
 #pragma unroll
       for (int i = 0; i < R + KH - 1; ++i) {
-        const float* row = src + reflect(y0 - KH / 2 + i, h) * w;
+        const T* row = src + reflect(y0 - KH / 2 + i, h) * w;
 #pragma unroll
-        for (int j = 0; j < KW + 1; ++j) x[i][j] = row[cols[j]];
+        for (int j = 0; j < KW + 1; ++j) x[i][j] = widen(row[cols[j]]);
       }
-      float med[2][R];
+      C med[2][R];
       strip_medians<KH, KW, R>(x, med);
-      float* dst = out + t * tile;
+      T* dst = out + t * tile;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int y = y0 + r;
         if (y >= h) break;
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          if (x0 + c < w) dst[y * w + x0 + c] = x[r + KH / 2][c + KW / 2] - med[c][r];
+          if (x0 + c < w) store(dst + y * w + x0 + c, x[r + KH / 2][c + KW / 2] - med[c][r]);
         }
       }
     }
@@ -376,19 +457,27 @@ __global__ void __launch_bounds__(kThreads) separable_kernel(const float* __rest
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-template <int S>
-__global__ void __launch_bounds__(kThreads) generic_kernel(const float* __restrict__ in, float* __restrict__ out,
+// Bytes of generic_kernel's tap offsets (S ints), rounded up to a whole
+// element of T so the padded tile after them is aligned.
+template <typename T>
+__host__ __device__ constexpr int offset_bytes(int s) {
+  return (4 * s + static_cast<int>(sizeof(T)) - 1) / static_cast<int>(sizeof(T)) * static_cast<int>(sizeof(T));
+}
+
+template <int S, typename T>
+__global__ void __launch_bounds__(kThreads) generic_kernel(const T* __restrict__ in, T* __restrict__ out,
                                                            int h, int w, int kh, int kw) {
-  extern __shared__ __align__(16) float smem[];
-  int* offsets = reinterpret_cast<int*>(smem);
-  float* window = smem + S;
+  using C = typename Compute<T>::type;
+  extern __shared__ __align__(16) unsigned char glimpse_smem[];
+  int* offsets = reinterpret_cast<int*>(glimpse_smem);
+  T* window = reinterpret_cast<T*>(glimpse_smem + offset_bytes<T>(S));
   const int ph = kh / 2;
   const int pw = kw / 2;
   const int ih = h + kh - 1;
   const int iw = w + kw - 1;
   const int taps = kh * kw;
   const size_t base = static_cast<size_t>(blockIdx.x) * h * w;
-  const float* tile = in + base;
+  const T* tile = in + base;
   for (int k = threadIdx.x; k < ih * iw; k += blockDim.x) {
     const int r = reflect(k / iw - ph, h);
     const int c = reflect(k % iw - pw, w);
@@ -400,14 +489,14 @@ __global__ void __launch_bounds__(kThreads) generic_kernel(const float* __restri
   for (int p = threadIdx.x; p < h * w; p += blockDim.x) {
     const int y = p / w;
     const int x = p - y * w;
-    const float* corner = window + y * iw + x;
-    Vec<S> v;
+    const T* corner = window + y * iw + x;
+    Vec<S, C> v;
 #pragma unroll
     for (int t = 0; t < S; ++t) {
       // Past the taps: -inf, +inf, -inf, ... (an even count: S and taps are odd).
-      v[t] = t < taps ? corner[offsets[t]] : ((t - taps) % 2 ? INFINITY : -INFINITY);
+      v[t] = t < taps ? widen(corner[offsets[t]]) : ((t - taps) % 2 ? C(INFINITY) : C(-INFINITY));
     }
-    out[base + p] = corner[ph * iw + pw] - sort(v)[S / 2];
+    store(out + base + p, widen(corner[ph * iw + pw]) - sort(v)[S / 2]);
   }
 }
 
@@ -422,19 +511,20 @@ int blocks_per_card(const void* kernel, int threads, int smem) {
   return (per_sm > 0 ? per_sm : 1) * sms;
 }
 
-// The windows separable_kernel is compiled for, each with its strip height R
-// (8 rows where the registers allow, 4 for the larger windows).
+// The windows separable_kernel is compiled for, each with its float32 strip
+// height R (8 rows where the registers allow, 4 for the larger windows;
+// strip_rows halves it for float64).
 #define GLIMPSE_SEPARABLE_WINDOWS(X) X(3, 3, 8) X(5, 5, 8) X(7, 7, 4) X(3, 7, 8) X(9, 5, 4)
 
-template <int KH, int KW, int R>
-cudaError_t launch_separable(const float* in, float* out, int n, int h, int w, cudaStream_t stream) {
+template <int KH, int KW, int R, typename T>
+cudaError_t launch_separable(const T* in, T* out, int n, int h, int w, cudaStream_t stream) {
   const int per_tile = ((h + R - 1) / R) * ((w + 1) / 2);
   int per_block = per_tile >= kThreads ? 1 : kThreads / per_tile;
-  auto smem_of = [&](int g) { return 2 * buffer_floats(g * h * w) * static_cast<int>(sizeof(float)); };
+  auto smem_of = [&](int g) { return 2 * buffer_elements<T>(g * h * w) * static_cast<int>(sizeof(T)); };
   while (per_block > 1 && smem_of(per_block) > kSmemLimit) --per_block;
   const int smem = smem_of(per_block);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  const auto kernel = separable_kernel<KH, KW, R>;
+  const auto kernel = separable_kernel<KH, KW, R, T>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
@@ -446,43 +536,85 @@ cudaError_t launch_separable(const float* in, float* out, int n, int h, int w, c
   return cudaGetLastError();
 }
 
-template <int S>
-cudaError_t launch_generic(const float* in, float* out, int n, int h, int w, int kh, int kw, cudaStream_t stream) {
-  const int smem = (S + (h + kh - 1) * (w + kw - 1)) * static_cast<int>(sizeof(float));
+template <int S, typename T>
+cudaError_t launch_generic(const T* in, T* out, int n, int h, int w, int kh, int kw, cudaStream_t stream) {
+  const int smem = offset_bytes<T>(S) + (h + kh - 1) * (w + kw - 1) * static_cast<int>(sizeof(T));
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(generic_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(generic_kernel<S, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  generic_kernel<S><<<n, kThreads, smem, stream>>>(in, out, h, w, kh, kw);
+  generic_kernel<S, T><<<n, kThreads, smem, stream>>>(in, out, h, w, kh, kw);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* in_ptr, void* out_ptr, int n, int h, int w, int kh, int kw, cudaStream_t s) {
+  const T* in = static_cast<const T*>(in_ptr);
+  T* out = static_cast<T*>(out_ptr);
+#define GLIMPSE_LAUNCH(KH, KW, R)                                                                 \
+  if (kh == KH && kw == KW)                                                                       \
+    return static_cast<int>(launch_separable<KH, KW, strip_rows<T>(R), T>(in, out, n, h, w, s));
+  GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_LAUNCH)
+#undef GLIMPSE_LAUNCH
+  const int taps = kh * kw;
+  if (taps <= 9) return static_cast<int>(launch_generic<9, T>(in, out, n, h, w, kh, kw, s));
+  if (taps <= 25) return static_cast<int>(launch_generic<25, T>(in, out, n, h, w, kh, kw, s));
+  return static_cast<int>(launch_generic<49, T>(in, out, n, h, w, kh, kw, s));
+}
+
+const char* dtype_name(int dtype) {
+  switch (dtype) {
+    case kFloat32: return "float32";
+    case kFloat64: return "float64";
+    case kFloat16: return "float16";
+    case kBFloat16: return "bfloat16";
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// The kernel glimpse_median_highpass runs for a kh x kw window.
-extern "C" const char* glimpse_median_highpass_variant(int kh, int kw) {
-#define GLIMPSE_NAME(KH, KW, R) \
-  if (kh == KH && kw == KW) return "separable<" #KH "," #KW "," #R ">";
+// The kernel glimpse_median_highpass_typed runs for a kh x kw window and an
+// element type, as "separable<KH,KW,R>[type]" or "generic<S>[type]".
+extern "C" const char* glimpse_median_highpass_variant_typed(int kh, int kw, int dtype) {
+  static thread_local char name[64];
+  const char* type = dtype_name(dtype);
+  if (type == nullptr) return "unsupported";
+  const bool wide = dtype == kFloat64;
+#define GLIMPSE_NAME(KH, KW, R)                                                                    \
+  if (kh == KH && kw == KW) {                                                                      \
+    snprintf(name, sizeof(name), "separable<%d,%d,%d>[%s]", KH, KW,                                \
+             wide ? strip_rows<double>(R) : R, type);                                              \
+    return name;                                                                                   \
+  }
   GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_NAME)
 #undef GLIMPSE_NAME
   const int taps = kh * kw;
-  return taps <= 9 ? "generic<9>" : (taps <= 25 ? "generic<25>" : "generic<49>");
+  snprintf(name, sizeof(name), "generic<%d>[%s]", taps <= 9 ? 9 : (taps <= 25 ? 25 : 49), type);
+  return name;
 }
 
-extern "C" int glimpse_median_highpass(const float* in, float* out, int n, int h, int w, int kh, int kw,
-                                       void* stream) {
+// The high-pass of a stack of tiles of any of the four element types.
+extern "C" int glimpse_median_highpass_typed(const void* in, void* out, int n, int h, int w, int kh, int kw,
+                                             int dtype, void* stream) {
   if (n == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GLIMPSE_LAUNCH(KH, KW, R) \
-  if (kh == KH && kw == KW) return static_cast<int>(launch_separable<KH, KW, R>(in, out, n, h, w, s));
-  GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_LAUNCH)
-#undef GLIMPSE_LAUNCH
-  const int taps = kh * kw;
-  if (taps <= 9) return static_cast<int>(launch_generic<9>(in, out, n, h, w, kh, kw, s));
-  if (taps <= 25) return static_cast<int>(launch_generic<25>(in, out, n, h, w, kh, kw, s));
-  return static_cast<int>(launch_generic<49>(in, out, n, h, w, kh, kw, s));
+  switch (dtype) {
+    case kFloat32: return launch<float>(in, out, n, h, w, kh, kw, s);
+    case kFloat64: return launch<double>(in, out, n, h, w, kh, kw, s);
+    case kFloat16: return launch<__half>(in, out, n, h, w, kh, kw, s);
+    case kBFloat16: return launch<__nv_bfloat16>(in, out, n, h, w, kh, kw, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The float32 entry, with the signature every earlier build exported
+// (kernels/bench_highpass.py times sources through it).
+extern "C" int glimpse_median_highpass(const float* in, float* out, int n, int h, int w, int kh, int kw,
+                                       void* stream) {
+  return glimpse_median_highpass_typed(in, out, n, h, w, kh, kw, kFloat32, stream);
 }
 
 extern "C" const char* glimpse_error_string(int code) {

@@ -7,8 +7,11 @@ tensor launches the kernel, or raises. The kernel's domain is odd taps, at
 most 49: :func:`covers` says whether a window lies inside it, and
 :func:`highpass` asks it before any launch and sends the other windows to the
 plain version, which takes every size. Inside the domain a tile must fit one
-block's shared memory (about 170 x 170 pixels for the separable windows,
-240 x 240 for the others); a larger one raises and is never rerouted.
+block's shared memory (in float32 about 170 x 170 pixels for the separable
+windows, 240 x 240 for the others; in 16 bits about 240 x 240 and 340 x 340,
+in float64 120 x 120 and 170 x 170); a larger one raises and is never
+rerouted. Tiles are float32, float64, float16 or bfloat16, and the output has
+the input's type.
 """
 import ctypes
 import functools
@@ -25,34 +28,41 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 # csrc/highpass.cu); the other windows run the generic kernel with their taps
 # padded to 9, 25 or 49.
 SEPARABLE = frozenset({(3, 3), (5, 5), (7, 7), (3, 7), (9, 5)})
+#: The element types the kernel takes, by the code csrc/highpass.cu's Dtype
+#: gives each.
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
 
 
 @functools.cache
 def _entry():
     lib = _build.load("highpass")
-    fn = lib.glimpse_median_highpass
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = lib.glimpse_median_highpass_typed
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.glimpse_median_highpass_variant.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.glimpse_median_highpass_variant.restype = ctypes.c_char_p
+    lib.glimpse_median_highpass_variant_typed.argtypes = [ctypes.c_int] * 3
+    lib.glimpse_median_highpass_variant_typed.restype = ctypes.c_char_p
     return lib, fn
 
 
-def kernel_variant(size: Tuple[int, int]) -> str:
-    """The name of the compiled kernel a CUDA call with this window runs
-    (builds the library on first use)."""
+def kernel_variant(size: Tuple[int, int], dtype: torch.dtype = torch.float32) -> str:
+    """The name of the compiled kernel a CUDA call with this window and
+    element type runs, as ``separable<KH,KW,R>[type]`` or
+    ``generic<S>[type]`` (builds the library on first use)."""
     lib, _ = _entry()
-    return lib.glimpse_median_highpass_variant(*size).decode()
+    return lib.glimpse_median_highpass_variant_typed(*size, DTYPE_CODES[dtype]).decode()
 
 
-def _shared_bytes(h: int, w: int, kh: int, kw: int) -> int:
-    """Shared memory the kernel needs for one tile: two cp.async staging
-    buffers for a separable window, the padded tile and its tap offsets for
-    the generic kernel."""
+def _shared_bytes(h: int, w: int, kh: int, kw: int, itemsize: int = 4) -> int:
+    """Shared memory the kernel needs for one tile of ``itemsize``-byte
+    elements: two cp.async staging buffers for a separable window, each
+    with a 16-byte line of slack; the padded tile and its tap offsets (int32,
+    rounded up to a whole element) for the generic kernel."""
     if (kh, kw) in SEPARABLE:
-        return 2 * ((h * w + 6) & ~3) * 4
+        line = 16 // itemsize
+        return 2 * ((h * w + 2 * (line - 1)) & ~(line - 1)) * itemsize
     padded_taps = next(s for s in (9, 25, MAX_TAPS) if kh * kw <= s)
-    return 4 * (padded_taps + (h + kh - 1) * (w + kw - 1))
+    offsets = -(-4 * padded_taps // itemsize) * itemsize
+    return offsets + itemsize * (h + kh - 1) * (w + kw - 1)
 
 
 def covers(size: Tuple[int, int]) -> bool:
@@ -77,25 +87,30 @@ def highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torch.Tenso
 
 
 def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torch.Tensor:
-    """``tile - median_{kh x kw}(tile)`` over a stack (N, h, w) of float32 tiles.
+    """``tile - median_{kh x kw}(tile)`` over a stack (N, h, w) of tiles of
+    float32, float64, float16 or bfloat16, in the input's type.
 
     Symmetric padding that repeats the edge pixel; odd ``kh`` and ``kw`` with
     at most 49 taps. Bit-equal on both devices for every input: a window that
     holds a NaN gives NaN, as ``torch.median`` does; ties and +-inf select
-    the same value.
+    the same value. A 16-bit tile's difference is taken in float32 and
+    rounded once to its type, as the plain version's is.
     """
     kh, kw = size
     if not covers(size):
         raise ValueError(f"median_highpass takes odd taps, at most {MAX_TAPS}, got {size}")
-    if tiles.ndim != 3 or tiles.dtype != torch.float32:
-        raise ValueError(f"median_highpass takes (N, h, w) float32, got {tuple(tiles.shape)} {tiles.dtype}")
+    if tiles.ndim != 3 or tiles.dtype not in DTYPE_CODES:
+        raise ValueError(
+            f"median_highpass takes (N, h, w) float32, float64, float16 or bfloat16,"
+            f" got {tuple(tiles.shape)} {tiles.dtype}"
+        )
     if not tiles.is_contiguous():
         raise ValueError("median_highpass takes a contiguous tensor")
     N, h, w = tiles.shape
     if h < kh // 2 + 1 or w < kw // 2 + 1:
         raise ValueError(f"tiles {h}x{w} are too small for {kh}x{kw} taps")
-    if _shared_bytes(h, w, kh, kw) > _SMEM_LIMIT:
-        raise ValueError(f"a {h}x{w} tile does not fit one block's shared memory")
+    if _shared_bytes(h, w, kh, kw, tiles.element_size()) > _SMEM_LIMIT:
+        raise ValueError(f"a {h}x{w} {tiles.dtype} tile does not fit one block's shared memory")
     if tiles.device.type == "cpu":
         return median_highpass_plain(tiles, size)
     if tiles.device.type != "cuda":
@@ -104,7 +119,7 @@ def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torc
     out = torch.empty_like(tiles)
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(tiles.data_ptr(), out.data_ptr(), N, h, w, kh, kw, stream)
+        code = fn(tiles.data_ptr(), out.data_ptr(), N, h, w, kh, kw, DTYPE_CODES[tiles.dtype], stream)
     _build.check(lib, code, "median_highpass")
     median_highpass.launches += 1
     return out

@@ -3,7 +3,9 @@
 Replaces the TPU kernel ``glimpse_tpu/kernels/resample_pallas.py``
 (``systematic_resample_gather``, all four of its layouts). The wrapper
 picks by device alone: a CPU tensor runs :func:`systematic_resample_plain`;
-a CUDA tensor launches the kernel, or raises.
+a CUDA tensor launches the kernel, or raises. The thresholds are float32;
+particles and weights share one type of float32, float64, float16 or
+bfloat16 and are copied bit for bit.
 """
 import ctypes
 import functools
@@ -14,13 +16,15 @@ from ..ops import resampling
 from . import _build
 
 MAX_PARTICLES = 232448 // 4  # one float32 threshold row per block's shared memory
+#: The payload types the kernel copies.
+PAYLOAD_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
 
 
 @functools.cache
 def _entry():
     lib = _build.load("resample")
     fn = lib.glimpse_systematic_resample
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -35,7 +39,8 @@ def systematic_resample_plain(t, particles, weights):
 def systematic_resample(t: torch.Tensor, particles: torch.Tensor, weights: torch.Tensor):
     """Resample particles (N, P, 6) and weights (N, P) by a threshold table t (N, P).
 
-    ``t`` comes from :func:`glimpse_tpu_torch.ops.resampling.systematic_thresholds`.
+    ``t`` is float32; particles and weights are of one type in
+    ``PAYLOAD_DTYPES``, and come back in it. ``t`` comes from :func:`glimpse_tpu_torch.ops.resampling.systematic_thresholds`.
     Slot j of point n copies source row ``min(#{i : t[n, i] < j}, P - 1)``:
     exact row copies, left tie rule. Returns (particles, weights).
     """
@@ -45,8 +50,13 @@ def systematic_resample(t: torch.Tensor, particles: torch.Tensor, weights: torch
             f" (N, P), got {tuple(t.shape)}, {tuple(particles.shape)}, {tuple(weights.shape)}"
         )
     tensors = (t, particles, weights)
-    if any(x.dtype != torch.float32 for x in tensors):
-        raise ValueError("systematic_resample takes float32 tensors")
+    if t.dtype != torch.float32:
+        raise ValueError(f"systematic_resample takes float32 thresholds, got {t.dtype}")
+    if particles.dtype not in PAYLOAD_DTYPES or weights.dtype != particles.dtype:
+        raise ValueError(
+            f"systematic_resample takes particles and weights of one type of {PAYLOAD_DTYPES},"
+            f" got {particles.dtype} and {weights.dtype}"
+        )
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("systematic_resample takes contiguous tensors")
     if len({x.device for x in tensors}) != 1:
@@ -67,7 +77,7 @@ def systematic_resample(t: torch.Tensor, particles: torch.Tensor, weights: torch
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(
             t.data_ptr(), particles.data_ptr(), weights.data_ptr(),
-            out_particles.data_ptr(), out_weights.data_ptr(), N, P, stream,
+            out_particles.data_ptr(), out_weights.data_ptr(), N, P, particles.element_size(), stream,
         )
     _build.check(lib, code, "systematic_resample")
     systematic_resample.launches += 1

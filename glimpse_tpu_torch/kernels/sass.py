@@ -8,8 +8,9 @@ disassembled with ``cuobjdump -sass``. For every kernel in it the script
 prints one line: its static instruction count, its min/max instructions
 (``FMNMX``), ptxas's registers and spills, both counts divided by the output
 pixels one pass of its loop computes (2 R for ``separable_kernel<KH, KW,
-R>``, 1 for a kernel that computes one pixel a pass), and its twelve most
-frequent opcodes. Static counts of straight-line network code are what one
+R, type>``, 1 for a kernel that computes one pixel a pass), and its twelve
+most frequent opcodes. The float64 kernels compare and select (``DSETP``,
+``FSEL``) where the others run ``FMNMX``. Static counts of straight-line network code are what one
 pass executes; the staging loops are counted once.
 """
 import collections
@@ -23,9 +24,15 @@ from pathlib import Path
 from . import _build
 
 # Per-pass outputs from a kernel's mangled name: separable_kernel<KH, KW, R>
-# computes an R x 2 strip; every other kernel one pixel.
-_SEPARABLE = re.compile(r"separable_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
-_TEMPLATE = re.compile(r"(generic_kernel|median_highpass_kernel)ILi(\d+)E")
+# computes an R x 2 strip; every other kernel one pixel. A template on the
+# element type (since the 16- and 64-bit kernels) carries it after the sizes.
+_SEPARABLE = re.compile(r"separable_kernelILi(\d+)ELi(\d+)ELi(\d+)E(f|d|6__half|13__nv_bfloat16)?")
+_TEMPLATE = re.compile(r"(generic_kernel|median_highpass_kernel)ILi(\d+)E(f|d|6__half|13__nv_bfloat16)?")
+_TYPES = {"f": "float32", "d": "float64", "6__half": "float16", "13__nv_bfloat16": "bfloat16"}
+
+
+def _typed(sizes: str, code) -> str:
+    return f"{sizes},{_TYPES[code]}" if code else sizes
 
 
 def _tool(name: str) -> str:
@@ -38,11 +45,11 @@ def _tool(name: str) -> str:
 def _describe(mangled: str):
     m = _SEPARABLE.search(mangled)
     if m:
-        kh, kw, r = map(int, m.groups())
-        return f"separable_kernel<{kh},{kw},{r}>", 2 * r
+        kh, kw, r = map(int, m.groups()[:3])
+        return f"separable_kernel<{_typed(f'{kh},{kw},{r}', m.group(4))}>", 2 * r
     m = _TEMPLATE.search(mangled)
     if m:
-        return f"{m.group(1)}<{m.group(2)}>", 1
+        return f"{m.group(1)}<{_typed(m.group(2), m.group(3))}>", 1
     return mangled, 1
 
 

@@ -1,8 +1,10 @@
 """Tile processing on tensors: grayscale, normalization, histogram matching
 and the median high-pass.
 
-The counterpart of :mod:`glimpse_tpu.ops.imageproc`. Every function works in
-the dtype and on the device of the tensor it is given. :func:`highpass` here
+The counterpart of :mod:`glimpse_tpu.ops.imageproc`. Every function works on
+the device of the tensor it is given and returns its dtype (float32,
+float64, float16 or bfloat16). Quantiles are counts over n, which 16 bits
+cannot hold: as the reference's, they are float32 for a 16-bit tensor. :func:`highpass` here
 is also the plain version of the median high-pass kernel
 (:mod:`glimpse_tpu_torch.kernels.highpass`), and takes every window size,
 also those outside the kernel's domain.
@@ -29,15 +31,21 @@ def normalize(tile, dim=None, eps: float = 0.0):
     return centered / (std + eps)
 
 
+def _quantile_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type of a quantile of a ``dtype`` tensor: float32 or wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def sorted_cdf(a):
     """CDF of a tensor as (sorted values, P(x <= value)).
 
     Ties all receive the quantile of their last occurrence, so interpolating
-    against the result reproduces the CDF of the unique values.
+    against the result reproduces the CDF of the unique values. The values
+    keep ``a``'s dtype; the quantiles are float32 for a 16-bit ``a``.
     """
     flat = a.reshape(-1)
     values = torch.sort(flat).values
-    quantiles = torch.searchsorted(values, values, right=True).to(a.dtype) / flat.shape[0]
+    quantiles = torch.searchsorted(values, values, right=True).to(_quantile_dtype(a.dtype)) / flat.shape[0]
     return values, quantiles
 
 
@@ -62,13 +70,16 @@ def match_cdf(a, cdf):
     """Transform ``a`` so its CDF matches ``cdf`` (values, quantiles).
 
     Each element's own quantile is looked up by binary search in the
-    tensor's sort, then inverse-interpolated through the target CDF.
+    tensor's sort, then inverse-interpolated through the target CDF. A
+    16-bit ``a`` is interpolated in float32, as the reference's promotes,
+    and the result rounded once to ``a``'s dtype.
     """
     values, quantiles = cdf
     flat = a.reshape(-1)
     own_sorted = torch.sort(flat).values
-    own_q = torch.searchsorted(own_sorted, flat, right=True).to(a.dtype) / flat.shape[0]
-    return interp(own_q, quantiles.to(a.dtype), values.to(a.dtype)).reshape(a.shape)
+    wide = _quantile_dtype(a.dtype)
+    own_q = torch.searchsorted(own_sorted, flat, right=True).to(wide) / flat.shape[0]
+    return interp(own_q, quantiles.to(wide), values.to(wide)).reshape(a.shape).to(a.dtype)
 
 
 def _symmetric_index(n: int, before: int, after: int, device) -> torch.Tensor:
@@ -118,8 +129,13 @@ def median_network(values):
 
 
 def highpass(tile, size: Tuple[int, int] = (5, 5)):
-    """Median high-pass: tile minus its median-filtered low-pass."""
-    return tile - median_filter(tile, size=size)
+    """Median high-pass: tile minus its median-filtered low-pass, in the
+    tile's dtype. A float16 or bfloat16 difference is taken in float32 and
+    rounded once, which is also what torch's own 16-bit subtraction does."""
+    low = median_filter(tile, size=size)
+    if tile.dtype in (torch.float16, torch.bfloat16):
+        return (tile.float() - low.float()).to(tile.dtype)
+    return tile - low
 
 
 def prepare_tile(tile, cdf=None, highpass_size: Tuple[int, int] = (5, 5), highpass=highpass):

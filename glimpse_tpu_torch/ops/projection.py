@@ -376,8 +376,13 @@ def project_planes(
 
     The same math as :func:`project` on separate (...,)-shaped planes, with
     the rotation written as multiply-adds (as the reference's plane form is,
-    so the two agree to rounding).
+    so the two agree to rounding). The planes are first widened to the type
+    they and ``vector`` promote to: float16 or bfloat16 particles meet a
+    float32 camera as JAX arrays do, in float32, where torch would keep the
+    16-bit type against the camera's 0-d entries.
     """
+    dtype = torch.promote_types(torch.promote_types(x.dtype, y.dtype), torch.promote_types(z.dtype, vector.dtype))
+    x, y, z = (t.to(dtype) for t in (x, y, z))
     R = rotation_matrix(vector[..., VIEWDIR])
     cam = vector[..., XYZ]
     dx = x - cam[..., 0]

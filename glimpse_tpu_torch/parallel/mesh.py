@@ -59,11 +59,14 @@ def get_mesh(n_devices: Optional[int] = None, axis: str = None, devices: Sequenc
         n_devices: Number of devices (default: all of ``devices``).
         axis: Mesh axis name (default: ``config.points_axis``).
         devices: The mesh's devices, in order, repeats allowed (default:
-            every CUDA device, or the CPU where there is none).
+            every CUDA device). A host with no card raises unless it is
+            named: ``devices=["cpu"]``.
     """
     if devices is None:
         count = torch.cuda.device_count()
-        devices = [f"cuda:{i}" for i in range(count)] if count else ["cpu"]
+        if not count:
+            raise RuntimeError('get_mesh found no CUDA device; to run on the CPU, pass devices=["cpu"]')
+        devices = [f"cuda:{i}" for i in range(count)]
     devices = [torch.device(d) for d in devices]
     if n_devices is not None:
         devices = devices[:n_devices]
@@ -205,7 +208,8 @@ def local_points_slice(n_points: int, mesh: Mesh = None) -> slice:
 def gather_points(local: torch.Tensor, n_points: int, axis: int = 0) -> torch.Tensor:
     """Every process's :func:`local_points_slice` of a result, stitched in
     point order on every process: one ``all_gather`` over the group, on host
-    copies (``gloo``). ``local`` holds this process's slice along ``axis``;
+    copies (``gloo``, which takes every float dtype of the tracker, bfloat16
+    included). ``local`` holds this process's slice along ``axis``;
     the result, on ``local``'s device, holds all ``n_points``. Without a
     group it returns ``local``.
     """

@@ -45,16 +45,31 @@ from ..ops import imageproc, ncc, projection, resampling, sampling
 MOTION_KINDS = ("cartesian", "cylindrical", "tangent", "tangent_cylindrical")
 RESAMPLE_METHODS = ("systematic",) + tuple(resampling.METHODS)
 SSE_SAMPLE_MODES = ("einsum", "nearest", "bilinear")
+DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 
 
-def _as_tensor(x, device) -> torch.Tensor:
-    """A float32 tensor on ``device``; arrays are copied (JAX hands over
-    read-only ones)."""
+def _as_tensor(x, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A tensor of ``dtype`` on ``device``; arrays are copied (JAX hands over
+    read-only ones). Camera, motion and DEM parameters take the default,
+    float32, as the reference keeps them; state, frames, time steps and
+    masks take the configuration's dtype. A host array crosses as float32
+    (float64 for a float64 tensor) and is cast on the device, so nothing is
+    rounded on the host; a bfloat16 array of the reference (``ml_dtypes``)
+    widens exactly."""
     if x is None:
         raise TypeError("expected an array, got None")
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+        return x.to(device=device, dtype=dtype)
+    host = np.float64 if dtype == torch.float64 else np.float32
+    return torch.as_tensor(np.array(x, dtype=host), device=device).to(dtype)
+
+
+def _widened(xy, scalar: torch.Tensor):
+    """``xy`` in the type it and the 0-d ``scalar`` promote to under the
+    reference's rules: a bfloat16 or float16 tensor meeting a float32
+    scalar becomes float32, as a JAX array does, where torch would keep the
+    16-bit type for a 0-d operand."""
+    return xy.to(torch.promote_types(xy.dtype, scalar.dtype))
 
 
 def _host_flags(mask) -> Tuple[bool, ...]:
@@ -78,7 +93,9 @@ class DeviceRaster:
     dy: torch.Tensor  # signed cell size in y
 
     def sample(self, xy):
-        """Bilinear sample at world points (..., 2)."""
+        """Bilinear sample at world points (..., 2), in the type ``xy`` and
+        the grid's float32 scalars promote to."""
+        xy = _widened(xy, self.x0)
         cols = (xy[..., 0] - self.x0) / self.dx - 0.5
         rows = (xy[..., 1] - self.y0) / self.dy - 0.5
         if self.array.shape == (1, 1):
@@ -87,6 +104,7 @@ class DeviceRaster:
 
     def sample_nearest(self, xy):
         """Nearest-cell sample at world points (..., 2); outside cells clamp to the edge."""
+        xy = _widened(xy, self.x0)
         H, W = self.array.shape
         cols = torch.floor((xy[..., 0] - self.x0) / self.dx).long().clamp(0, W - 1)
         rows = torch.floor((xy[..., 1] - self.y0) / self.dy).long().clamp(0, H - 1)
@@ -297,11 +315,19 @@ class BatchMotion:
 
     def evolve(self, generator, particles, dt, noise=None):
         """One motion step (N, P, 6) -> (N, P, 6); ``noise`` may inject "a"
-        (N, P, 3) and, for the tangent kinds, "zwalk" (N, P)."""
+        (N, P, 3) and, for the tangent kinds, "zwalk" (N, P).
+
+        The draws are float32, injected or not, and so are the parameters:
+        float16 or bfloat16 particles come back float32, as the reference's
+        do, and the tracker casts them to its dtype; float64 particles come
+        back float64."""
         noise = noise or {}
         N, P = particles.shape[:2]
         a_noise = _normal(noise, "a", (N, P, 3), generator, particles.device)
         a = self.a_mean[:, None, :] + self.a_sigma[:, None, :] * a_noise
+        # As a JAX array meeting the float64 time step would: torch keeps a
+        # tensor's type against a 0-d one.
+        a = a.to(torch.promote_types(a.dtype, particles.dtype))
         if self.polar:
             # Radial and tangential acceleration about the current heading.
             vx, vy = particles[..., 3], particles[..., 4]
@@ -348,8 +374,30 @@ class BatchConfig:
     ``resample_threshold`` None resamples every step and overwrites the
     weights with the step's likelihood; a fraction accumulates weights and
     resamples only the points whose effective sample size falls below
-    ``resample_threshold * n_particles``. ``dtype`` takes only float32, the
-    kernels' type.
+    ``resample_threshold * n_particles``.
+
+    ``dtype`` is the type of the state, the frames and the outputs:
+    ``torch.float32`` (the default), ``torch.bfloat16``, ``torch.float16`` or
+    ``torch.float64``; both kernels take each. Camera, motion and DEM
+    parameters stay float32 and the systematic resampler's threshold table
+    is float32 in every dtype, as the reference's Pallas route builds it.
+    The projection, the motion step and the spline read of the SSE surface
+    widen to float32 where the reference's arrays promote, so a 16-bit
+    tracker rounds its tiles, SSE maps, particles and weights, not its
+    pixel coordinates. A 16-bit matmul on the card (the spline prefilter
+    and upsample) accumulates in float32, as cuBLAS does by default and as
+    the reference's XLA keeps float32 inside its fusions.
+
+    What the port measured (one NVIDIA H100 80GB HBM3, 700.00 W,
+    ``chip_smoke.py`` phase 23, ``PERF.md``): at 10,240 x 2,048,
+    121,815 point-steps/s in float32, 124,079 in bfloat16, 124,293 in
+    float16 and 88,029 in float64; after 10 steps the median point is 1.581
+    px from the float32 run in bfloat16, 0.094 in float16, 0.017 in
+    float64. bfloat16 holds a coordinate near 300 px to 2 px, so motion
+    under that a step is lost: the Columbia recipe (0.06 px a frame) ends
+    at 4.5458 px RMSE against float32's 0.1066. The reference's own note,
+    measured on a TPU, is about 7x worse accuracy in bfloat16 with no speed
+    gain there (``glimpse_tpu/track/batch.py:393-395``).
 
     ``sse_sample_mode`` chooses how the cubic spline of the SSE surface is
     read at the particles (``interpolation_order`` 3): ``'einsum'``, the
@@ -376,10 +424,8 @@ class BatchConfig:
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self) -> None:
-        if self.dtype != torch.float32:
-            raise NotImplementedError(
-                f"dtype={self.dtype!r} is not ported yet; only torch.float32 (see ROADMAP.md)"
-            )
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {DTYPES}, got {self.dtype!r}")
         if self.sse_sample_mode not in SSE_SAMPLE_MODES:
             raise ValueError(
                 f"sse_sample_mode must be 'einsum', 'nearest', or 'bilinear', got {self.sse_sample_mode!r}"
@@ -437,16 +483,20 @@ def _extract_tiles(image, corners, size: Tuple[int, int]):
 
 
 @functools.lru_cache(maxsize=8)
-def _quantile_taps(n: int, K: int, device):
-    """Two-tap linear interpolation of a K-entry quantile table at quantiles
-    (j + 1) / n: source index i0 (n,) and the float32 weights of i0 and
-    i0 + 1, computed in float64 as the reference builds its interpolation
-    matrix. Cached on the device, so steps copy nothing from the host."""
+def _quantile_taps(n: int, K: int, device, dtype):
+    """Two-tap linear interpolation of a K-entry quantile table of ``dtype``
+    at quantiles (j + 1) / n: source index i0 (n,) and the weights of i0 and
+    i0 + 1, computed in float64 and rounded to float32 as the reference
+    builds its interpolation matrix, then to ``dtype`` as it casts the
+    matrix to the table's type, and held in the type the sum accumulates in
+    (float32, float64 for a float64 table). Cached on the device, so steps
+    copy nothing from the host."""
     pos = np.clip((np.arange(n) + 1.0) / n * K - 0.5, 0.0, K - 1.0)
     i0 = np.minimum(np.floor(pos).astype(np.int64), K - 2)
     fr = pos - i0
-    return tuple(
-        torch.as_tensor(x).to(device) for x in (i0, (1.0 - fr).astype(np.float32), fr.astype(np.float32))
+    accumulate = torch.promote_types(dtype, torch.float32)
+    return (torch.as_tensor(i0).to(device),) + tuple(
+        torch.as_tensor(w.astype(np.float32)).to(device, dtype).to(accumulate) for w in (1.0 - fr, fr)
     )
 
 
@@ -459,10 +509,10 @@ def _template_quantile_index(n: int, K: int, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def _inverse_two_sigma_squared(sigmas: Tuple[float, ...], device) -> torch.Tensor:
-    """(O,) float32 1 / (2 sigma^2), each computed in float64 and rounded
-    once, as the reference does; cached on the device."""
-    return torch.tensor([1.0 / (2.0 * s ** 2) for s in sigmas], dtype=torch.float32).to(device)
+def _inverse_two_sigma_squared(sigmas: Tuple[float, ...], device, dtype) -> torch.Tensor:
+    """(O,) 1 / (2 sigma^2) of ``dtype``, each computed in float64 and
+    rounded once, as the reference does; cached on the device."""
+    return torch.tensor([1.0 / (2.0 * s ** 2) for s in sigmas], dtype=torch.float64).to(device, dtype)
 
 
 def _prepare_search_tiles(tiles, table, highpass_size):
@@ -470,15 +520,17 @@ def _prepare_search_tiles(tiles, table, highpass_size):
     then median high-pass. Tiles (N, h, w).
 
     The value at sort position j becomes the table interpolated at quantile
-    (j + 1) / n; a stable sort keeps ties in pixel order.
+    (j + 1) / n; a stable sort keeps ties in pixel order. The two taps of a
+    16-bit table are summed in float32 and rounded once, as the reference's
+    matmul by its interpolation matrix accumulates.
     """
     N, h, w = tiles.shape
     n = h * w
     K = table.shape[-1]
     t = imageproc.normalize(tiles, dim=(-2, -1), eps=1e-12)
     order = torch.sort(t.reshape(N, n), dim=-1, stable=True).indices
-    i0, w0, w1 = _quantile_taps(n, K, table.device)
-    matched_sorted = table[:, i0] * w0 + table[:, i0 + 1] * w1
+    i0, w0, w1 = _quantile_taps(n, K, table.device, table.dtype)
+    matched_sorted = (table[:, i0].to(w0.dtype) * w0 + table[:, i0 + 1].to(w0.dtype) * w1).to(table.dtype)
     matched = torch.empty_like(matched_sorted).scatter_(1, order, matched_sorted)
     return routed_highpass(matched.reshape(N, h, w), highpass_size)
 
@@ -597,7 +649,7 @@ def observer_log_likelihoods_multi(images, camera_vectors, corrections, sigmas, 
     rows_c = torch.clamp(rows, 0.0, oh - 1.0)
     oob_d2 = (cols - cols_c) ** 2 + (rows - rows_c) ** 2
     sampled = _sample_sse_surface(sse, rows_c, cols_c, cfg)
-    inv_2s2 = _inverse_two_sigma_squared(tuple(float(s) for s in sigmas), particles.device)
+    inv_2s2 = _inverse_two_sigma_squared(tuple(float(s) for s in sigmas), particles.device, cfg.dtype)
     ll = sampled.reshape(O, N, P) * inv_2s2[:, None, None] + oob_d2.reshape(O, N, P)
     if obs_mask is not None:
         ll = ll * obs_mask[:, None, None]
@@ -636,9 +688,15 @@ def to_tracks(datetimes, time_unit, outputs, covariances: bool = False):
     from .tracks import Tracks
 
     def padded(key):
-        """(N, T, ...) float64 from time-major (T-1, N, ...), row 0 NaN."""
+        """(N, T, ...) float64 from time-major (T-1, N, ...), row 0 NaN. A
+        16-bit tensor is widened exactly to float32 on its way to NumPy,
+        which has no bfloat16."""
         x = outputs[key]
-        x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            x = (x.float() if x.dtype in (torch.float16, torch.bfloat16) else x).numpy()
+        else:
+            x = np.asarray(x)
         x = np.moveaxis(x, 0, 1)
         return np.concatenate([np.full_like(x[:, :1], np.nan, dtype=float), x], axis=1)
 
@@ -760,6 +818,8 @@ class BatchTracker:
         tiles = _extract_tiles(image, corners, (th, tw))
         hp, table = _prepare_template_tiles(tiles, cfg.highpass_size, cfg.n_quantiles)
         offset = torch.tensor([tw * 0.5, th * 0.5], dtype=cfg.dtype, device=image.device)
+        # uv is float32 (the cameras' type) or wider, so the offsets are too,
+        # as the reference's promote; the corner is rounded to the dtype first.
         duv = uv - (corners.flip(-1).to(cfg.dtype) + offset)
         return hp, table, duv
 
@@ -767,6 +827,10 @@ class BatchTracker:
                    obs_mask0=None) -> BatchState:
         """Particles, uniform weights and templates from the first frame (O, H, W).
 
+        The particles are drawn in float32, as the reference's, and their
+        validity and mean are taken there; the state holds them in the
+        configuration's dtype, and the frame is cast to it. The template
+        offsets are in the type the cameras and that dtype promote to.
         ``camera_vectors`` (O, 20) overrides the constructor's cameras for
         this frame. ``obs_mask0`` (O,) marks the observers with an image
         here; the others start late, with zero templates, tables and
@@ -776,7 +840,7 @@ class BatchTracker:
         th, tw = cfg.template_size
         cams = self._cameras(camera_vectors)
         if isinstance(images0, torch.Tensor):
-            images0 = images0.to(self.device)
+            images0 = images0.to(self.device, cfg.dtype)
         present = (True,) * self.n_observers if obs_mask0 is None else _host_flags(obs_mask0)
         particles = self.motion.initialize(generator, cfg.n_particles, noise=noise)
         N = particles.shape[0]
@@ -793,7 +857,7 @@ class BatchTracker:
             tables.append(table)
             duvs.append(duv)
         return BatchState(
-            particles=particles,
+            particles=particles.to(cfg.dtype),
             weights=torch.ones((N, cfg.n_particles), dtype=cfg.dtype, device=self.device),
             generator=generator,
             templates=torch.stack(templates),
@@ -821,18 +885,22 @@ class BatchTracker:
                 frame, at the weighted mean of the evolved particles, before
                 they weigh this step.
 
-        Returns (new state, {"mean", "sigma", "valid"} and, with
-        ``return_covariances``, "covariance").
+        Images and ``dt`` tensors are cast to the configuration's dtype; the
+        injected draws stay float32. Returns (new state, {"mean", "sigma",
+        "valid"} and, with ``return_covariances``, "covariance"), in the
+        configuration's dtype.
         """
         cfg = self.config
         noise = noise or {}
         generator = state.generator
         cams = self._cameras(camera_vectors)
         if isinstance(images, torch.Tensor):
-            images = images.to(self.device)
+            images = images.to(self.device, cfg.dtype)
         if isinstance(dt, torch.Tensor):
-            dt = dt.to(self.device)
-        particles = self.motion.evolve(generator, state.particles, dt, noise=noise)
+            dt = dt.to(self.device, cfg.dtype)
+        # The motion's parameters and draws are float32: cast back to the
+        # state's dtype, as the reference does.
+        particles = self.motion.evolve(generator, state.particles, dt, noise=noise).to(cfg.dtype)
         valid = state.valid * _particle_validity(particles, self.viewshed).to(cfg.dtype)
         templates, template_table, template_duv = state.templates, state.template_table, state.template_duv
         if init_template_for:
@@ -846,17 +914,20 @@ class BatchTracker:
                     images[o], cams[o], self.corrections[o], xyz_mean
                 )
         if obs_mask is not None:
-            obs_mask = _as_tensor(obs_mask, self.device)
-        ll = self.motion.log_likelihoods(particles) + observer_log_likelihoods_multi(
+            obs_mask = _as_tensor(obs_mask, self.device, cfg.dtype)
+        ll = self.motion.log_likelihoods(particles).to(cfg.dtype) + observer_log_likelihoods_multi(
             images, cams, self.corrections, self.sigmas, particles, templates, template_table,
             template_duv, state.weights, cfg, obs_mask=obs_mask,
         )
         # A per-point shift keeps exp() in range whatever the absolute scale.
         ll = ll - torch.min(ll, dim=-1, keepdim=True).values
+        # ll is float32 or wider (the spline read widens); the weights take
+        # the state's dtype. In float16 the 1e-30 floor underflows to 0, as
+        # the reference's does.
         if cfg.resample_threshold is None:
-            weights = torch.exp(-ll) + 1e-30
+            weights = (torch.exp(-ll) + 1e-30).to(cfg.dtype)
         else:
-            weights = state.weights * torch.exp(-ll) + 1e-30
+            weights = state.weights * torch.exp(-ll).to(cfg.dtype) + 1e-30
             weights = weights / torch.mean(weights, dim=-1, keepdim=True)
         if obs_mask is not None and not self.motion.informative:
             # No observer and no motion prior informed this step: carry the
@@ -966,9 +1037,10 @@ class BatchTracker:
         "covariance" (T-1, N, 6, 6).
         """
         mask0, plan = self._template_plan(obs_masks, obs_mask0)
-        images = _as_tensor(images, self.device)
-        dts = _as_tensor(dts, self.device)
-        masks = None if obs_masks is None else _as_tensor(obs_masks, self.device)
+        dtype = self.config.dtype
+        images = _as_tensor(images, self.device, dtype)
+        dts = _as_tensor(dts, self.device, dtype)
+        masks = None if obs_masks is None else _as_tensor(obs_masks, self.device, dtype)
         noise = noise or {}
         step_noise = {
             k: _as_tensor(noise[k], self.device) for k in ("a", "zwalk", "resample_u") if k in noise
@@ -987,11 +1059,15 @@ class BatchTracker:
 
     def _upload(self, frames) -> torch.Tensor:
         """Host frames, stacked, in one copy to the device (pinned and
-        asynchronous on a card)."""
-        host = torch.from_numpy(np.stack([np.asarray(f, dtype=np.float32) for f in frames]))
+        asynchronous on a card), cast there to the configuration's dtype:
+        they cross as float32 (float64 for a float64 tracker), so nothing is
+        rounded on the host."""
+        dtype = self.config.dtype
+        host_type = np.float64 if dtype == torch.float64 else np.float32
+        host = torch.from_numpy(np.stack([np.asarray(f, dtype=host_type) for f in frames]))
         if self.device.type == "cuda":
             host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
+        return host.to(self.device, non_blocking=True).to(dtype)
 
     def track_stream(self, generator: torch.Generator, first_frame, frame_iter, dts,
                      camera_vectors_seq=None, obs_masks=None, obs_mask0=None,
@@ -1012,10 +1088,11 @@ class BatchTracker:
         step by step, each entry with a leading axis of 1.
         """
         mask0, plan = self._template_plan(obs_masks, obs_mask0)
-        dts = _as_tensor(dts, self.device)
+        dtype = self.config.dtype
+        dts = _as_tensor(dts, self.device, dtype)
         n_steps = dts.shape[0]
         cams = None if camera_vectors_seq is None else _as_tensor(camera_vectors_seq, self.device)
-        masks = None if obs_masks is None else _as_tensor(obs_masks, self.device)
+        masks = None if obs_masks is None else _as_tensor(obs_masks, self.device, dtype)
         state = self.initialize(
             generator, self._upload([first_frame])[0],
             camera_vectors=None if cams is None else cams[0], obs_mask0=mask0,

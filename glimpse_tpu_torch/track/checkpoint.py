@@ -13,6 +13,11 @@ slice: each slice's rows, its generator's state and its device, under
 default the saved ones, or ``device=`` a mesh (or sequence) of as many
 devices of the same types.
 
+Every array keeps its dtype. NumPy has no bfloat16, so a 16-bit array
+(bfloat16 or float16) is saved as its raw ``uint16`` bits beside a tag
+``<name>_dtype`` and restored bit for bit. Version 1 snapshots, float32
+throughout and without tags, still load.
+
 The formats are the port's own: ``format`` names each and
 ``format_version`` counts its changes. A snapshot of the reference package
 (``glimpse_tpu.track.checkpoint``) holds a PRNG key and is refused.
@@ -27,15 +32,39 @@ from .batch import BatchState
 
 FORMAT = "glimpse_tpu_torch.BatchState"
 MESH_FORMAT = "glimpse_tpu_torch.MeshState"
-#: Bump whenever a BatchState field is added or changes meaning.
-FORMAT_VERSION = 1
+#: Bump whenever a BatchState field is added or changes meaning. Version 2
+#: tags 16-bit arrays; :func:`load_state` reads every version listed in
+#: ``READS``.
+FORMAT_VERSION = 2
+READS = (1, 2)
 
 _ARRAYS = ("particles", "weights", "templates", "template_table", "template_duv", "valid")
+_SIXTEEN_BITS = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _array(tensor: torch.Tensor, name: str) -> dict:
+    """Snapshot entries of one tensor: the array itself, or for a 16-bit one
+    its ``uint16`` bits and a ``<name>_dtype`` tag."""
+    tensor = tensor.detach().cpu()
+    tag = str(tensor.dtype).removeprefix("torch.")
+    if tag in _SIXTEEN_BITS:
+        return {name: tensor.view(torch.uint16).numpy(), f"{name}_dtype": np.asarray(tag)}
+    return {name: tensor.numpy()}
+
+
+def _tensor(data, name: str) -> torch.Tensor:
+    """The tensor :func:`_array` saved under ``name``, bit for bit."""
+    array = torch.from_numpy(data[name].copy())
+    if f"{name}_dtype" in data:
+        return array.view(_SIXTEEN_BITS[str(data[f"{name}_dtype"])])
+    return array
 
 
 def _fields(state: BatchState, prefix: str = "") -> dict:
     """A state's arrays, step and generator as snapshot entries."""
-    arrays = {prefix + k: getattr(state, k).cpu().numpy() for k in _ARRAYS}
+    arrays = {}
+    for k in _ARRAYS:
+        arrays.update(_array(getattr(state, k), prefix + k))
     arrays[prefix + "generator_state"] = state.generator.get_state().numpy()
     arrays[prefix + "generator_device"] = np.asarray(str(state.generator.device))
     return arrays
@@ -70,7 +99,7 @@ def _load(data, prefix: str, step: int, device) -> BatchState:
     generator.set_state(torch.from_numpy(data[prefix + "generator_state"].copy()))
     return BatchState(
         generator=generator, step=step,
-        **{k: torch.from_numpy(data[prefix + k].copy()).to(device) for k in _ARRAYS},
+        **{k: _tensor(data, prefix + k).to(device) for k in _ARRAYS},
     )
 
 
@@ -95,8 +124,8 @@ def load_state(path: Union[str, Path], device=None):
         if kind not in (FORMAT, MESH_FORMAT):
             raise ValueError(f"{path} is not a {FORMAT} or {MESH_FORMAT} snapshot")
         version = int(data["format_version"])
-        if version != FORMAT_VERSION:
-            raise ValueError(f"{path} has format_version={version}; this package reads {FORMAT_VERSION}")
+        if version not in READS:
+            raise ValueError(f"{path} has format_version={version}; this package reads {READS}")
         step = int(data["step"])
         try:
             if kind == FORMAT:

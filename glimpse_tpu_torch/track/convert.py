@@ -99,27 +99,49 @@ def motion_from_numpy(leaves: Mapping, device) -> BatchMotion:
     )
 
 
+#: Tensor dtypes of the NumPy dtypes a reference state arrives in, by name
+#: (``bfloat16`` is ``ml_dtypes``', which NumPy itself does not have).
+STATE_DTYPES = {
+    "float32": torch.float32, "float64": torch.float64, "float16": torch.float16, "bfloat16": torch.bfloat16,
+}
+
+
+def tensor_from_numpy(array, device) -> torch.Tensor:
+    """An array of the reference's state as a tensor of the same dtype on
+    ``device``, exactly: float16, float32 and float64 as they are, a
+    bfloat16 array (``ml_dtypes``) through its ``uint16`` bits."""
+    array = np.asarray(array)
+    dtype = STATE_DTYPES.get(array.dtype.name)
+    if dtype is None:
+        raise ValueError(f"a state array of {array.dtype} has no tensor dtype here")
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(array.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(array.copy()).to(device)
+
+
 def state_from_numpy(particles, weights, templates, template_table, template_duv, step,
                      valid, device, seed: int = 0) -> BatchState:
     """A :class:`BatchState` from the reference state's arrays.
 
-    ``valid`` None (a state from before the reference carried validity)
-    means every point valid, as the reference's step reads it. The
+    Each array keeps its dtype (see :func:`tensor_from_numpy`): a state the
+    reference carried in bfloat16, float16 or float64 arrives in it, bit for
+    bit. ``valid`` None (a state from before the reference carried
+    validity) means every point valid, as the reference's step reads it. The
     reference's PRNG key does not carry over: draws after this state come
     from a new ``torch.Generator`` seeded with ``seed``, unless injected.
     """
     device = torch.device(device)
-    particles = _tensor(particles, device)
+    particles = tensor_from_numpy(particles, device)
     return BatchState(
         particles=particles,
-        weights=_tensor(weights, device),
+        weights=tensor_from_numpy(weights, device),
         generator=torch.Generator(device=device).manual_seed(seed),
-        templates=_tensor(templates, device),
-        template_table=_tensor(template_table, device),
-        template_duv=_tensor(template_duv, device),
+        templates=tensor_from_numpy(templates, device),
+        template_table=tensor_from_numpy(template_table, device),
+        template_duv=tensor_from_numpy(template_duv, device),
         step=int(step),
         valid=(
-            torch.ones(particles.shape[0], dtype=torch.float32, device=device)
-            if valid is None else _tensor(valid, device)
+            torch.ones(particles.shape[0], dtype=particles.dtype, device=device)
+            if valid is None else tensor_from_numpy(valid, device)
         ),
     )

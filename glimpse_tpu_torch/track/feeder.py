@@ -68,8 +68,9 @@ def stream_track(tracker, generator, observers: Sequence[Sequence], dts, prefetc
     """Track a sequence with decode-ahead feeding.
 
     ``observers`` are per-observer image lists (objects with ``.read()`` or
-    raw arrays); frame 0 initializes templates. Returns (state, outputs) like
-    :meth:`BatchTracker.track_stream`.
+    raw arrays); frame 0 initializes templates. Frames are decoded to
+    float32 and the tracker casts them to its configuration's dtype on its
+    device. Returns (state, outputs) like :meth:`BatchTracker.track_stream`.
     """
     feeder = FrameFeeder(observers, prefetch=prefetch)
     frames = iter(feeder)

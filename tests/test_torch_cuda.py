@@ -403,3 +403,44 @@ def test_systematic_thresholds_do_not_depend_on_the_batch(cuda, n, p) -> None:
     whole = systematic_thresholds(weights, u)
     for m in (n // 2, n // 4):
         assert torch.equal(whole[:m], systematic_thresholds(weights[:m].contiguous(), u[:m].contiguous()))
+
+
+WIDE_AND_NARROW = ["bfloat16", "float16", "float64"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WIDE_AND_NARROW)
+@pytest.mark.parametrize(
+    "label, shape, size, specials, misaligned", highpass_check_cases(),
+    ids=[f"{c[0]}-{'x'.join(map(str, c[1]))}-{c[2][0]}x{c[2][1]}" for c in highpass_check_cases()],
+)
+def test_highpass_kernel_in_16_and_64_bits(cuda, label, shape, size, specials, misaligned, name) -> None:
+    """Phase 3's held cases in bfloat16, float16 and float64 (a misaligned
+    stack starts one element past a 16-byte line): the kernel launches,
+    returns the tile's dtype and equals the plain version, NaN included."""
+    dtype = getattr(torch, name)
+    tiles = highpass_case_tiles(shape, specials, misaligned, cuda, dtype=dtype)
+    before = median_highpass.launches
+    got = median_highpass(tiles, size)
+    assert median_highpass.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got, median_highpass_plain(tiles, size), rtol=0, atol=0, equal_nan=True,
+                               msg=lambda m: f"{kernel_variant(size, dtype)}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WIDE_AND_NARROW)
+@pytest.mark.parametrize("n, p", [(37, 1024), (3, 20000)])
+def test_resample_kernel_in_16_and_64_bits(cuda, n, p, name) -> None:
+    """16- and 64-bit payloads over float32 thresholds: exact row copies,
+    equal to the plain version."""
+    dtype = getattr(torch, name)
+    rng = np.random.default_rng(2)
+    weights = torch.from_numpy(np.exp(3 * rng.normal(size=(n, p)))).to(cuda, dtype)
+    u = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+    particles = torch.from_numpy(rng.normal(size=(n, p, 6))).to(cuda, dtype)
+    t = systematic_thresholds(weights, u)
+    before = systematic_resample.launches
+    got = systematic_resample(t, particles, weights)
+    assert systematic_resample.launches == before + 1 and got[0].dtype == got[1].dtype == dtype
+    want = systematic_resample_plain(t, particles, weights)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -108,7 +108,8 @@ def test_resample_left_tie_rule() -> None:
         lambda: median_highpass(torch.zeros(2, 9, 9), (4, 5)),
         lambda: median_highpass(torch.zeros(2, 9, 9), (9, 9)),
         lambda: median_highpass(torch.zeros(2, 9, 9).transpose(1, 2), (5, 5)),
-        lambda: median_highpass(torch.zeros(2, 9, 9, dtype=torch.float64), (5, 5)),
+        lambda: median_highpass(torch.zeros(2, 125, 125, dtype=torch.float64), (5, 5)),
+        lambda: median_highpass(torch.zeros(2, 9, 9, dtype=torch.int32), (5, 5)),
         lambda: median_highpass(torch.zeros(2, 2, 9), (5, 5)),
         lambda: systematic_resample(
             torch.zeros(1, MAX_PARTICLES + 1), torch.zeros(1, MAX_PARTICLES + 1, 6),
@@ -126,12 +127,15 @@ def test_resample_left_tie_rule() -> None:
         ),
     ],
     ids=[
-        "even-taps", "too-many-taps", "noncontiguous-tiles", "float64-tiles",
+        "even-taps", "too-many-taps", "noncontiguous-tiles", "float64-tiles", "int32-tiles",
         "tile-too-small", "oversize-P", "noncontiguous-t", "noncontiguous-particles",
         "highpass-meta-device", "resample-meta-device",
     ],
 )
 def test_wrappers_refuse(call) -> None:
+    """Each wrapper raises ValueError on what its kernel does not take; the
+    float64 case is a 125 x 125 tile, which float32 fits in one block's
+    shared memory and float64 does not."""
     with pytest.raises(ValueError):
         call()
 

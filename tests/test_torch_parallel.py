@@ -49,6 +49,15 @@ def test_get_mesh_and_shardings() -> None:
         parallel.get_mesh(devices=[])
 
 
+def test_get_mesh_without_a_card_raises(monkeypatch) -> None:
+    """With no CUDA device and no ``devices``, get_mesh raises and names the
+    CPU mesh to ask for; it does not carry on on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match=r'devices=\["cpu"\]'):
+        parallel.get_mesh()
+    assert parallel.get_mesh(devices=["cpu"]).devices == (torch.device("cpu"),)
+
+
 def test_shard_batch_splits_points_and_replicates_the_rest() -> None:
     mesh = parallel.get_mesh(devices=["cpu"] * 3)
     rng = np.random.default_rng(0)
@@ -293,9 +302,11 @@ def test_the_two_cuts_of_the_points_axis() -> None:
 # ---- The two-process run: one process a slice, over gloo ---- #
 
 
-def port_track_slice(frames, starts, n_particles, noise, points: slice, imgsz) -> np.ndarray:
+def port_track_slice(frames, starts, n_particles, noise, points: slice, imgsz,
+                     dtype=torch.float32) -> np.ndarray:
     """``tests/multihost_worker.track_slice`` through the port on the CPU:
-    means (T-1, n_local, 6) of points[points] from injected draws."""
+    means (T-1, n_local, 6) of points[points] from injected draws, tracked
+    in ``dtype`` and widened exactly to float32 (at least)."""
     from glimpse_tpu_torch import Camera
 
     cam = Camera(imgsz=imgsz, f=imgsz, xyz=(imgsz / 2, imgsz / 2, imgsz), viewdir=(0, -90, 0))
@@ -310,7 +321,7 @@ def port_track_slice(frames, starts, n_particles, noise, points: slice, imgsz) -
         "v_sigma": v_sigma, "a_mean": np.zeros((n, 3)), "a_sigma": a_sigma, "slope_sigma": np.zeros(n),
         "dem": dem, "dem_sigma": dem, "use_dem_sigma": False,
     }, "cpu")
-    config = batch.BatchConfig(n_particles=n_particles, template_size=(11, 11), search_size=(25, 25))
+    config = batch.BatchConfig(n_particles=n_particles, template_size=(11, 11), search_size=(25, 25), dtype=dtype)
     tracker = batch.BatchTracker(cam.to_array()[None], [None], [0.3], motion, config, device="cpu")
     _, out = tracker.track(
         torch.Generator().manual_seed(0), frames[:, None], np.ones(len(frames) - 1, np.float32),
@@ -321,7 +332,8 @@ def port_track_slice(frames, starts, n_particles, noise, points: slice, imgsz) -
             "resample_u": noise["resample_u"][:, points].astype(np.float32),
         },
     )
-    return out["mean"].numpy()
+    mean = out["mean"]
+    return (mean.float() if mean.element_size() == 2 else mean).numpy()
 
 
 N_MULTI, T_MULTI = 8, 6
@@ -354,10 +366,11 @@ def carried_steps(frames, starts, n_particles, noise, imgsz) -> np.ndarray:
     return np.stack(means)
 
 
-def worker(rank: int, world: int, port: int, outdir: str) -> None:
+def worker(rank: int, world: int, port: int, outdir: str, dtype_name: str = "float32") -> None:
     """One process of the two-process run: join the group over gloo, track
-    this process's ``local_points_slice``, stitch every process's means with
-    ``gather_points`` and sum them with one ``all_reduce``."""
+    this process's ``local_points_slice`` in ``dtype_name``, stitch every
+    process's means with ``gather_points`` (in that dtype) and sum them
+    with one ``all_reduce``."""
     import torch.distributed as dist
 
     import multihost_worker
@@ -366,11 +379,14 @@ def worker(rank: int, world: int, port: int, outdir: str) -> None:
     assert dist.get_backend() == "gloo"
     imgsz, _, frames, starts, n_particles, noise = multihost_worker.tracking_problem(N_MULTI, T_MULTI)
     points = parallel.local_points_slice(N_MULTI)
-    means = torch.from_numpy(port_track_slice(frames, starts, n_particles, noise, points, imgsz))
+    dtype = getattr(torch, dtype_name)
+    # The widened means narrow back exactly to the tracked dtype.
+    means = torch.from_numpy(port_track_slice(frames, starts, n_particles, noise, points, imgsz, dtype)).to(dtype)
     stitched = parallel.gather_points(means, N_MULTI, axis=1)
+    assert stitched.dtype == dtype
     total = means.double().sum(dim=(0, 1))
     dist.all_reduce(total)
-    np.save(f"{outdir}/stitched_{rank}.npy", stitched.numpy())
+    np.save(f"{outdir}/stitched_{rank}.npy", stitched.float().numpy())
     np.save(f"{outdir}/total_{rank}.npy", total.numpy())
     np.save(f"{outdir}/slice_{rank}.npy", np.array([points.start, points.stop]))
     dist.destroy_process_group()
@@ -432,5 +448,43 @@ def test_two_processes_over_gloo_equal_one_process(tmp_path) -> None:
     np.testing.assert_allclose(totals[0], whole.astype(np.float64).sum(axis=(0, 1)), rtol=1e-9)
 
 
+def test_two_processes_over_gloo_in_bfloat16(tmp_path) -> None:
+    """The two-process run with the tracker in bfloat16: gloo's
+    ``all_gather`` takes bfloat16 tensors as they are, and the means every
+    process stitches equal the single-process bfloat16 run bit for bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import multihost_worker as mw
+
+    tests = Path(__file__).parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join([str(tests.parent), str(tests)]))
+    procs = [
+        subprocess.Popen([sys.executable, __file__, "worker", str(rank), "2", str(port), str(tmp_path), "bfloat16"],
+                         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for rank in range(2)
+    ]
+    try:
+        results = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, results):
+        assert p.returncode == 0, err.decode()[-3000:]
+    imgsz, _, frames, starts, n_particles, noise = mw.tracking_problem(N_MULTI, T_MULTI)
+    whole = port_track_slice(frames, starts, n_particles, noise, slice(0, N_MULTI), imgsz, torch.bfloat16)
+    assert np.isfinite(whole).all()
+    for rank in range(2):
+        np.testing.assert_array_equal(np.load(tmp_path / f"stitched_{rank}.npy"), whole)
+    totals = [np.load(tmp_path / f"total_{rank}.npy") for rank in range(2)]
+    np.testing.assert_array_equal(totals[0], totals[1])
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["worker"]:
-    worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], *sys.argv[6:7])

@@ -141,11 +141,13 @@ def test_motion_with_dem_sigma_matches_reference() -> None:
 
 
 def test_config_refuses_unported_settings() -> None:
-    """What is still refused: any dtype but float32 (bfloat16 is a later
-    item). Values the reference refuses raise ValueError here too, and every
-    value it takes constructs."""
-    for dtype in (torch.bfloat16, torch.float16, torch.float64):
-        with pytest.raises(NotImplementedError):
+    """The four float dtypes the reference runs construct; a dtype that is
+    not a float is refused with ValueError. Values the reference refuses
+    raise ValueError here too, and every value it takes constructs."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.float64):
+        assert batch.BatchConfig(dtype=dtype).dtype == dtype
+    for dtype in (torch.int32, torch.complex64):
+        with pytest.raises(ValueError):
             batch.BatchConfig(dtype=dtype)
     for settings in [dict(resample_method="multinomial"), dict(interpolation_order=2)]:
         with pytest.raises(ValueError):
