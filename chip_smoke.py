@@ -11,7 +11,8 @@ each:
    build raises; the line says which feeder path runs), and count the 5x5
    high-pass kernel's SASS instructions per output pixel;
 3. the median high-pass kernel against its plain version on the card,
-   bit for bit, and both times, at the main path's shapes; then, held with
+   bit for bit, and both times, at the main path's shapes (phase 24's
+   (10,240, 31, 31) search tiles among them); then, held with
    rtol = atol = 0 and NaN where the plain version has NaN, tiles of tied
    values with NaN and +-inf pixels, for every compiled separable window and
    four that run the generic kernel, at 31x31 and at the smallest tiles each
@@ -19,9 +20,14 @@ each:
    host tracker's tiles ((1, 15, 15) templates and non-square (1, h, w)
    search tiles) bit for bit and timed; an even and an over-49-tap
    window, which ``kernels.highpass.highpass`` sends to the plain version;
-   and a 300 x 300 tile with 5 x 5 taps, which must raise and not reroute;
+   and tiles that one block's shared memory cannot hold ((1, 300, 300) and
+   (1, 1,024, 1,024) 5x5, (4, 400, 173) 3x7, (2, 260, 260) 3x5, a (3, 300,
+   300) stack one element past a 16-byte line), which the kernel reads from
+   device memory, held the same way with NaN, ties and +-inf and timed
+   beside the plain version and the byte bound;
 4. the systematic resample kernel against its plain version, bit for bit,
-   and both times;
+   and both times, at the main paths' shapes (phase 24's 10,240 x 512 among
+   them);
 5. the tracker at ``bench.py``'s size (1,024 points x 1,024 particles x 50
    steps, 512x512 frames): a warm-up pass, then the best of two timed
    passes, in each of which both kernels must launch; the means must be
@@ -93,7 +99,13 @@ each:
     (h, w) the tracker gave it; no track may end with an error; every step from the batched tracker's
     carried state: card against CPU within 1e-3, the host tracker's
     projected mean within 0.1 px of the batched tracker's; the free runs
-    are reported beside that;
+    are reported beside that; then 4 points whose first particles spread
+    (30, 45) m, so that search tiles outgrow 170 x 170, through
+    ``Tracker(cuda)`` and ``Tracker(cpu)`` from the same draws: every track
+    finishes, and each step from the CPU's carried particles the card's
+    projected mean is within 0.1 px of the CPU's; the kernel is held to its
+    plain version, NaN included, on a tile of every shape that run gave
+    it, and timed on the largest;
 17. calibration: ``benchmarks/ba_autodiff.py``'s three problems at their own
     sizes (4 cameras x 2,000 points; 6 cameras x 4,000 matches with three
     radial coefficients; 3 cameras of 1,200 horizon points against up to
@@ -112,7 +124,8 @@ each:
     Every view direction within 0.01 deg; a second pass on fresh objects
     detects nothing and gives identical matches; no break in the match
     chain; frame 0's projection bit-equal card against CPU; the stages'
-    seconds by ``profiling.Timer``;
+    seconds by ``profiling.Timer``. The JPEG files are decoded once into a
+    host array, and the fitted cameras kept, for phase 24;
 19. camera model conversion: each of ``tests/assets``' four calibration
     files (MATLAB, OpenCV, Agisoft, PhotoModeler) to a ``Camera``, then to
     each other format and back by ``convert.Converter`` fits: the default
@@ -149,14 +162,27 @@ each:
     their plain versions and their byte bounds, then phase 3's held cases
     (ties, NaN, +-inf, every window, the smallest tiles, a stack one element
     past a 16-byte line) and the resample at N = 37 with thresholds tied to
-    slots; (b) phase 6's tracker in float32, bfloat16, float16 and float64
-    from the same generator draws: point-steps/s, peak memory, launches of
-    each kernel a step, the median and worst point's distance from the
-    float32 run; (c) phase 8's Columbia recipe in bfloat16 beside its
+    slots, and phase 3's large tiles held and timed; (b) phase 6's tracker
+    in float32, bfloat16, float16 and float64 from the same generator
+    draws: point-steps/s, peak memory, launches of each kernel a step, the
+    median and worst point's distance from the float32 run; (c) phase 8's Columbia recipe in bfloat16 beside its
     float32 run: final RMSE against the truth; (d) bfloat16 on the card
     against the CPU at 16 x 256 x 5, each step from a shared state, held by
     the CPU tests' rule (|card - CPU| <= max |CPU bfloat16 - CPU float32| +
-    one bfloat16 ulp).
+    one bfloat16 ulp);
+24. stabilize, then track: ``benchmarks/columbia_pipeline.py``'s tracking
+    stage, not cut, on phase 18's 1,000 decoded JPEG frames: 10,240 points x
+    512 particles (cartesian motion, xy_sigma 1, v_sigma (0.5, 0.5, 0),
+    a_sigma (0.05, 0.05, 0), a constant DEM at 0, 15x15 templates, 31x31
+    search boxes, sigma 0.3, starts drawn as the reference draws them)
+    through ``track_stream`` with phase 8's chunk, three times from one
+    generator seed: with the cameras ``ObserverCameras.set_cameras`` gave
+    phase 18's images as a (1,000, 1, 20) ``camera_vectors_seq``, with none
+    (the nominal camera) and with the true cameras. Each final mean finite,
+    both kernels launched in the stabilized run, its RMSE against the truth
+    below the unstabilized one; the three RMSEs (beside the JAX package's
+    22.78 on its own run), point-steps/s and peak memory of the stabilized
+    run, each run's launches.
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
@@ -276,6 +302,55 @@ def highpass_mismatch(got, want) -> float:
     return float(torch.where(same, 0.0, (got - want).abs().nan_to_num(float("inf"))).max())
 
 
+# Tiles that one block's shared memory cannot hold in float32, which the
+# kernel reads from device memory (phase 3, and phase 23 (a) in the other
+# dtypes): (shape, window, misaligned). The host Tracker's search tiles grow
+# past 170 x 170 when its particle cloud spans that much of the image.
+HIGHPASS_LARGE_TILES = (
+    ((1, 300, 300), (5, 5), False), ((1, 1024, 1024), (5, 5), False), ((4, 400, 173), (3, 7), False),
+    ((2, 260, 260), (3, 5), False), ((3, 300, 300), (5, 5), True),
+)
+
+
+def large_tiles(device, dtype, hbm_bytes_per_s: float):
+    """HIGHPASS_LARGE_TILES in ``dtype``: each held to the plain version with
+    rtol = atol = 0 and NaN where it has NaN (ties, NaN at a corner, an edge
+    and inside, +-inf), then both timed on those tiles (CUDA events, the
+    mean of 20 after 3 warm-ups) beside the byte bound, each input and
+    output element once. Returns ([{shape, size, dtype, variant, ms,
+    plain_ms, bound_ms}], the largest mismatch)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels.highpass import kernel_variant, median_highpass, median_highpass_plain
+
+    records, err = [], 0.0
+    for shape, size, misaligned in HIGHPASS_LARGE_TILES:
+        tiles = highpass_case_tiles(shape, True, misaligned, device, seed=sum(shape), dtype=dtype)
+        got, want = median_highpass(tiles, size), median_highpass_plain(tiles, size)
+        variant = kernel_variant(size, dtype, shape)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"median_highpass ({variant}) on a large tile {shape} {size}: {m}")
+        if not torch.isnan(want).any():
+            raise AssertionError(f"the large tile {shape} holds no NaN")
+        err = max(err, highpass_mismatch(got, want))
+        records.append({
+            "shape": list(shape), "size": list(size), "dtype": str(dtype).removeprefix("torch."),
+            "misaligned": misaligned, "variant": variant,
+            "ms": _cuda_ms(lambda: median_highpass(tiles, size)),
+            "plain_ms": _cuda_ms(lambda: median_highpass_plain(tiles, size)),
+            "bound_ms": 2 * tiles.numel() * tiles.element_size() / hbm_bytes_per_s * 1e3,
+        })
+    return records, err
+
+
+def describe_large_tiles(records) -> str:
+    return "; ".join(
+        f"{'x'.join(map(str, r['shape']))}{' misaligned' if r['misaligned'] else ''} {r['size'][0]}x{r['size'][1]}"
+        f" {r['variant']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f})"
+        for r in records
+    )
+
+
 def make_scene(n_frames: int, img: int = 512, seed: int = 0):
     """bench.py's scene: a smooth random texture shifted (1, 2) px (rows,
     cols) per frame, seen by a nadir camera at 1 px per world unit."""
@@ -357,16 +432,17 @@ def columbia_masks(n_steps: int, first: int, every: int):
 
 
 def columbia_tracker(cams, viewshed, points_xy, n_particles, device, **settings):
-    """columbia_scale.py's tracker: cartesian motion on a flat DEM, 15x15
-    templates, 31x31 search boxes, sigma 0.3 px per observer, the viewshed
-    test on."""
+    """columbia_scale.py's tracker, which is columbia_pipeline.py's: cartesian
+    motion on a flat DEM (xy_sigma 1, v_sigma (0.5, 0.5, 0), a_sigma (0.05,
+    0.05, 0)), 15x15 templates, 31x31 search boxes, sigma 0.3 px per
+    observer, the viewshed test on unless ``viewshed`` is None."""
     from glimpse_tpu_torch.track import batch, convert
 
     motion = cartesian_motion(points_xy, 1.0, (0.5, 0.5, 0.0), (0.05, 0.05, 0.0), device)
     config = batch.BatchConfig(n_particles=n_particles, template_size=(15, 15), search_size=(31, 31), **settings)
     return batch.BatchTracker(
         cams, [None] * len(cams), [0.3] * len(cams), motion, config, device=device,
-        viewshed=convert.raster_from_numpy(viewshed, device),
+        viewshed=None if viewshed is None else convert.raster_from_numpy(viewshed, device),
     )
 
 
@@ -452,32 +528,35 @@ STAB_JITTER = (0.1, 0.1, 0.03)  # per-frame view direction wobble, deg
 STAB_OFFSETS = (1, 8, 64)
 
 
-def stabilization_scene(n_frames: int, device, seed: int = 0):
+def stabilization_scene(n_frames: int, device, seed: int = 0, imgsz: int = STAB_IMG, cam_xyz=STAB_CAM_XYZ,
+                        viewdir=STAB_VIEWDIR, jitter_seed: int = 42):
     """benchmarks/columbia_pipeline.py's scene, rendered on ``device``: a
     textured plane (terrain) with a glacier band at world y 180-360 moving
     (0.06, 0.04) per frame, seen from (256, -200, 400) looking down 35 deg
     through a 512x512 camera with f = 512, whose view direction wobbles from
-    frame 1 on. Returns (frames (n, 512, 512) uint8 numpy, the true view
-    directions (n, 3), the nominal camera vector (20,), the terrain mask
-    (512, 512) uint8: 255 off the band, eroded 6 px)."""
+    frame 1 on (draws from ``jitter_seed``). ``imgsz`` (f the same),
+    ``cam_xyz`` and ``viewdir`` set another camera over the same world.
+    Returns (frames (n, imgsz, imgsz) uint8 numpy, the true view directions
+    (n, 3), the nominal camera vector (20,), the terrain mask (imgsz, imgsz)
+    uint8: 255 off the band, eroded 6 px)."""
     import scipy.ndimage
     import torch
 
     from glimpse_tpu_torch.ops import projection, sampling
 
-    img, pad = STAB_IMG, 128
+    img, pad = STAB_IMG, 128  # the world: textures over [-pad, img + pad]
     rng = np.random.default_rng(seed)
     textures = [
         torch.from_numpy(scipy.ndimage.gaussian_filter(rng.normal(size=(img + 2 * pad,) * 2), sigma) * 55 + 128).to(device)
         for sigma in (1.2, 0.8)  # terrain, glacier
     ]
-    truth = np.tile(STAB_VIEWDIR, (n_frames, 1))
-    truth[1:] += np.random.default_rng(42).normal(0, STAB_JITTER, size=(n_frames - 1, 3))
+    truth = np.tile(viewdir, (n_frames, 1)).astype(float)
+    truth[1:] += np.random.default_rng(jitter_seed).normal(0, STAB_JITTER, size=(n_frames - 1, 3))
     base = np.zeros(20)
-    base[0:3], base[3:6], base[6:8], base[8:10] = STAB_CAM_XYZ, STAB_VIEWDIR, img, img
-    u, v = np.meshgrid(np.arange(img) + 0.5, np.arange(img) + 0.5)
+    base[0:3], base[3:6], base[6:8], base[8:10] = cam_xyz, viewdir, imgsz, imgsz
+    u, v = np.meshgrid(np.arange(imgsz) + 0.5, np.arange(imgsz) + 0.5)
     uv = torch.from_numpy(np.column_stack([u.ravel(), v.ravel()])).to(device)
-    cam = torch.tensor(STAB_CAM_XYZ, dtype=torch.float64, device=device)
+    cam = torch.tensor(cam_xyz, dtype=torch.float64, device=device)
 
     def ground(vector):
         """World (x, y) where each pixel's ray meets the plane z = 0."""
@@ -490,19 +569,36 @@ def stabilization_scene(n_frames: int, device, seed: int = 0):
         n = texture.shape[0]
         return sampling.bilinear_sample(texture, (y + pad).clamp(0, n - 1), (x + pad).clamp(0, n - 1))
 
-    frames = torch.empty((n_frames, img, img), dtype=torch.uint8, device=device)
-    for i, viewdir in enumerate(truth):
+    frames = torch.empty((n_frames, imgsz, imgsz), dtype=torch.uint8, device=device)
+    for i, direction in enumerate(truth):
         vector = base.copy()
-        vector[3:6] = viewdir
+        vector[3:6] = direction
         wx, wy = (w.clamp(-pad, img + pad) for w in ground(vector))
         terrain = sample(textures[0], wx, wy)
         glacier = sample(textures[1], wx - STAB_VELOCITY[0] * i, wy - STAB_VELOCITY[1] * i)
         value = torch.where((wy >= STAB_BAND[0]) & (wy <= STAB_BAND[1]), glacier, terrain)
-        frames[i] = torch.floor(value.clamp(0, 255)).to(torch.uint8).reshape(img, img)
+        frames[i] = torch.floor(value.clamp(0, 255)).to(torch.uint8).reshape(imgsz, imgsz)
     _, wy = ground(base)
-    band = ((wy >= STAB_BAND[0] - 10) & (wy <= STAB_BAND[1] + 10)).reshape(img, img).cpu().numpy()
+    band = ((wy >= STAB_BAND[0] - 10) & (wy <= STAB_BAND[1] + 10)).reshape(imgsz, imgsz).cpu().numpy()
     mask = (scipy.ndimage.binary_erosion(~band, iterations=6) * 255).astype(np.uint8)
     return frames.cpu().numpy(), truth, base, mask
+
+
+def join_points(n_points: int, n_frames: int, rng=None):
+    """benchmarks/columbia_pipeline.py's ``_tracking_setup`` draws: starts in
+    the glacier band (80 from the image's edges in x, 20 inside the band in
+    y, room left for the motion) and the truth after ``n_frames - 1``
+    frames. With no ``rng``, the reference's own: seed 42, after the view
+    directions' wobble was drawn from it."""
+    if rng is None:
+        rng = np.random.default_rng(42)
+        rng.normal(0, STAB_JITTER, size=(n_frames - 1, 3))
+    margin = 80
+    starts = np.column_stack([
+        rng.uniform(margin, STAB_IMG - margin - STAB_VELOCITY[0] * n_frames, n_points),
+        rng.uniform(STAB_BAND[0] + 20, STAB_BAND[1] - 20 - STAB_VELOCITY[1] * n_frames, n_points),
+    ])
+    return starts, starts + np.asarray(STAB_VELOCITY) * (n_frames - 1)
 
 
 def stabilization_pairs(n_frames: int) -> np.ndarray:
@@ -1215,11 +1311,11 @@ class DrawnUniforms:
         return float(self._table[self._step - 1, self._column])
 
 
-def host_tracker_objects(scene, points_xy, n_particles: int, noise, device, shapes=None):
+def host_tracker_objects(scene, points_xy, n_particles: int, noise, device, shapes=None, xy_sigma=(1.0, 1.0)):
     """The host ``Tracker`` on ``device`` over the oblique scene, with its
     driven motion models: the same objects ``oblique_tracker`` stacks. With
     ``shapes`` (a dict) the tracker counts in it the (h, w) of every tile
-    it high-passes."""
+    it high-passes; ``xy_sigma`` spreads the first particles."""
     from glimpse_tpu_torch import Tracker
     from glimpse_tpu_torch.track import CartesianMotion
 
@@ -1232,7 +1328,7 @@ def host_tracker_objects(scene, points_xy, n_particles: int, noise, device, shap
     motions = [
         DrivenCartesianMotion(
             CartesianMotion(
-                xy=xy, time_unit=scene["day"], dem=scene["dem"], dem_sigma=0.5, n=n_particles, xy_sigma=(1.0, 1.0),
+                xy=xy, time_unit=scene["day"], dem=scene["dem"], dem_sigma=0.5, n=n_particles, xy_sigma=xy_sigma,
                 vxyz_sigma=(1.5, 1.5, 0.05), axyz_sigma=(0.1, 0.1, 0.01),
             ),
             noise["init"]["xy"][n], noise["init"]["z"][n], noise["init"]["v"][n], noise["a"][:, n],
@@ -1244,10 +1340,116 @@ def host_tracker_objects(scene, points_xy, n_particles: int, noise, device, shap
     return tracker, motions
 
 
+WIDE_CLOUD_SIGMA = (30.0, 45.0)  # m: first particles spread over about 250 x 240 px of phase 16's image
+
+
+def wide_cloud_run(scene, points_xy, noise, devices, n_particles: int, n_points: int = 4, n_frames: int = 4):
+    """Phase 16 (f): the host ``Tracker`` with first particles spread
+    ``WIDE_CLOUD_SIGMA``, on the ``n_points`` of ``points_xy`` that project
+    nearest the image's centre, on the card and on the CPU from the same
+    draws (``noise``'s first rows). Its search tiles outgrow one block's
+    shared memory, so the card's high-pass takes the kernel's global route.
+    Raises unless every track of both free runs finishes without an error
+    or a warning, a search tile larger than 170 x 170 was high-passed on the
+    card by the kernel, and, each step from the CPU's carried particles,
+    the card's weighted mean projects within 0.1 px of the CPU's (a free
+    run in float32 against one in float64 takes another particle path once
+    a rounding moves a resampling threshold, so it is reported), and
+    unless the kernel equals its plain version on the card, NaN included,
+    on a tile of every shape the run gave it. Returns (the line's part, the
+    largest tile's record: {shape, size, dtype, variant, ms, plain_ms,
+    bound_ms}, timed as ``large_tiles`` times)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels import highpass as highpass_kernel
+    from glimpse_tpu_torch.kernels.bench_highpass import HBM_BYTES_PER_S
+
+    observer = scene["observer"]
+    uv = observer.xyz_to_uv(np.column_stack([points_xy, scene["dem"].sample(points_xy)]), img=0)
+    chosen = points_xy[np.argsort(np.linalg.norm(uv - OBLIQUE_IMG / 2, axis=1))[:n_points]]
+    draws = {"init": {k: v[:n_points] for k, v in noise["init"].items()},
+             "a": noise["a"][: n_frames - 1, :n_points], "resample_u": noise["resample_u"][: n_frames - 1, :n_points]}
+    datetimes = list(observer.datetimes[:n_frames])
+    shapes, runs = {}, {}
+    for kind, device in devices.items():
+        tracker, motions = host_tracker_objects(scene, chosen, n_particles, draws, device,
+                                                shapes if kind == "card" else None, xy_sigma=WIDE_CLOUD_SIGMA)
+        launched = highpass_kernel.median_highpass.launches
+        runs[kind] = tracker.track(motions, datetimes=datetimes, tile_size=(15, 15))
+        if kind == "card":
+            launches = highpass_kernel.median_highpass.launches - launched
+    for kind, tracks in runs.items():
+        if any(e is not None for e in tracks.errors) or any(w is not None for w in tracks.warnings) \
+                or not np.isfinite(tracks.means).all():
+            raise AssertionError(f"phase 16 (f): the wide cloud's tracks on the {kind}: errors {tracks.errors},"
+                                 f" warnings {tracks.warnings}")
+    largest = max(shapes, key=lambda hw: hw[0] * hw[1])
+    if min(largest) <= 170 or launches != sum(shapes.values()):
+        raise AssertionError(f"phase 16 (f): largest search tile {largest}, {launches} launches for"
+                             f" {sum(shapes.values())} high-passes")
+    # The kernel against its plain version on a tile of every shape the run
+    # gave it, with ties and NaN; the largest timed.
+    for k, (h, w) in enumerate(sorted(shapes)):
+        tiles = highpass_case_tiles((1, h, w), True, False, devices["card"], seed=161 + k)
+        want = highpass_kernel.median_highpass_plain(tiles, (5, 5))
+        torch.testing.assert_close(highpass_kernel.median_highpass(tiles, (5, 5)), want, rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"phase 16 (f): median_highpass on a (1, {h}, {w}) tile: {m}")
+        if (h, w) == largest:
+            record = {
+                "shape": [1, h, w], "size": [5, 5], "dtype": "float32",
+                "variant": highpass_kernel.kernel_variant((5, 5), torch.float32, (1, h, w)),
+                "ms": _cuda_ms(lambda: highpass_kernel.median_highpass(tiles, (5, 5))),
+                "plain_ms": _cuda_ms(lambda: highpass_kernel.median_highpass_plain(tiles, (5, 5))),
+                "bound_ms": 2 * tiles.numel() * tiles.element_size() / HBM_BYTES_PER_S * 1e3,
+            }
+
+    def pixels(xyz):
+        return observer.xyz_to_uv(xyz, img=0)
+
+    free = np.linalg.norm(pixels(runs["card"].means[..., 0:3].reshape(-1, 3))
+                          - pixels(runs["cpu"].means[..., 0:3].reshape(-1, 3)), axis=1).max()
+    # Each step from the CPU's carried particles, as Tracker.track steps.
+    workers = {kind: host_tracker_objects(scene, chosen, n_particles, draws, device, xy_sigma=WIDE_CLOUD_SIGMA)
+               for kind, device in devices.items()}
+    carried = 0.0
+    for n in range(n_points):
+        particles = workers["cpu"][1][n].initialize_particles()
+        for tracker, _ in workers.values():
+            tracker.reset()
+            tracker.particles = particles.copy()
+            tracker.test_particles()
+            tracker.initialize_weights()
+            tracker.initialize_template(obs=0, img=0, tile_size=(15, 15))
+        workers["cpu"][0].rng = DrawnUniforms(draws["resample_u"], column=n)
+        for t in range(1, n_frames):
+            means = {}
+            for kind, (tracker, motions) in workers.items():
+                tracker.particles = particles.copy()
+                motions[n].evolve_particles(tracker.particles, dt=scene["day"], step=t - 1)
+                tracker.test_particles()
+                tracker.update_weights(imgs=[t], motion_model=motions[n])
+                means[kind] = tracker.particle_mean[None, 0:3]
+            carried = max(carried, float(np.linalg.norm(pixels(means["card"]) - pixels(means["cpu"]))))
+            workers["cpu"][0].resample_particles()
+            particles = workers["cpu"][0].particles
+    if carried > 0.1:
+        raise AssertionError(f"phase 16 (f): the wide cloud's Tracker(cuda) parts from Tracker(cpu) by {carried} px"
+                             " from a carried state (limit 0.1)")
+    return (
+        f"(f) a wide cloud, xy_sigma {WIDE_CLOUD_SIGMA} m: {n_points} points x {n_particles} particles x {n_frames}"
+        f" frames, search tiles up to {largest[0]}x{largest[1]} ({record['variant']}: {record['ms']:.4f} ms, plain"
+        f" {record['plain_ms']:.4f}, bound {record['bound_ms']:.4f}), {launches} launches, each of {len(shapes)} tile"
+        f" shapes held to rtol=atol=0 with equal NaN, every track finished on both devices; Tracker(cuda) vs"
+        f" Tracker(cpu) projected means each step from a carried state max {carried:.3g} px (limit 0.1), free runs"
+        f" max {free:.3g} px"
+    ), record
+
+
 def host_tracker_phase(scene, points_xy, devices, card: str, n16: int = 64, p16: int = 2048, t16: int = 10):
     """Phase 16; ``devices`` maps "card" and "cpu" to their devices. Raises
     on a failed check and returns (the line to print, both kernels' launches
-    on this path, the high-pass tile shapes the host tracker produced)."""
+    on this path, the high-pass tile shapes the host tracker produced, (f)'s
+    largest tile's record)."""
     import copy
 
     import torch
@@ -1376,6 +1578,7 @@ def host_tracker_phase(scene, points_xy, devices, card: str, n16: int = 64, p16:
         raise AssertionError(
             f"the host tracker and the batched tracker part: {carried_px.max()} px from a carried state (limit 0.1),"
             f" {int((carried_px > 0.1).sum())} of {carried_px.size} point-steps")
+    wide, wide_record = wide_cloud_run(scene, points16, noise, devices, p16)
     rate = {k: n16 * (t16 - 1) / s for k, s in seconds.items()}
     line = (
         f"phase 16 host Tracker on {card}: {n16} points x {p16} particles x {t16} frames of {OBLIQUE_IMG}x{OBLIQUE_IMG}, DEM prior,"
@@ -1386,9 +1589,9 @@ def host_tracker_phase(scene, points_xy, devices, card: str, n16: int = 64, p16:
         f" max |diff| {carried_devices:.3g} (limit 1e-3), Tracker vs batched projected means max {carried_px.max():.4f} px"
         f" rmse {float(np.sqrt((carried_px ** 2).mean())):.4f} px (limit 0.1); free runs: Tracker(cuda) vs Tracker(cpu)"
         f" max |diff| {free_devices:.3g}, Tracker vs batched max {free.max():.4f} px rmse"
-        f" {float(np.sqrt((free ** 2).mean())):.4f} px; errors none; launches {launches16}"
+        f" {float(np.sqrt((free ** 2).mean())):.4f} px; errors none; launches {launches16}; {wide}"
     )
-    return line, launches16, shapes
+    return line, launches16, shapes, wide_record
 
 
 # ---- Phase 17: calibration ---- #
@@ -1496,14 +1699,17 @@ def calibration_phase(devices, card: str, sizes=None) -> str:
     return f"phase 17 calibration on {card}, Jacobians by torch.func.jacfwd in float64 on the card: " + "; ".join(parts)
 
 
-def stabilize_from_files(n_frames: int, cuda, workdir: str) -> str:
+def stabilize_from_files(n_frames: int, cuda, workdir: str):
     """Phase 18: phase 11's scene written as JPEG files (quality 95), read
     back as ``Image`` objects and stabilized through the user's entry
     points: ``ObserverCameras.build_keypoints(detector="device")``,
     ``build_matches(matcher="device", refine=True)``, ``fit``, then
     ``project_images`` of every frame on the card. A second pass on fresh
     objects must come from the pickle caches with no detection and the same
-    matches. Raises on a failed check; returns the line to print."""
+    matches. Raises on a failed check; returns (the line to print, what
+    phase 24 tracks on: the JPEG paths, the ``Image`` objects whose cameras
+    ``set_cameras`` gave the fitted view directions, the true view
+    directions and the nominal camera vector)."""
     import datetime
 
     import PIL.Image
@@ -1600,6 +1806,7 @@ def stabilize_from_files(n_frames: int, cuda, workdir: str) -> str:
             pair.append(float(np.abs(a - anchor)[common].mean()))
         alignment.append(f"frame {i} {pair[0]:.3f} DN (nominal view direction {pair[1]:.3f})")
     n_matches = sum(m.size for m in first.data)
+    joined = {"paths": paths, "images": images, "truth": truth, "base": base}
     return (
         f"{n_frames} JPEG frames of {STAB_IMG}x{STAB_IMG} (quality 95) through ObserverCameras, 2,048 keypoints,"
         f" offsets {STAB_OFFSETS}, refined: "
@@ -1608,7 +1815,87 @@ def stabilize_from_files(n_frames: int, cuda, workdir: str) -> str:
         f" error max {errors.max():.5f} mean {errors.mean():.5f} deg (limit 0.01); cached pass: {len(calls)} detector"
         f" batches, matches identical, no chain break; frame 0 projected bit-equal card vs CPU; mean |projected -"
         f" anchor| on the terrain: {', '.join(alignment)}; peak {peak / 2**30:.2f} GiB"
+    ), joined
+
+
+# The JAX package's stabilized RMSE on its own 1,000-frame run of this recipe
+# (docs/validation.md:169): an accuracy of the scene and the filter.
+REFERENCE_JOIN_RMSE = 22.78
+
+
+def decode_frames(paths) -> np.ndarray:
+    """The JPEG frames as one host array (n, h, w) uint8, decoded in threads."""
+    import PIL.Image
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return np.stack(list(pool.map(lambda path: np.asarray(PIL.Image.open(path).convert("L")), paths)))
+
+
+def stabilize_then_track(joined, frames, cuda, n_points: int = 10240, n_particles: int = 512, chunk: int = 8):
+    """Phase 24: benchmarks/columbia_pipeline.py's tracking stage on phase
+    18's JPEG frames (``frames``, decoded once) and fit: 10,240 points x 512
+    particles through every frame with ``track_stream``, three times from
+    the same generator seed: with the fitted cameras (read from the
+    ``Image`` objects' cameras into a (T, 1, 20) ``camera_vectors_seq``), with
+    none (the nominal camera: the reference's unstabilized run) and with the
+    true cameras. Raises unless every final mean is finite, both kernels
+    launched in the stabilized run and its RMSE is below the unstabilized
+    one; returns (the line's part, the stabilized run's launches)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels.highpass import median_highpass
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+
+    n_frames = len(frames)
+    base, truth = joined["base"], joined["truth"]
+    fitted = np.stack([image.cam.to_array() for image in joined["images"]])
+    if fitted.shape != (n_frames, 20) or not np.array_equal(np.delete(fitted, [3, 4, 5], axis=1),
+                                                             np.delete(np.tile(base, (n_frames, 1)), [3, 4, 5], axis=1)):
+        raise AssertionError("phase 24: the stabilized cameras differ from the nominal one beyond the view direction")
+    true = np.tile(base, (n_frames, 1))
+    true[:, 3:6] = truth
+    starts, truth_xy = join_points(n_points, n_frames)
+    tracker = columbia_tracker(base[None], None, starts, n_particles, cuda)
+    runs = {}
+    for name, seq in (("stabilized", fitted[:, None]), ("unstabilized", None), ("true cameras", true[:, None])):
+        median_highpass.launches = 0
+        systematic_resample.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        _, outputs = tracker.track_stream(
+            torch.Generator(device=cuda).manual_seed(0), frames[0][None], (frames[i][None] for i in range(1, n_frames)),
+            np.ones(n_frames - 1, np.float32), camera_vectors_seq=seq, chunk=chunk,
+        )
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        final = outputs[-1]["mean"][-1].double().cpu().numpy()
+        steps = sum(len(o["mean"]) for o in outputs)
+        if steps != n_frames - 1 or final.shape != (n_points, 6) or not np.isfinite(final).all():
+            raise AssertionError(f"phase 24 {name}: {steps} steps, final means {final.shape},"
+                                 f" finite {np.isfinite(final).all()}")
+        runs[name] = {
+            "rmse": float(np.sqrt(np.mean(np.sum((final[:, 0:2] - truth_xy) ** 2, axis=-1)))), "seconds": seconds,
+            "peak": torch.cuda.max_memory_allocated(),
+            "launches": {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches},
+        }
+        del outputs
+    stabilized = runs["stabilized"]
+    if min(stabilized["launches"].values()) < 1:
+        raise AssertionError(f"phase 24: the kernels did not carry the stabilized run: {stabilized['launches']}")
+    if not stabilized["rmse"] < runs["unstabilized"]["rmse"]:
+        raise AssertionError(f"phase 24: stabilized RMSE {stabilized['rmse']} is not below the unstabilized"
+                             f" {runs['unstabilized']['rmse']}")
+    line = (
+        f"{n_points}x{n_particles}x{n_frames} frames of phase 18's JPEGs, one observer, track_stream(chunk {chunk}),"
+        f" the same generator seed: final RMSE against the truth (world units) stabilized {stabilized['rmse']:.4f}"
+        f" (the JAX package's own run of this recipe: {REFERENCE_JOIN_RMSE}), unstabilized"
+        f" {runs['unstabilized']['rmse']:.4f}, true cameras {runs['true cameras']['rmse']:.4f}; stabilized"
+        f" {n_points * (n_frames - 1) / stabilized['seconds']:.1f} point-steps/s ({stabilized['seconds']:.3f} s), peak"
+        f" {stabilized['peak'] / 2**30:.2f} GiB; launches "
+        + "; ".join(f"{name} {r['launches']}" for name, r in runs.items())
+        + "; the other runs " + ", ".join(f"{name} {r['seconds']:.3f} s" for name, r in runs.items() if r is not stabilized)
     )
+    return line, stabilized["launches"]
 
 
 CALIBRATION_FILES = {
@@ -2085,16 +2372,17 @@ def precision_kernels(cuda, hbm_bytes_per_s: float):
     """Phase 23 (a): both kernels in bfloat16, float16 and float64 against
     their plain versions on the card, bit for bit, at the main path's
     shapes, then on phase 3's held cases (ties, NaN, +-inf, every window,
-    the smallest tiles, one stack one element past a 16-byte line) and the
-    resample at N = 37 with thresholds tied to slots. Returns (the line,
-    {kernel: [one record a dtype and shape]}, the largest mismatch)."""
+    the smallest tiles, one stack one element past a 16-byte line), phase
+    3's large tiles, held and timed, and the resample at N = 37 with
+    thresholds tied to slots. Returns (the line, {kernel: [one record a
+    dtype and shape], "large_tiles": [...]}, the largest mismatch)."""
     import torch
 
     from glimpse_tpu_torch.kernels.highpass import kernel_variant, median_highpass, median_highpass_plain
     from glimpse_tpu_torch.kernels.resample import systematic_resample, systematic_resample_plain
     from glimpse_tpu_torch.ops.resampling import systematic_thresholds
 
-    records = {"median_highpass": [], "systematic_resample": []}
+    records = {"median_highpass": [], "systematic_resample": [], "large_tiles": []}
     parts, err = [], 0.0
     for name in PRECISIONS[1:]:
         dtype = getattr(torch, name)
@@ -2116,7 +2404,7 @@ def precision_kernels(cuda, hbm_bytes_per_s: float):
             got, want = median_highpass(tiles, window), median_highpass_plain(tiles, window)
             torch.testing.assert_close(
                 got, want, rtol=0, atol=0, equal_nan=True,
-                msg=lambda m: f"phase 23 median_highpass ({kernel_variant(window, dtype)}) on {label} {shape}: {m}",
+                msg=lambda m: f"phase 23 median_highpass ({kernel_variant(window, dtype, shape)}) on {label} {shape}: {m}",
             )
             err = max(err, highpass_mismatch(got, want))
             held += 1
@@ -2138,14 +2426,18 @@ def precision_kernels(cuda, hbm_bytes_per_s: float):
             bound = n * p * (4 + 14 * size) / hbm_bytes_per_s * 1e3
             records["systematic_resample"].append({"dtype": name, "shape": [n, p], "ms": ms, "plain_ms": plain_ms,
                                                    "bound_ms": bound, "bound_share": bound / ms})
+        large, large_err = large_tiles(cuda, dtype, hbm_bytes_per_s)
+        records["large_tiles"] += large
+        err = max(err, large_err)
         hp = [r for r in records["median_highpass"] if r["dtype"] == name]
         rs = records["systematic_resample"][-1]
         parts.append(
-            f"{name}: high-pass 5x5 ({kernel_variant((5, 5), dtype)}) "
+            f"{name}: high-pass 5x5 ({kernel_variant((5, 5), dtype, PRECISION_TILES[0])}) "
             + ", ".join(f"{r['shape'][1]}x{r['shape'][2]}x{r['shape'][0]} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
                         f" bound {r['bound_ms']:.4f}, {100 * r['bound_share']:.1f} %)" for r in hp)
-            + f", {held} held cases; resample 10240x2048 {rs['ms']:.4f} ms (plain {rs['plain_ms']:.4f}, bound"
-            f" {rs['bound_ms']:.4f}, {100 * rs['bound_share']:.1f} %), N = 37 with tied thresholds bit-equal"
+            + f", {held} held cases, large tiles {describe_large_tiles(large)}; resample 10240x2048 {rs['ms']:.4f} ms"
+            f" (plain {rs['plain_ms']:.4f}, bound {rs['bound_ms']:.4f}, {100 * rs['bound_share']:.1f} %), N = 37 with"
+            " tied thresholds bit-equal"
         )
     return "; ".join(parts), records, err
 
@@ -2424,6 +2716,7 @@ def main() -> None:
     cases = [
         ((1024, 41, 41), (5, 5)), ((1024, 15, 15), (5, 5)), ((1024, 41, 41), (3, 3)), ((1024, 41, 41), (7, 7)),
         ((20480, 31, 31), (5, 5)),  # phase 8's stacked search tiles: 2 observers x 10,240 points
+        ((10240, 31, 31), (5, 5)),  # phase 24's search tiles: 1 observer x 10,240 points
         ((10240, 41, 41), (5, 5)), ((10240, 15, 15), (5, 5)),  # phase 14's search tiles and templates
         ((2560, 41, 41), (5, 5)), ((2560, 15, 15), (5, 5)),  # phase 20's: one of four mesh slices
         # phase 16: the host tracker's template, its smallest search tile (the
@@ -2448,7 +2741,7 @@ def main() -> None:
         tiles = highpass_case_tiles(shape, specials, misaligned, cuda)
         got = median_highpass(tiles, size)
         want = median_highpass_plain(tiles, size)
-        variant = kernel_variant(size)
+        variant = kernel_variant(size, torch.float32, shape)
         torch.testing.assert_close(
             got, want, rtol=0, atol=0, equal_nan=True,
             msg=lambda m: f"median_highpass ({variant}) on {label} {shape} {size}: {m}",
@@ -2468,36 +2761,27 @@ def main() -> None:
         if not torch.equal(got, median_highpass_plain(tiles, size)):
             raise AssertionError(f"highpass {size} by the {route} route differs from the plain version")
         routes.append(f"{size[0]}x{size[1]} {route}")
-    # A window inside the domain on a tile that one block's shared memory
-    # cannot hold raises, by either entry, and is never rerouted.
-    oversized = torch.zeros(1, 300, 300, device=cuda)
-    for entry in (median_highpass, routed_highpass):
-        launched = median_highpass.launches
-        try:
-            entry(oversized, (5, 5))
-        except ValueError as error:
-            refusal = str(error)
-        else:
-            raise AssertionError(f"{entry.__name__} took a 300x300 tile with 5x5 taps on the card")
-        if median_highpass.launches != launched:
-            raise AssertionError(f"{entry.__name__} launched on a 300x300 tile it refused")
-    routes.append(f"5x5 on 300x300 raises ({refusal})")
+    # Tiles that one block's shared memory cannot hold: the kernel reads
+    # them from device memory, held and timed the same way.
+    large_records, large_err = large_tiles(cuda, torch.float32, HBM_BYTES_PER_S)
+    hp_err = max(hp_err, large_err)
     say(
         "phase 3 median_highpass bit-equal: "
         + "; ".join(
             f"{s[1]}x{s[2]} {k[0]}x{k[1]} kernel {a:.4f} ms plain {b:.4f} ms"
             for (s, k), (a, b) in hp_times.items()
         )
-        + f"; held to rtol=atol=0 with equal NaN: {'; '.join(held)}; routes by window at 31x31: {', '.join(routes)}",
+        + f"; held to rtol=atol=0 with equal NaN: {'; '.join(held)}; routes by window at 31x31: {', '.join(routes)};"
+        f" large tiles held to rtol=atol=0 with equal NaN and timed: {describe_large_tiles(large_records)}",
         flush=True,
     )
 
     # Phase 4: the resample kernel on skewed weights, thresholds built as
-    # the tracker builds them, at phase 5's, phase 8's and one of phase 20's
-    # four mesh slices' shapes; N = 37 divides no block size.
+    # the tracker builds them, at phase 5's, phase 8's, one of phase 20's
+    # four mesh slices' and phase 24's shapes; N = 37 divides no block size.
     rs_err = 0.0
     rs_times = {}
-    for n, p in [(1024, 1024), (10240, 2048), (2560, 2048), (37, 1024)]:
+    for n, p in [(1024, 1024), (10240, 2048), (2560, 2048), (10240, 512), (37, 1024)]:
         weights = torch.from_numpy(np.exp(3 * rng.normal(size=(n, p))).astype(np.float32)).to(cuda)
         u = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
         particles = torch.from_numpy(rng.normal(size=(n, p, 6)).astype(np.float32)).to(cuda)
@@ -2797,7 +3081,7 @@ def main() -> None:
 
     # Phase 16: the host Tracker on the card, on the CPU, and the batched
     # tracker from the same objects and draws.
-    line16, launches16, shapes16 = host_tracker_phase(scene, points14, devices, card)
+    line16, launches16, shapes16, wide16 = host_tracker_phase(scene, points14, devices, card)
     say(line16, flush=True)
 
     # Phase 17: calibration, the exact Jacobian on the card.
@@ -2805,7 +3089,11 @@ def main() -> None:
 
     # Phase 18: stabilization from image files at full size.
     with tempfile.TemporaryDirectory(prefix="phase18_", dir=os.path.join(REPO, "build")) as workdir:
-        say("phase 18 stabilization from files: " + stabilize_from_files(1000, cuda, workdir), flush=True)
+        line18, joined = stabilize_from_files(1000, cuda, workdir)
+        say("phase 18 stabilization from files: " + line18, flush=True)
+        start24 = time.perf_counter()
+        frames24 = decode_frames(joined["paths"])  # phase 24's frames, as a user has them
+        decode24 = time.perf_counter() - start24
 
     # Phase 19: camera model conversion, card against CPU.
     say("phase 19 conversion: " + conversion_phase(devices), flush=True)
@@ -2866,18 +3154,27 @@ def main() -> None:
         flush=True,
     )
 
+    # Phase 24: stabilize, then track: phase 18's fit and frames through the
+    # tracker at the reference's full recipe.
+    line24, launches24 = stabilize_then_track(joined, frames24, cuda, chunk=chunk)
+    say(f"phase 24 stabilize, then track: {len(frames24)} frames decoded in {decode24:.2f} s; " + line24, flush=True)
+    del frames24
+
     # The kernels at phase 8's shapes; ``launches`` are phase 20's (the
     # tracker in four mesh slices; phases 18-19 launch neither), and
     # ``launches_by_path`` every main path's, each counted from 0 just before
     # its run (phase 5's and phase 8's counts are one timed pass's; phase
     # 21's the four processes' first timed pass at phase 6's width, summed;
-    # phase 22's the timed passes of the three SSE modes). Each bound is
-    # the bytes the function must move (every input read once, every output
-    # written once) over the device memory rate: the high-pass reads and
-    # writes 4 bytes a pixel; the resample reads a float32 threshold and 7
-    # float32 columns and writes 7 columns, 60 bytes a particle. Their
-    # arithmetic is a subtraction a pixel and none, so bytes bind. No single
-    # PyTorch call computes a median filter or this gather: library_ms null.
+    # phase 22's the timed passes of the three SSE modes; phase 24's the
+    # stabilized run's). ``large_tile_shapes`` are phases 3 and 23 (a)'s
+    # tiles past one block's shared memory, bound by their dtype's bytes.
+    # Each bound is the bytes the function must move (every input read
+    # once, every output written once) over the device memory rate: the
+    # high-pass reads and writes 4 bytes a pixel; the resample reads a
+    # float32 threshold and 7 float32 columns and writes 7 columns, 60 bytes
+    # a particle. Their arithmetic is a subtraction a pixel and none, so
+    # bytes bind. No single PyTorch call computes a median filter or this
+    # gather: library_ms null.
     main_hp = hp_times[((20480, 31, 31), (5, 5))]
     main_rs = rs_times[(10240, 2048)]
     bound_hp = 2 * 20480 * 31 * 31 * 4 / HBM_BYTES_PER_S * 1e3
@@ -2885,7 +3182,8 @@ def main() -> None:
     by_path = {
         name: {"phase 5": launches[name], "phase 8": launches8[name], "phase 14": launches14[name],
                "phase 16": launches16[name], "phase 20": launches20[name], "phase 21": launches21[name],
-               "phase 22": launches22[name], **{f"phase 23 {k}": v[name] for k, v in launches23.items()}}
+               "phase 22": launches22[name], **{f"phase 23 {k}": v[name] for k, v in launches23.items()},
+               "phase 24": launches24[name]}
         for name in ("median_highpass", "systematic_resample")
     }
     if any(count < 1 for counts in by_path.values() for count in counts.values()):
@@ -2909,6 +3207,15 @@ def main() -> None:
     ]
     rs20 = [{"shape": [2560, 2048], "ms": rs_times[(2560, 2048)][0], "plain_ms": rs_times[(2560, 2048)][1],
              "bound_ms": 2560 * 2048 * 60 / HBM_BYTES_PER_S * 1e3}]
+    # Phase 24's: its search tiles every step, its templates once (phase
+    # 14's shape), one resample a step at 10,240 x 512.
+    hp24 = [
+        {"shape": list(shape), "ms": hp_times[(shape, (5, 5))][0], "plain_ms": hp_times[(shape, (5, 5))][1],
+         "bound_ms": 2 * int(np.prod(shape)) * 4 / HBM_BYTES_PER_S * 1e3}
+        for shape in ((10240, 31, 31), (10240, 15, 15))
+    ]
+    rs24 = [{"shape": [10240, 512], "ms": rs_times[(10240, 512)][0], "plain_ms": rs_times[(10240, 512)][1],
+             "bound_ms": 10240 * 512 * 60 / HBM_BYTES_PER_S * 1e3}]
     # Each dtype's times at the main path's shapes: float32 from phases 3
     # and 4, the others from phase 23 (a). The bound counts the dtype's
     # bytes: 2 E a pixel for the high-pass, 4 + 14 E a particle for the
@@ -2933,7 +3240,8 @@ def main() -> None:
             "ms": main_hp[0], "plain_ms": main_hp[1], "bound_ms": bound_hp, "bound_by": "bytes",
             "bound_share": bound_hp / main_hp[0], "library_ms": None, "shape": [20480, 31, 31],
             "launches_by_path": by_path["median_highpass"], "phase_14_shapes": hp14, "phase_16_shapes": hp16,
-            "phase_16_tile_shapes": len(shapes16), "phase_20_shapes": hp20, "dtypes": hp_dtypes,
+            "phase_16_tile_shapes": len(shapes16), "phase_16_wide_tile": wide16, "phase_20_shapes": hp20,
+            "phase_24_shapes": hp24, "dtypes": hp_dtypes, "large_tile_shapes": large_records + records23["large_tiles"],
         },
         {
             "name": "systematic_resample", "route": "cuda",
@@ -2942,7 +3250,8 @@ def main() -> None:
             "launches": launches20["systematic_resample"], "max_abs_err": rs_err,
             "ms": main_rs[0], "plain_ms": main_rs[1], "bound_ms": bound_rs, "bound_by": "bytes",
             "bound_share": bound_rs / main_rs[0], "library_ms": None, "shape": [10240, 2048],
-            "launches_by_path": by_path["systematic_resample"], "phase_20_shapes": rs20, "dtypes": rs_dtypes,
+            "launches_by_path": by_path["systematic_resample"], "phase_20_shapes": rs20, "phase_24_shapes": rs24,
+            "dtypes": rs_dtypes,
         },
     ]}))
     print(json.dumps({

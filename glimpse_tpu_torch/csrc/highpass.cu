@@ -68,6 +68,21 @@
 //    staging counts in elements of T, so 16-byte lines hold 8, 4 or 2 of
 //    them; the elements before the first line and after the last go by
 //    cp.async for 4 and 8 bytes and by a plain copy for 2.
+// 6. Tiles of any size. A tile that one block's shared memory cannot hold
+//    (in float32 about 170 x 170 pixels for a separable window, 240 x 240
+//    for the others) takes the global route: separable_global_kernel and
+//    generic_global_kernel run the same networks, the same reflect() at the
+//    tile's own edges and the same widening and rounding, but read each
+//    window straight from device memory through the read-only cache, and
+//    their grid covers every strip (or pixel) of every tile, so one large
+//    tile spreads over many SMs. The launcher picks the route on the host
+//    from (n, h, w, kh, kw, element size) (takes_global): a few tiles that
+//    would each keep one staged block looping take the global route too;
+//    the main path's stacks keep the staged route above, unchanged, which
+//    is 8-11 % faster there. Such tiles come one or a few a call (the host
+//    Tracker's, a wide search box's), so the call, not bytes or min/max
+//    issue, bounds them: 0.02-0.05 ms up to 1,024 x 1,024 on an H100
+//    (chip_smoke phase 3), where the byte bound is 0.0025 ms.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -388,10 +403,49 @@ __device__ __forceinline__ int stage(T* dst_base, const T* src, long long start,
   return shift;
 }
 
+// One element of a tile: from shared memory on the staged routes, from
+// device memory through the read-only cache on the global ones.
+template <bool kGlobal, typename T>
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (kGlobal) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
+// The R x 2 strip of outputs whose top-left pixel is (y0, x0), of one h x w
+// tile read from `src` and written to `dst`, its window reflected at the
+// tile's own edges.
+template <int KH, int KW, int R, bool kGlobal, typename T>
+__device__ __forceinline__ void separable_strip(const T* src, T* dst, int h, int w, int y0, int x0) {
+  using C = typename Compute<T>::type;
+  int cols[KW + 1];
+#pragma unroll
+  for (int j = 0; j < KW + 1; ++j) cols[j] = reflect(x0 - KW / 2 + j, w);
+  C x[R + KH - 1][KW + 1];
+#pragma unroll
+  for (int i = 0; i < R + KH - 1; ++i) {
+    const T* row = src + reflect(y0 - KH / 2 + i, h) * w;
+#pragma unroll
+    for (int j = 0; j < KW + 1; ++j) x[i][j] = widen(load<kGlobal>(row + cols[j]));
+  }
+  C med[2][R];
+  strip_medians<KH, KW, R>(x, med);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int y = y0 + r;
+    if (y >= h) break;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (x0 + c < w) store(dst + y * w + x0 + c, x[r + KH / 2][c + KW / 2] - med[c][r]);
+    }
+  }
+}
+
 template <int KH, int KW, int R, typename T>
 __global__ void __launch_bounds__(kThreads) separable_kernel(const T* __restrict__ in, T* __restrict__ out,
                                                              int n, int h, int w, int per_block, int groups) {
-  using C = typename Compute<T>::type;
   extern __shared__ __align__(16) unsigned char glimpse_smem[];
   T* smem = reinterpret_cast<T*>(glimpse_smem);
   const int tile = h * w;
@@ -428,29 +482,7 @@ __global__ void __launch_bounds__(kThreads) separable_kernel(const T* __restrict
       const int s = rest / pairs;
       const int y0 = s * R;
       const int x0 = 2 * (rest - s * pairs);
-      const T* src = group + local * tile;
-      int cols[KW + 1];
-#pragma unroll
-      for (int j = 0; j < KW + 1; ++j) cols[j] = reflect(x0 - KW / 2 + j, w);
-      C x[R + KH - 1][KW + 1];
-#pragma unroll
-      for (int i = 0; i < R + KH - 1; ++i) {
-        const T* row = src + reflect(y0 - KH / 2 + i, h) * w;
-#pragma unroll
-        for (int j = 0; j < KW + 1; ++j) x[i][j] = widen(row[cols[j]]);
-      }
-      C med[2][R];
-      strip_medians<KH, KW, R>(x, med);
-      T* dst = out + t * tile;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int y = y0 + r;
-        if (y >= h) break;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (x0 + c < w) store(dst + y * w + x0 + c, x[r + KH / 2][c + KW / 2] - med[c][r]);
-        }
-      }
+      separable_strip<KH, KW, R, false>(group + local * tile, out + t * tile, h, w, y0, x0);
     }
     __syncthreads();  // the next pass copies into the buffer just read
   }
@@ -500,6 +532,58 @@ __global__ void __launch_bounds__(kThreads) generic_kernel(const T* __restrict__
   }
 }
 
+// The global routes: a thread a strip of separable_kernel's shape, or a
+// pixel of generic_kernel's, over every tile of the stack (a grid-stride
+// loop), each window read from device memory.
+template <int KH, int KW, int R, typename T>
+__global__ void __launch_bounds__(kThreads) separable_global_kernel(const T* __restrict__ in, T* __restrict__ out,
+                                                                    int n, int h, int w) {
+  const long long tile = static_cast<long long>(h) * w;
+  const int pairs = (w + 1) / 2;
+  const long long per_tile = static_cast<long long>((h + R - 1) / R) * pairs;
+  const long long items = per_tile * n;
+  for (long long item = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; item < items;
+       item += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long t = item / per_tile;
+    const int rest = static_cast<int>(item - t * per_tile);
+    const int s = rest / pairs;
+    separable_strip<KH, KW, R, true>(in + t * tile, out + t * tile, h, w, s * R, 2 * (rest - s * pairs));
+  }
+}
+
+template <int S, typename T>
+__global__ void __launch_bounds__(kThreads) generic_global_kernel(const T* __restrict__ in, T* __restrict__ out,
+                                                                  int n, int h, int w, int kh, int kw) {
+  using C = typename Compute<T>::type;
+  const int taps = kh * kw;
+  const long long tile = static_cast<long long>(h) * w;
+  const long long pixels = tile * n;
+  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < pixels;
+       p += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long t = p / tile;
+    const int q = static_cast<int>(p - t * tile);
+    const int y = q / w;
+    const int x = q - y * w;
+    const T* src = in + t * tile;
+    // Tap k is window row k / kw, column k % kw, as generic_kernel's offsets.
+    Vec<S, C> v;
+    int dr = 0, dc = 0;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if (k < taps) {
+        v[k] = widen(load<true>(src + reflect(y - kh / 2 + dr, h) * w + reflect(x - kw / 2 + dc, w)));
+        if (++dc == kw) {
+          dc = 0;
+          ++dr;
+        }
+      } else {
+        v[k] = (k - taps) % 2 ? C(INFINITY) : C(-INFINITY);
+      }
+    }
+    store(out + p, widen(load<true>(src + q)) - sort(v)[S / 2]);
+  }
+}
+
 // ---- Dispatch --------------------------------------------------------------
 
 // How many blocks of `kernel` the card holds at once.
@@ -511,19 +595,51 @@ int blocks_per_card(const void* kernel, int threads, int smem) {
   return (per_sm > 0 ? per_sm : 1) * sms;
 }
 
+// Whether one tile is staged whole in one block's shared memory: by
+// separable_kernel (two buffers; the first test keeps a large tile's
+// element count from overflowing int) or by generic_kernel<s> (the tap
+// offsets and the padded tile). A tile that is not takes the global route.
+template <typename T>
+bool stages_separable(int h, int w) {
+  return static_cast<long long>(h) * w * static_cast<long long>(sizeof(T)) <= kSmemLimit &&
+         2 * buffer_elements<T>(h * w) * static_cast<int>(sizeof(T)) <= kSmemLimit;
+}
+
+template <typename T>
+bool stages_generic(int s, int h, int w, int kh, int kw) {
+  return offset_bytes<T>(s) + static_cast<long long>(h + kh - 1) * (w + kw - 1) * static_cast<long long>(sizeof(T)) <=
+         kSmemLimit;
+}
+
+// The padded tap count generic_kernel<S> takes for kh * kw taps.
+int generic_size(int kh, int kw) { return kh * kw <= 9 ? 9 : (kh * kw <= 25 ? 25 : 49); }
+
+// A grid-stride launch of a global-route kernel over `items` threads' work:
+// enough blocks to cover them, at most as many as the card holds at once.
+template <typename Kernel, typename... Args>
+cudaError_t launch_global(Kernel kernel, long long items, cudaStream_t stream, Args... args) {
+  const long long needed = (items + kThreads - 1) / kThreads;
+  const int card = blocks_per_card(reinterpret_cast<const void*>(kernel), kThreads, 0);
+  kernel<<<static_cast<int>(needed < card ? needed : card), kThreads, 0, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 // The windows separable_kernel is compiled for, each with its float32 strip
 // height R (8 rows where the registers allow, 4 for the larger windows;
 // strip_rows halves it for float64).
 #define GLIMPSE_SEPARABLE_WINDOWS(X) X(3, 3, 8) X(5, 5, 8) X(7, 7, 4) X(3, 7, 8) X(9, 5, 4)
 
 template <int KH, int KW, int R, typename T>
-cudaError_t launch_separable(const T* in, T* out, int n, int h, int w, cudaStream_t stream) {
+cudaError_t launch_separable(const T* in, T* out, int n, int h, int w, bool global, cudaStream_t stream) {
   const int per_tile = ((h + R - 1) / R) * ((w + 1) / 2);
+  if (global) {
+    return launch_global(separable_global_kernel<KH, KW, R, T>, static_cast<long long>(n) * per_tile, stream, in,
+                         out, n, h, w);
+  }
   int per_block = per_tile >= kThreads ? 1 : kThreads / per_tile;
   auto smem_of = [&](int g) { return 2 * buffer_elements<T>(g * h * w) * static_cast<int>(sizeof(T)); };
   while (per_block > 1 && smem_of(per_block) > kSmemLimit) --per_block;
   const int smem = smem_of(per_block);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
   const auto kernel = separable_kernel<KH, KW, R, T>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -537,9 +653,13 @@ cudaError_t launch_separable(const T* in, T* out, int n, int h, int w, cudaStrea
 }
 
 template <int S, typename T>
-cudaError_t launch_generic(const T* in, T* out, int n, int h, int w, int kh, int kw, cudaStream_t stream) {
+cudaError_t launch_generic(const T* in, T* out, int n, int h, int w, int kh, int kw, bool global,
+                           cudaStream_t stream) {
+  if (global) {
+    return launch_global(generic_global_kernel<S, T>, static_cast<long long>(n) * h * w, stream, in, out, n, h, w,
+                         kh, kw);
+  }
   const int smem = offset_bytes<T>(S) + (h + kh - 1) * (w + kw - 1) * static_cast<int>(sizeof(T));
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(generic_kernel<S, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -549,19 +669,83 @@ cudaError_t launch_generic(const T* in, T* out, int n, int h, int w, int kh, int
   return cudaGetLastError();
 }
 
+bool separable_window(int kh, int kw) {
+#define GLIMPSE_IS(KH, KW, R) \
+  if (kh == KH && kw == KW) return true;
+  GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_IS)
+#undef GLIMPSE_IS
+  return false;
+}
+
+// The routes: kAuto lets the launcher choose (takes_global); kStaged and
+// kGlobal force one, for kernels/bench_highpass.py to time both on the same
+// tiles. kStaged on a tile that does not fit is an invalid value.
+enum Route { kAuto = 0, kStaged = 1, kGlobal = 2 };
+
 template <typename T>
-int launch(const void* in_ptr, void* out_ptr, int n, int h, int w, int kh, int kw, cudaStream_t s) {
+bool stages(int h, int w, int kh, int kw) {
+  return separable_window(kh, kw) ? stages_separable<T>(h, w) : stages_generic<T>(generic_size(kh, kw), h, w, kh, kw);
+}
+
+// The work items of one tile: separable_kernel's strips, generic_kernel's
+// pixels. A staged block has kThreads threads.
+template <typename T>
+long long tile_items(int h, int w, int kh, int kw) {
+#define GLIMPSE_ITEMS(KH, KW, R) \
+  if (kh == KH && kw == KW) return static_cast<long long>((h + strip_rows<T>(R) - 1) / strip_rows<T>(R)) * ((w + 1) / 2);
+  GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_ITEMS)
+#undef GLIMPSE_ITEMS
+  return static_cast<long long>(h) * w;
+}
+
+// The route kAuto takes for a stack of n tiles: the global one for a tile
+// that one block's shared memory cannot stage, and for a stack of fewer
+// tiles than the card has SMs whose tiles each hold more work items than a
+// block has threads. The staged route gives such a tile one block, which
+// loops over it while SMs idle; the global one spreads it over the card.
+// On an H100 (bench_highpass.py --routes): (1, 160, 160) 5x5 0.023 ms staged,
+// 0.006 global; (2, 260, 260) 3x5 in bfloat16 0.81 and 0.008; the staged
+// route stays the faster on many tiles, 0.120 against 0.133 ms at
+// (20,480, 31, 31) 5x5 and 0.064 against 0.088 at (1,024, 31, 31) 7x5.
+template <typename T>
+bool takes_global(int n, int h, int w, int kh, int kw) {
+  if (!stages<T>(h, w, kh, kw)) return true;
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return n < sms && tile_items<T>(h, w, kh, kw) > kThreads;
+}
+
+template <typename T>
+int launch(const void* in_ptr, void* out_ptr, int n, int h, int w, int kh, int kw, int route, cudaStream_t s) {
   const T* in = static_cast<const T*>(in_ptr);
   T* out = static_cast<T*>(out_ptr);
+  if (route == kStaged && !stages<T>(h, w, kh, kw)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool global = route == kGlobal || (route == kAuto && takes_global<T>(n, h, w, kh, kw));
 #define GLIMPSE_LAUNCH(KH, KW, R)                                                                 \
   if (kh == KH && kw == KW)                                                                       \
-    return static_cast<int>(launch_separable<KH, KW, strip_rows<T>(R), T>(in, out, n, h, w, s));
+    return static_cast<int>(launch_separable<KH, KW, strip_rows<T>(R), T>(in, out, n, h, w, global, s));
   GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_LAUNCH)
 #undef GLIMPSE_LAUNCH
-  const int taps = kh * kw;
-  if (taps <= 9) return static_cast<int>(launch_generic<9, T>(in, out, n, h, w, kh, kw, s));
-  if (taps <= 25) return static_cast<int>(launch_generic<25, T>(in, out, n, h, w, kh, kw, s));
-  return static_cast<int>(launch_generic<49, T>(in, out, n, h, w, kh, kw, s));
+  switch (generic_size(kh, kw)) {
+    case 9: return static_cast<int>(launch_generic<9, T>(in, out, n, h, w, kh, kw, global, s));
+    case 25: return static_cast<int>(launch_generic<25, T>(in, out, n, h, w, kh, kw, global, s));
+    default: return static_cast<int>(launch_generic<49, T>(in, out, n, h, w, kh, kw, global, s));
+  }
+}
+
+// The name of the kernel launch<T> runs, by kAuto, for this stack and window.
+template <typename T>
+void name_variant(char* name, int size, int n, int h, int w, int kh, int kw, const char* type) {
+  const char* route = takes_global<T>(n, h, w, kh, kw) ? "_global" : "";
+#define GLIMPSE_NAME(KH, KW, R)                                                                    \
+  if (kh == KH && kw == KW) {                                                                      \
+    snprintf(name, size, "separable%s<%d,%d,%d>[%s]", route, KH, KW, strip_rows<T>(R), type);      \
+    return;                                                                                        \
+  }
+  GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_NAME)
+#undef GLIMPSE_NAME
+  snprintf(name, size, "generic%s<%d>[%s]", route, generic_size(kh, kw), type);
 }
 
 const char* dtype_name(int dtype) {
@@ -576,38 +760,41 @@ const char* dtype_name(int dtype) {
 
 }  // namespace
 
-// The kernel glimpse_median_highpass_typed runs for a kh x kw window and an
-// element type, as "separable<KH,KW,R>[type]" or "generic<S>[type]".
-extern "C" const char* glimpse_median_highpass_variant_typed(int kh, int kw, int dtype) {
+// The kernel glimpse_median_highpass_typed runs for a stack (n, h, w), a
+// kh x kw window and an element type, as "separable<KH,KW,R>[type]" or
+// "generic<S>[type]", with "_global" after the family on the global route.
+extern "C" const char* glimpse_median_highpass_variant_typed(int n, int h, int w, int kh, int kw, int dtype) {
   static thread_local char name[64];
   const char* type = dtype_name(dtype);
-  if (type == nullptr) return "unsupported";
-  const bool wide = dtype == kFloat64;
-#define GLIMPSE_NAME(KH, KW, R)                                                                    \
-  if (kh == KH && kw == KW) {                                                                      \
-    snprintf(name, sizeof(name), "separable<%d,%d,%d>[%s]", KH, KW,                                \
-             wide ? strip_rows<double>(R) : R, type);                                              \
-    return name;                                                                                   \
+  switch (dtype) {
+    case kFloat32: name_variant<float>(name, sizeof(name), n, h, w, kh, kw, type); break;
+    case kFloat64: name_variant<double>(name, sizeof(name), n, h, w, kh, kw, type); break;
+    case kFloat16: name_variant<__half>(name, sizeof(name), n, h, w, kh, kw, type); break;
+    case kBFloat16: name_variant<__nv_bfloat16>(name, sizeof(name), n, h, w, kh, kw, type); break;
+    default: return "unsupported";
   }
-  GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_NAME)
-#undef GLIMPSE_NAME
-  const int taps = kh * kw;
-  snprintf(name, sizeof(name), "generic<%d>[%s]", taps <= 9 ? 9 : (taps <= 25 ? 25 : 49), type);
   return name;
 }
 
-// The high-pass of a stack of tiles of any of the four element types.
-extern "C" int glimpse_median_highpass_typed(const void* in, void* out, int n, int h, int w, int kh, int kw,
-                                             int dtype, void* stream) {
+// The high-pass of a stack of tiles of any of the four element types, by
+// the route `route` names (a Route).
+extern "C" int glimpse_median_highpass_route(const void* in, void* out, int n, int h, int w, int kh, int kw,
+                                             int dtype, int route, void* stream) {
   if (n == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return launch<float>(in, out, n, h, w, kh, kw, s);
-    case kFloat64: return launch<double>(in, out, n, h, w, kh, kw, s);
-    case kFloat16: return launch<__half>(in, out, n, h, w, kh, kw, s);
-    case kBFloat16: return launch<__nv_bfloat16>(in, out, n, h, w, kh, kw, s);
+    case kFloat32: return launch<float>(in, out, n, h, w, kh, kw, route, s);
+    case kFloat64: return launch<double>(in, out, n, h, w, kh, kw, route, s);
+    case kFloat16: return launch<__half>(in, out, n, h, w, kh, kw, route, s);
+    case kBFloat16: return launch<__nv_bfloat16>(in, out, n, h, w, kh, kw, route, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The high-pass by the route the launcher chooses.
+extern "C" int glimpse_median_highpass_typed(const void* in, void* out, int n, int h, int w, int kh, int kw,
+                                             int dtype, void* stream) {
+  return glimpse_median_highpass_route(in, out, n, h, w, kh, kw, dtype, kAuto, stream);
 }
 
 // The float32 entry, with the signature every earlier build exported

@@ -13,6 +13,12 @@ each source's times, in order, beside the bound: 8 bytes a pixel over
 3.35 TB/s. A line before them gives the card's issue rate, per clock per SM,
 of min.NaN.f32, min.f32 and add.f32, from clock64() in a kernel that runs
 each in 8 independent chains per thread, and the SM clock during each.
+
+``python -m glimpse_tpu_torch.kernels.bench_highpass --routes`` times the
+checkout's two routes instead, the staged one (tiles in shared memory) and
+the global one (tiles read from device memory), in turns, staged global
+global staged, on the same tiles of each of ROUTE_CASES, each output checked
+against the plain version; one line per case.
 """
 import ctypes
 import hashlib
@@ -26,22 +32,26 @@ import torch
 from . import _build, highpass
 from .highpass import median_highpass_plain
 
-SHAPES = ((20480, 31, 31), (1024, 41, 41), (1024, 15, 15))
+SHAPES = ((20480, 31, 31), (10240, 41, 41), (1024, 41, 41), (1024, 15, 15))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
 
 
 def _load(source: Path):
+    """The float32 entry ``glimpse_median_highpass`` of the library built
+    from ``source``."""
     if source.resolve() == (_build.SOURCE_DIR / "highpass.cu").resolve():
-        return highpass._entry()[1]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = _build.BUILD_DIR / "bench" / f"lib{source.stem}-{digest}.so"
-    if not lib.exists():
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-    fn = ctypes.CDLL(str(lib)).glimpse_median_highpass
+        lib = highpass._entry()[0]
+    else:
+        digest = hashlib.sha256(source.read_bytes() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
+        path = _build.BUILD_DIR / "bench" / f"lib{source.stem}-{digest}.so"
+        if not path.exists():
+            path.parent.mkdir(parents=True, exist_ok=True)
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(path), str(source)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+        lib = ctypes.CDLL(str(path))
+    fn = lib.glimpse_median_highpass
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -50,9 +60,15 @@ def _load(source: Path):
 def _time(fn, tiles, out, reps: int = 20) -> float:
     n, h, w = tiles.shape
     stream = torch.cuda.current_stream().cuda_stream
+    return _time_launch(lambda: fn(tiles.data_ptr(), out.data_ptr(), n, h, w, 5, 5, stream), reps)
+
+
+def _time_launch(launch_code, reps: int = 20) -> float:
+    """Mean ms of ``launch_code()``, a launch that returns a CUDA error code,
+    from CUDA events over ``reps`` launches after 3 warm-ups."""
 
     def launch():
-        code = fn(tiles.data_ptr(), out.data_ptr(), n, h, w, 5, 5, stream)
+        code = launch_code()
         if code != 0:
             raise RuntimeError(f"CUDA error {code}")
 
@@ -134,9 +150,60 @@ def pipe_rates(iters: int = 4096) -> dict:
     return rates
 
 
+# (shape, window, dtype) of each case --routes times: the main paths'
+# stacks, phase 24's tile at fewer tiles a stack, single tiles of the host
+# Tracker's sizes, generic windows, and 16- and 64-bit stacks.
+ROUTE_CASES = (
+    *(((n, 31, 31), (5, 5), torch.float32) for n in (20480, 10240, 2048, 512, 128, 64, 8, 1)),
+    ((10240, 41, 41), (5, 5), torch.float32), ((10240, 15, 15), (5, 5), torch.float32),
+    ((2560, 41, 41), (5, 5), torch.float32), ((64, 41, 41), (5, 5), torch.float32),
+    *(((1, h, w), (5, 5), torch.float32) for h, w in ((15, 15), (31, 42), (100, 100), (160, 160))),
+    ((1024, 31, 31), (7, 5), torch.float32), ((37, 31, 31), (3, 5), torch.float32),
+    ((1, 200, 200), (3, 5), torch.float32), ((2, 260, 260), (3, 5), torch.bfloat16),
+    ((20480, 31, 31), (5, 5), torch.bfloat16), ((20480, 31, 31), (5, 5), torch.float64),
+    ((1, 110, 110), (5, 5), torch.float64),
+)
+STAGED, GLOBAL = 1, 2  # csrc/highpass.cu's Route
+
+
+def time_routes(cases=ROUTE_CASES) -> None:
+    """One line per case: both routes' ms in turns, each output held to the
+    plain version bit for bit, beside the byte bound."""
+    lib = highpass._entry()[0]
+    fn = lib.glimpse_median_highpass_route
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rng = np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, size, dtype in cases:
+        tiles = torch.from_numpy(rng.normal(size=shape)).to("cuda", dtype)
+        want = median_highpass_plain(tiles, size)
+        times = {STAGED: [], GLOBAL: []}
+        for route in (STAGED, GLOBAL, GLOBAL, STAGED):
+            out = torch.empty_like(tiles)
+            times[route].append(_time_launch(
+                lambda: fn(tiles.data_ptr(), out.data_ptr(), *shape, *size, highpass.DTYPE_CODES[dtype], route, stream)))
+            if not torch.equal(out, want):
+                raise AssertionError(f"route {route} differs from the plain version at {shape} {size} {dtype}")
+        bound = 2 * tiles.numel() * tiles.element_size() / HBM_BYTES_PER_S * 1e3
+        print(
+            f"{shape} {size[0]}x{size[1]} {str(dtype).removeprefix('torch.')}"
+            f" ({highpass.kernel_variant(size, dtype, shape)} by the launcher's choice): bound {bound:.4f} ms;"
+            f" staged {' '.join(f'{t:.4f}' for t in times[STAGED])} ms;"
+            f" global {' '.join(f'{t:.4f}' for t in times[GLOBAL])} ms",
+            flush=True,
+        )
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("bench_highpass needs a CUDA card")
+    if argv == ["--routes"]:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True).stdout.strip()
+        print(f"{card}; the checkout's csrc/highpass.cu, staged route against global route", flush=True)
+        time_routes()
+        return
     sources = [Path(a) for a in argv] or [_build.SOURCE_DIR / "highpass.cu"]
     fns = [_load(s) for s in sources]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

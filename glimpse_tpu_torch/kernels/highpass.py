@@ -4,14 +4,22 @@ Replaces the TPU kernel ``glimpse_tpu/kernels/highpass_pallas.py``
 (``median_highpass``). The wrapper picks by device alone: a CPU tensor runs
 the plain version, :func:`glimpse_tpu_torch.ops.imageproc.highpass`; a CUDA
 tensor launches the kernel, or raises. The kernel's domain is odd taps, at
-most 49: :func:`covers` says whether a window lies inside it, and
+most 49, on tiles at least half the window high and wide, of any larger
+size: :func:`covers` says whether a window lies inside it, and
 :func:`highpass` asks it before any launch and sends the other windows to the
-plain version, which takes every size. Inside the domain a tile must fit one
-block's shared memory (in float32 about 170 x 170 pixels for the separable
-windows, 240 x 240 for the others; in 16 bits about 240 x 240 and 340 x 340,
-in float64 120 x 120 and 170 x 170); a larger one raises and is never
-rerouted. Tiles are float32, float64, float16 or bfloat16, and the output has
-the input's type.
+plain version, which takes every size. Inside the domain the library picks
+one of two routes on the host, from the stack's shape, the window and the
+element size: a tile that one block's shared memory holds (in float32 about
+170 x 170 pixels for the separable windows, 240 x 240 for the others; in 16
+bits about 240 x 240 and 340 x 340, in float64 120 x 120 and 170 x 170) is
+staged there, several small tiles to a block; a larger one is read from
+device memory by kernels whose grid spreads it over many SMs, and so is a
+stack of fewer tiles than the card has SMs whose tiles each hold more work
+than one block's threads, which the staged route would leave to one block
+a tile.
+:func:`kernel_variant` names the kernel a stack takes. Both routes run the
+same networks and are bit-equal to the plain version. Tiles are float32,
+float64, float16 or bfloat16, and the output has the input's type.
 """
 import ctypes
 import functools
@@ -23,7 +31,6 @@ from ..ops.imageproc import highpass as median_highpass_plain
 from . import _build
 
 MAX_TAPS = 49
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 # The windows with a kernel of their own (GLIMPSE_SEPARABLE_WINDOWS in
 # csrc/highpass.cu); the other windows run the generic kernel with their taps
 # padded to 9, 25 or 49.
@@ -39,37 +46,26 @@ def _entry():
     fn = lib.glimpse_median_highpass_typed
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.glimpse_median_highpass_variant_typed.argtypes = [ctypes.c_int] * 3
+    lib.glimpse_median_highpass_variant_typed.argtypes = [ctypes.c_int] * 6
     lib.glimpse_median_highpass_variant_typed.restype = ctypes.c_char_p
     return lib, fn
 
 
-def kernel_variant(size: Tuple[int, int], dtype: torch.dtype = torch.float32) -> str:
-    """The name of the compiled kernel a CUDA call with this window and
-    element type runs, as ``separable<KH,KW,R>[type]`` or
-    ``generic<S>[type]`` (builds the library on first use)."""
+def kernel_variant(size: Tuple[int, int], dtype: torch.dtype, shape: Tuple[int, int, int]) -> str:
+    """The name of the compiled kernel a CUDA call on a stack of this
+    (N, h, w) shape, element type and window runs, as
+    ``separable<KH,KW,R>[type]`` or ``generic<S>[type]``, with ``_global``
+    after the family on the route that reads from device memory (builds the
+    library on first use)."""
     lib, _ = _entry()
-    return lib.glimpse_median_highpass_variant_typed(*size, DTYPE_CODES[dtype]).decode()
-
-
-def _shared_bytes(h: int, w: int, kh: int, kw: int, itemsize: int = 4) -> int:
-    """Shared memory the kernel needs for one tile of ``itemsize``-byte
-    elements: two cp.async staging buffers for a separable window, each
-    with a 16-byte line of slack; the padded tile and its tap offsets (int32,
-    rounded up to a whole element) for the generic kernel."""
-    if (kh, kw) in SEPARABLE:
-        line = 16 // itemsize
-        return 2 * ((h * w + 2 * (line - 1)) & ~(line - 1)) * itemsize
-    padded_taps = next(s for s in (9, 25, MAX_TAPS) if kh * kw <= s)
-    offsets = -(-4 * padded_taps // itemsize) * itemsize
-    return offsets + itemsize * (h + kh - 1) * (w + kw - 1)
+    return lib.glimpse_median_highpass_variant_typed(*shape, *size, DTYPE_CODES[dtype]).decode()
 
 
 def covers(size: Tuple[int, int]) -> bool:
     """Whether this window lies in the kernel's domain: odd taps, at most 49.
-    A predicate on the window alone, as the TPU kernel's own domain is; a
-    tile that one block's shared memory cannot hold is inside it, and
-    :func:`median_highpass` raises for it."""
+    A predicate on the window alone, as the TPU kernel's own domain is: the
+    kernel takes a tile of any size that is at least half the window high
+    and wide."""
     kh, kw = size
     return kh % 2 == 1 and kw % 2 == 1 and kh * kw <= MAX_TAPS
 
@@ -78,8 +74,8 @@ def highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torch.Tenso
     """The median high-pass of a stack (N, h, w) by the route its window
     gives: :func:`median_highpass` where :func:`covers` says so, else the
     plain version. The choice is made from the window alone, before any
-    launch; inside the domain a tile the kernel cannot take, a build failure
-    or a launch failure raises.
+    launch; inside the domain a tile smaller than half the window, a build
+    failure or a launch failure raises.
     """
     if covers(size):
         return median_highpass(tiles, size)
@@ -91,9 +87,11 @@ def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torc
     float32, float64, float16 or bfloat16, in the input's type.
 
     Symmetric padding that repeats the edge pixel; odd ``kh`` and ``kw`` with
-    at most 49 taps. Bit-equal on both devices for every input: a window that
-    holds a NaN gives NaN, as ``torch.median`` does; ties and +-inf select
-    the same value. A 16-bit tile's difference is taken in float32 and
+    at most 49 taps, on tiles of any size at least half the window high and
+    wide (on a card, one that a block's shared memory cannot hold is read
+    from device memory). Bit-equal on both devices for every input: a window
+    that holds a NaN gives NaN, as ``torch.median`` does; ties and +-inf
+    select the same value. A 16-bit tile's difference is taken in float32 and
     rounded once to its type, as the plain version's is.
     """
     kh, kw = size
@@ -109,8 +107,6 @@ def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torc
     N, h, w = tiles.shape
     if h < kh // 2 + 1 or w < kw // 2 + 1:
         raise ValueError(f"tiles {h}x{w} are too small for {kh}x{kw} taps")
-    if _shared_bytes(h, w, kh, kw, tiles.element_size()) > _SMEM_LIMIT:
-        raise ValueError(f"a {h}x{w} {tiles.dtype} tile does not fit one block's shared memory")
     if tiles.device.type == "cpu":
         return median_highpass_plain(tiles, size)
     if tiles.device.type != "cuda":

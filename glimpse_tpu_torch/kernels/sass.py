@@ -8,7 +8,8 @@ disassembled with ``cuobjdump -sass``. For every kernel in it the script
 prints one line: its static instruction count, its min/max instructions
 (``FMNMX``), ptxas's registers and spills, both counts divided by the output
 pixels one pass of its loop computes (2 R for ``separable_kernel<KH, KW,
-R, type>``, 1 for a kernel that computes one pixel a pass), and its twelve
+R, type>`` and ``separable_global_kernel``, 1 for a kernel that computes
+one pixel a pass), and its twelve
 most frequent opcodes. The float64 kernels compare and select (``DSETP``,
 ``FSEL``) where the others run ``FMNMX``. Static counts of straight-line network code are what one
 pass executes; the staging loops are counted once.
@@ -24,10 +25,11 @@ from pathlib import Path
 from . import _build
 
 # Per-pass outputs from a kernel's mangled name: separable_kernel<KH, KW, R>
-# computes an R x 2 strip; every other kernel one pixel. A template on the
-# element type (since the 16- and 64-bit kernels) carries it after the sizes.
-_SEPARABLE = re.compile(r"separable_kernelILi(\d+)ELi(\d+)ELi(\d+)E(f|d|6__half|13__nv_bfloat16)?")
-_TEMPLATE = re.compile(r"(generic_kernel|median_highpass_kernel)ILi(\d+)E(f|d|6__half|13__nv_bfloat16)?")
+# and separable_global_kernel<KH, KW, R> compute an R x 2 strip; every other
+# kernel one pixel. A template on the element type (since the 16- and 64-bit
+# kernels) carries it after the sizes.
+_SEPARABLE = re.compile(r"(separable(?:_global)?_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E(f|d|6__half|13__nv_bfloat16)?")
+_TEMPLATE = re.compile(r"(generic(?:_global)?_kernel|median_highpass_kernel)ILi(\d+)E(f|d|6__half|13__nv_bfloat16)?")
 _TYPES = {"f": "float32", "d": "float64", "6__half": "float16", "13__nv_bfloat16": "bfloat16"}
 
 
@@ -45,8 +47,8 @@ def _tool(name: str) -> str:
 def _describe(mangled: str):
     m = _SEPARABLE.search(mangled)
     if m:
-        kh, kw, r = map(int, m.groups()[:3])
-        return f"separable_kernel<{_typed(f'{kh},{kw},{r}', m.group(4))}>", 2 * r
+        kh, kw, r = map(int, m.groups()[1:4])
+        return f"{m.group(1)}<{_typed(f'{kh},{kw},{r}', m.group(5))}>", 2 * r
     m = _TEMPLATE.search(mangled)
     if m:
         return f"{m.group(1)}<{_typed(m.group(2), m.group(3))}>", 1

@@ -9,7 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import highpass_case_tiles, highpass_check_cases
+from chip_smoke import HIGHPASS_LARGE_TILES, highpass_case_tiles, highpass_check_cases
 from glimpse_tpu_torch.kernels.highpass import SEPARABLE, covers, kernel_variant, median_highpass, median_highpass_plain
 from glimpse_tpu_torch.kernels.resample import systematic_resample, systematic_resample_plain
 from glimpse_tpu_torch.ops.resampling import systematic_thresholds
@@ -45,7 +45,7 @@ def test_highpass_kernel_holds_nan_ties_and_inf(cuda, label, shape, size, specia
     tiles = highpass_case_tiles(shape, specials, misaligned, cuda)
     got = median_highpass(tiles, size)
     want = median_highpass_plain(tiles, size)
-    variant = kernel_variant(size)
+    variant = kernel_variant(size, torch.float32, shape)
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True, msg=lambda m: f"{variant}: {m}")
     if specials:
         assert torch.isnan(want).any()
@@ -53,12 +53,12 @@ def test_highpass_kernel_holds_nan_ties_and_inf(cuda, label, shape, size, specia
 
 @pytest.mark.cuda
 def test_highpass_variants_match_the_wrapper(cuda) -> None:
-    """The library runs a separable kernel exactly for the windows the
-    wrapper's shared-memory check counts as separable."""
+    """The library runs a separable kernel exactly for the windows
+    ``SEPARABLE`` names."""
     for kh in range(1, 50, 2):
         for kw in range(1, 50, 2):
             if kh * kw <= 49:
-                assert kernel_variant((kh, kw)).startswith("separable") == ((kh, kw) in SEPARABLE), (kh, kw)
+                assert kernel_variant((kh, kw), torch.float32, (37, 31, 31)).startswith("separable") == ((kh, kw) in SEPARABLE), (kh, kw)
 
 
 @pytest.mark.cuda
@@ -424,7 +424,7 @@ def test_highpass_kernel_in_16_and_64_bits(cuda, label, shape, size, specials, m
     got = median_highpass(tiles, size)
     assert median_highpass.launches == before + 1 and got.dtype == dtype
     torch.testing.assert_close(got, median_highpass_plain(tiles, size), rtol=0, atol=0, equal_nan=True,
-                               msg=lambda m: f"{kernel_variant(size, dtype)}: {m}")
+                               msg=lambda m: f"{kernel_variant(size, dtype, shape)}: {m}")
 
 
 @pytest.mark.cuda
@@ -444,3 +444,103 @@ def test_resample_kernel_in_16_and_64_bits(cuda, n, p, name) -> None:
     assert systematic_resample.launches == before + 1 and got[0].dtype == got[1].dtype == dtype
     want = systematic_resample_plain(t, particles, weights)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["float32", *WIDE_AND_NARROW])
+@pytest.mark.parametrize("shape, size, misaligned", HIGHPASS_LARGE_TILES,
+                         ids=[f"{'x'.join(map(str, c[0]))}-{c[1][0]}x{c[1][1]}" for c in HIGHPASS_LARGE_TILES])
+def test_highpass_kernel_takes_large_tiles(cuda, shape, size, misaligned, name) -> None:
+    """Tiles one block's shared memory cannot hold in float32 (chip_smoke
+    phase 3's, one stack one element past a 16-byte line), with ties, NaN
+    and +-inf: the kernel launches, by the global route (a few tiles, each
+    more work than a block's threads, take it in every dtype, whether or
+    not they fit), and equals the plain version, NaN included."""
+    dtype = getattr(torch, name)
+    tiles = highpass_case_tiles(shape, True, misaligned, cuda, seed=3, dtype=dtype)
+    variant = kernel_variant(size, dtype, shape)
+    assert "_global" in variant, variant
+    before = median_highpass.launches
+    got = median_highpass(tiles, size)
+    assert median_highpass.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got, median_highpass_plain(tiles, size), rtol=0, atol=0, equal_nan=True,
+                               msg=lambda m: f"{variant}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, size, name, spread", [
+    ((20480, 31, 31), (5, 5), "float32", False), ((20480, 31, 31), (5, 5), "float64", False),
+    ((1024, 31, 31), (7, 5), "float32", False), ((1, 31, 42), (5, 5), "float32", False),
+    ((1, 160, 160), (5, 5), "float32", True), ((1, 110, 110), (5, 5), "float64", True),
+    ((37, 31, 31), (3, 5), "float32", True), ((2, 260, 260), (3, 5), "bfloat16", True),
+])
+def test_highpass_route_follows_tile_count_and_work(cuda, shape, size, name, spread) -> None:
+    """Stacks that fit in one block's shared memory: many tiles, or tiles
+    of no more work items than a block's threads, keep the staged route; a
+    few tiles of more work take the global route, which spreads them over
+    the card (``kernels/bench_highpass.py --routes``). Either way the kernel
+    equals the plain version."""
+    dtype = getattr(torch, name)
+    variant = kernel_variant(size, dtype, shape)
+    assert ("_global" in variant) == spread, variant
+    tiles = highpass_case_tiles(shape, True, False, cuda, seed=4, dtype=dtype)
+    torch.testing.assert_close(median_highpass(tiles, size), median_highpass_plain(tiles, size), rtol=0, atol=0,
+                               equal_nan=True, msg=lambda m: f"{variant}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, search", [("float64", (131, 131)), ("float32", (201, 201))])
+def test_tracker_takes_search_boxes_past_shared_memory(cuda, name, search) -> None:
+    """A float64 tracker with 131 x 131 search boxes and a float32 one with
+    201 x 201, whose search tiles one block cannot stage: a step on the card
+    launches the high-pass and follows the CPU from the same draws."""
+    from chip_smoke import cartesian_motion, make_scene
+    from glimpse_tpu_torch.track import batch
+
+    frames, camera, rng = make_scene(2)
+    points_xy = rng.uniform(200, 312, size=(8, 2))
+    dtype = getattr(torch, name)
+    draws = np.random.default_rng(5)
+    noise = {
+        "init": {"xy": draws.normal(size=(8, 64, 2)).astype(np.float32), "v": draws.normal(size=(8, 64, 3)).astype(np.float32)},
+        "a": draws.normal(size=(1, 8, 64, 3)).astype(np.float32), "resample_u": draws.random((1, 8)).astype(np.float32),
+    }
+    means = {}
+    for device in (cuda, torch.device("cpu")):
+        motion = cartesian_motion(points_xy, 1.5, (3.0, 3.0, 0.0), (0.2, 0.2, 0.0), device)
+        config = batch.BatchConfig(n_particles=64, template_size=(15, 15), search_size=search, dtype=dtype)
+        tracker = batch.BatchTracker(camera[None], [None], [0.3], motion, config, device=device)
+        images = torch.from_numpy(frames[:, None]).to(device)
+        state = tracker.initialize(torch.Generator(device=device).manual_seed(0), images[0], noise=noise["init"])
+        before = median_highpass.launches
+        _, out = tracker.step(state, images[1], torch.tensor(1.0, device=device),
+                              noise={"a": noise["a"][0], "resample_u": noise["resample_u"][0]})
+        if device.type == "cuda":
+            assert median_highpass.launches == before + 1
+            assert "_global" in kernel_variant((5, 5), dtype, (8, *search))
+        means[device.type] = out["mean"].double().cpu().numpy()
+    assert np.isfinite(means["cuda"]).all()
+    np.testing.assert_allclose(means["cuda"], means["cpu"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_host_tracker_finishes_a_wide_cloud_on_card(cuda) -> None:
+    """chip_smoke phase 16 (f) at its size on a small oblique scene: the
+    host Tracker whose particle cloud makes search tiles past 170 x 170
+    finishes every track on the card, and each step from the CPU's carried
+    particles projects within 0.1 px of the CPU's."""
+    from chip_smoke import oblique_points, oblique_scene, wide_cloud_run
+
+    scene = oblique_scene(4, cuda)
+    points = oblique_points(scene, 16)
+    draws = np.random.default_rng(16)
+    n, p, t = 4, 2048, 4
+    noise = {
+        "init": {"xy": draws.normal(size=(n, p, 2)).astype(np.float32), "z": draws.normal(size=(n, p)).astype(np.float32),
+                 "v": draws.normal(size=(n, p, 3)).astype(np.float32)},
+        "a": draws.normal(size=(t - 1, n, p, 3)).astype(np.float32),
+        "resample_u": draws.random((t - 1, n)).astype(np.float32),
+    }
+    line, largest = wide_cloud_run(scene, points, noise, {"card": cuda, "cpu": torch.device("cpu")}, p, n_points=n,
+                                   n_frames=t)
+    assert "_global" in largest["variant"] and largest["variant"] in line

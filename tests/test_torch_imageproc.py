@@ -6,10 +6,13 @@ numpy. Float64 results are held exactly unless a test says otherwise; the
 float32 SSE map to 2e-6 of the map's largest value against the direct NumPy
 sum and 2e-5 against OpenCV's ``matchTemplate``.
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from glimpse_tpu.kernels.highpass_pallas import median_highpass as pallas_highpass
 from glimpse_tpu.ops import imageproc as jax_imageproc
 from glimpse_tpu.ops import ncc as jax_ncc
 from glimpse_tpu.ops import resampling as jax_resampling
@@ -172,14 +175,43 @@ def test_highpass_domain_predicate_and_route(shape, size, inside) -> None:
     np.testing.assert_array_equal(highpass_kernel.highpass(tiles, size).numpy(), want)
 
 
-@pytest.mark.parametrize("shape, size", [((300, 300), (5, 5)), ((2, 9), (5, 5)), ((250, 250), (1, 1)), ((171, 171), (3, 7))])
-def test_highpass_refuses_a_tile_the_kernel_cannot_take(shape, size, monkeypatch) -> None:
-    """A window inside the domain on a tile larger than one block's shared
-    memory, or smaller than half the window, raises from the wrapper and
-    from the routing entry alike: it is never sent to the plain version."""
-    assert highpass_kernel.covers(size)
-    monkeypatch.setattr(highpass_kernel, "median_highpass_plain", lambda *a, **k: pytest.fail("rerouted to the plain version"))
-    tiles = torch.zeros(1, *shape)
+@pytest.mark.parametrize("shape, size", [
+    ((1, 300, 300), (5, 5)), ((1, 250, 250), (1, 1)), ((1, 171, 171), (3, 7)), ((2, 200, 260), (3, 5)),
+])
+def test_highpass_takes_a_tile_of_any_size(shape, size) -> None:
+    """Tiles at and past the largest that one block stages in float32, which
+    the card reads from device memory: on a CPU tensor, the wrapper and the
+    routing entry equal the reference's Pallas kernel (interpret mode) bit
+    for bit, as the Pallas kernel, whose block is the whole padded tile,
+    takes them. The Pallas kernel's padding slices fail on a window one
+    pixel high or wide (``[pw - 1::-1]`` takes the whole axis at pw = 0), so
+    the 1 x 1 window is held to the reference's sort median instead."""
+    x = tile(shape, seed=17).astype(np.float32)
+    if min(size) > 1:
+        want = np.asarray(pallas_highpass(jnp.asarray(x), size=size, interpret=True))
+    else:
+        want = jax_imageproc.highpass(x, size=size, xp=np)
     for entry in (highpass_kernel.median_highpass, highpass_kernel.highpass):
-        with pytest.raises(ValueError, match="shared memory|too small"):
-            entry(tiles, size)
+        np.testing.assert_array_equal(entry(torch.from_numpy(x), size).numpy(), want)
+
+
+def test_highpass_refuses_a_tile_smaller_than_half_the_window(monkeypatch) -> None:
+    """A (2, 9) tile under 5x5 taps, whose padding the reference's slices
+    cannot take either, raises from the wrapper and from the routing entry
+    alike: it is never sent to the plain version."""
+    monkeypatch.setattr(highpass_kernel, "median_highpass_plain", lambda *a, **k: pytest.fail("rerouted to the plain version"))
+    for entry in (highpass_kernel.median_highpass, highpass_kernel.highpass):
+        with pytest.raises(ValueError, match="too small"):
+            entry(torch.zeros(1, 2, 9), (5, 5))
+
+
+def test_highpass_takes_a_large_float64_tile() -> None:
+    """A (1, 131, 131) float64 tile, past what one block stages in float64
+    (about 120 x 120), equals the reference's float64 Pallas kernel
+    (interpret mode, under a scoped jax.enable_x64) bit for bit."""
+    assert 2 * 131 * 131 * 8 > 232448  # two staging buffers of the tile, past one Hopper block's shared memory
+    x = tile((1, 131, 131), seed=18)
+    with jax.enable_x64(True):
+        want = np.asarray(pallas_highpass(jnp.asarray(x), size=(5, 5), interpret=True))
+    assert want.dtype == np.float64
+    np.testing.assert_array_equal(highpass_kernel.median_highpass(torch.from_numpy(x), (5, 5)).numpy(), want)
