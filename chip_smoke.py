@@ -15,8 +15,10 @@ each:
    (10,240, 31, 31) search tiles among them); then, held with
    rtol = atol = 0 and NaN where the plain version has NaN, tiles of tied
    values with NaN and +-inf pixels, for every compiled separable window and
-   four that run the generic kernel, at 31x31 and at the smallest tiles each
-   window allows, each case named with the kernel variant that ran; the
+   four that run the generic kernel, at 31x31, at the smallest tiles the
+   TPU kernel allows and on tiles thinner than half the window (whose
+   padding reflects more than once), each case named with the kernel
+   variant that ran; the
    host tracker's tiles ((1, 15, 15) templates and non-square (1, h, w)
    search tiles) bit for bit and timed; an even and an over-49-tap
    window, which ``kernels.highpass.highpass`` sends to the plain version;
@@ -51,7 +53,7 @@ each:
 10. a checkpoint on the card: save after step 3, load, run 3 more steps;
     outputs and particles bit-equal to the uninterrupted run;
 11. the stabilization recipe of ``benchmarks/columbia_pipeline.py``, cut to
-    250 frames (phase 18 runs it at 1,000 from files): frames of 512x512
+    100 frames (phase 18 runs it at 1,000 from files): frames of 512x512
     rendered on the card (static terrain, a
     moving glacier band, a camera wobbling by (0.1, 0.1, 0.03) deg), 2,048
     keypoints a frame under the terrain mask, matching at offsets (1, 8, 64)
@@ -182,7 +184,28 @@ each:
     both kernels launched in the stabilized run, its RMSE against the truth
     below the unstabilized one; the three RMSEs (beside the JAX package's
     22.78 on its own run), point-steps/s and peak memory of the stabilized
-    run, each run's launches.
+    run, each run's launches;
+25. two observers stabilized, then tracked: ``main_two_observers`` of
+    ``benchmarks/columbia_pipeline.py`` at full length. Observer A (phase
+    18's camera) fires at even steps and B (west of the scene, looking east)
+    at odd ones, 500 frames each, each written as JPEG and stabilized on its
+    own through ``ObserverCameras``; then 10,240 points x 512 particles over
+    the 1,000-step union timeline through ``track_stream`` with
+    ``obs_masks`` and the fitted cameras as a (1,000, 2, 20)
+    ``camera_vectors_seq``, and once with none. Each observer's mean view
+    direction error at most 0.01 deg, every final mean finite, the
+    stabilized RMSE below the unstabilized one, the high-pass launched for
+    each observer's templates and once a step, the resample once a step;
+    the RMSEs beside the JAX package's 4.14 and 92.0;
+26. a viewshed that hides tracked terrain: phase 14's object path over its
+    DEM with a 40 m ridge, whose shadow covers part of the tracked area,
+    at 10,240 points x 2,048 particles x 20 frames rendered from the
+    visible cells; points stratified by their true paths (a fifth entering
+    hidden cells, three fifths keeping 20 m from them). Every point on a
+    hidden cell lost by that step, every far point kept with the median
+    velocity within 0.3 of the truth, ``Tracks`` NaN from each failing step
+    with ``errors`` set; then 256 lost points on the card against the CPU,
+    each step from the CPU's state within 1e-3, validity flags equal.
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
@@ -240,6 +263,9 @@ def _cuda_ms(fn, reps: int = 20) -> float:
 HOST_TRACKER_TILES = ((15, 15), (19, 19), (19, 23), (26, 31), (31, 42))
 
 HIGHPASS_WINDOWS = ((3, 3), (5, 5), (7, 7), (3, 7), (9, 5), (1, 9), (3, 11), (7, 5), (1, 1), (1, 49))
+# Tiles thinner than half the window, whose padding reflects more than once
+# (a 3x3 template under 7x7 taps): (h, w), window.
+THIN_TILES = (((2, 9), (5, 5)), ((1, 9), (5, 5)), ((9, 2), (5, 5)), ((2, 2), (5, 5)), ((3, 3), (7, 7)))
 
 
 def highpass_tiles(shape, seed: int = 0, specials: bool = True) -> np.ndarray:
@@ -266,7 +292,8 @@ def highpass_check_cases():
     window, specials, misaligned). Ties at the main path's shapes; NaN, +-inf
     and ties for every window of HIGHPASS_WINDOWS at 31x31 (N = 37, so the
     last group of tiles a block takes is partial) and at the smallest tiles
-    the window allows; one stack that starts 4 bytes past a 16-byte line."""
+    the TPU kernel allows; THIN_TILES; one stack that starts 4 bytes past a
+    16-byte line."""
     cases = [
         ("ties", (20480, 31, 31), (5, 5), False, False),
         ("ties+nan+inf", (1024, 41, 41), (5, 5), True, False),
@@ -276,6 +303,8 @@ def highpass_check_cases():
     for kh, kw in HIGHPASS_WINDOWS:
         cases.append(("ties+nan+inf", (37, 31, 31), (kh, kw), True, False))
         cases.append(("ties+nan+inf, smallest", (64, kh // 2 + 1, kw // 2 + 1), (kh, kw), True, False))
+    for (h, w), size in THIN_TILES:
+        cases.append(("ties+nan+inf, thin", (64, h, w), size, True, False))
     return cases
 
 
@@ -529,12 +558,14 @@ STAB_OFFSETS = (1, 8, 64)
 
 
 def stabilization_scene(n_frames: int, device, seed: int = 0, imgsz: int = STAB_IMG, cam_xyz=STAB_CAM_XYZ,
-                        viewdir=STAB_VIEWDIR, jitter_seed: int = 42):
+                        viewdir=STAB_VIEWDIR, jitter_seed: int = 42, steps=None):
     """benchmarks/columbia_pipeline.py's scene, rendered on ``device``: a
     textured plane (terrain) with a glacier band at world y 180-360 moving
-    (0.06, 0.04) per frame, seen from (256, -200, 400) looking down 35 deg
+    (0.06, 0.04) per step, seen from (256, -200, 400) looking down 35 deg
     through a 512x512 camera with f = 512, whose view direction wobbles from
-    frame 1 on (draws from ``jitter_seed``). ``imgsz`` (f the same),
+    frame 1 on (draws from ``jitter_seed``). Frame i shows the glacier at
+    step ``steps[i]`` (default i), as the reference's ``steps=`` gives an
+    observer that fires on some steps only. ``imgsz`` (f the same),
     ``cam_xyz`` and ``viewdir`` set another camera over the same world.
     Returns (frames (n, imgsz, imgsz) uint8 numpy, the true view directions
     (n, 3), the nominal camera vector (20,), the terrain mask (imgsz, imgsz)
@@ -569,13 +600,14 @@ def stabilization_scene(n_frames: int, device, seed: int = 0, imgsz: int = STAB_
         n = texture.shape[0]
         return sampling.bilinear_sample(texture, (y + pad).clamp(0, n - 1), (x + pad).clamp(0, n - 1))
 
+    steps = np.arange(n_frames) if steps is None else np.asarray(steps)
     frames = torch.empty((n_frames, imgsz, imgsz), dtype=torch.uint8, device=device)
     for i, direction in enumerate(truth):
         vector = base.copy()
         vector[3:6] = direction
         wx, wy = (w.clamp(-pad, img + pad) for w in ground(vector))
         terrain = sample(textures[0], wx, wy)
-        glacier = sample(textures[1], wx - STAB_VELOCITY[0] * i, wy - STAB_VELOCITY[1] * i)
+        glacier = sample(textures[1], wx - STAB_VELOCITY[0] * steps[i], wy - STAB_VELOCITY[1] * steps[i])
         value = torch.where((wy >= STAB_BAND[0]) & (wy <= STAB_BAND[1]), glacier, terrain)
         frames[i] = torch.floor(value.clamp(0, 255)).to(torch.uint8).reshape(imgsz, imgsz)
     _, wy = ground(base)
@@ -917,15 +949,33 @@ OBLIQUE_VELOCITY = (1.2, 0.8)  # world units a frame in x, y
 OBLIQUE_IMG = 512
 
 
-def oblique_scene(n_frames: int, cuda, seed: int = 7):
+# Phase 26's ridge: a crest at y = 200 m, 40 m high with a Gaussian profile
+# of 4 m across, flat-topped from x = 150 to 230 m and falling off over 5 m at
+# its ends. From phase 14's station, 350 m south and 260 m up, it hides the
+# terrain behind it for some 60 m.
+RIDGE = dict(x=(150.0, 230.0), y=200.0, height=40.0, width=4.0, taper=5.0)
+
+
+def ridge_heights(x, y, ridge: dict) -> np.ndarray:
+    """The ridge's height above the DEM at world points (x, y)."""
+    x0, x1 = ridge["x"]
+    outside = np.maximum(np.maximum(x0 - x, x - x1), 0.0)
+    return (ridge["height"] * np.exp(-0.5 * ((y - ridge["y"]) / ridge["width"]) ** 2)
+            * np.exp(-0.5 * (outside / ridge["taper"]) ** 2))
+
+
+def oblique_scene(n_frames: int, cuda, seed: int = 7, ridge=None):
     """examples/oblique_3d_tracking.py's scene at 512 x 512: a gently
     undulating DEM of 640 x 640 cells of 1.25 m with a sharp texture that
     moves ``OBLIQUE_VELOCITY`` a frame, seen from (200, -150, 260) pitched 35
     deg down with f = 512. Frames are rendered by ``render.project_dem`` and
     their holes (sky, streaks) filled from the nearest rendered pixel, as
-    the example does. Returns a dict: dem, cam, observer (``Image`` objects
-    with ``array`` set), viewshed (a ``Raster``, computed on ``cuda``), its
-    visible share, and the seconds spent rendering and in the viewshed."""
+    the example does. With a ``ridge`` (:data:`RIDGE`) added to the DEM, the
+    viewshed is computed first and only its visible cells are rendered, so
+    the ridge occludes what it hides. Returns a dict: dem, cam, observer
+    (``Image`` objects with ``array`` set), viewshed (a ``Raster``, computed
+    on ``cuda``), its visible share, and the seconds spent rendering and in
+    the viewshed."""
     import datetime
 
     import scipy.ndimage
@@ -936,24 +986,36 @@ def oblique_scene(n_frames: int, cuda, seed: int = 7):
     rng = np.random.default_rng(seed)
     cells = 640
     z = scipy.ndimage.gaussian_filter(rng.normal(size=(cells, cells)), 24.0) * 120
+    if ridge is not None:
+        centres = -200 + 1.25 * (np.arange(cells) + 0.5)
+        z = z + ridge_heights(centres[None, :], centres[::-1, None], ridge)
     dem = Raster(z, x=(-200, 600), y=(600, -200))
     texture = scipy.ndimage.gaussian_filter(rng.normal(size=(cells, cells)), 0.8) * 100
     cam_args = dict(imgsz=(OBLIQUE_IMG, OBLIQUE_IMG), f=512, xyz=(200, -150, 260), viewdir=(0, -35, 0))
     t0, day = datetime.datetime(2020, 1, 1), datetime.timedelta(days=1)
+
+    def viewshed():
+        start = time.perf_counter()
+        visible = dem.viewshed(cam_args["xyz"], device=cuda)
+        return visible, time.perf_counter() - start
+
+    if ridge is not None:
+        visible, viewshed_s = viewshed()
     start = time.perf_counter()
     images = []
     for i in range(n_frames):
         shifted = scipy.ndimage.shift(
             texture, (OBLIQUE_VELOCITY[1] * i / dem.d[1], OBLIQUE_VELOCITY[0] * i / dem.d[0]), order=1, mode="nearest")
-        img = render.project_dem(Camera(**cam_args), dem, values=shifted[..., None], scale_limits=(1, 8), parallel=4)[..., 0]
+        mask = None if ridge is None else visible & ~np.isnan(dem.array)
+        img = render.project_dem(Camera(**cam_args), dem, values=shifted[..., None], mask=mask, scale_limits=(1, 8),
+                                 parallel=4)[..., 0]
         idx = scipy.ndimage.distance_transform_edt(np.isnan(img), return_distances=False, return_indices=True)
         image = Image(f"frame{i}.jpg", cam=Camera(**cam_args), datetime=t0 + i * day)
         image.array = img[tuple(idx)].astype(np.float32)
         images.append(image)
     render_s = time.perf_counter() - start
-    start = time.perf_counter()
-    visible = dem.viewshed(cam_args["xyz"], device=cuda)
-    viewshed_s = time.perf_counter() - start
+    if ridge is None:
+        visible, viewshed_s = viewshed()
     return {
         "dem": dem, "cam": images[0].cam, "observer": Observer(images, sigma=0.2), "day": day,
         "viewshed": Raster(visible.astype(np.float32), x=dem.xlim, y=dem.ylim), "visible": float(visible.mean()),
@@ -980,6 +1042,65 @@ def oblique_points(scene, n: int, seed: int = 8) -> np.ndarray:
     if len(xy) < n:
         raise AssertionError(f"only {len(xy)} of the {n} points asked for start on visible terrain")
     return xy[:n]
+
+
+def nearest_cells(raster, xy):
+    """The (rows, cols) of the cells of a ``Raster`` under world points (...,
+    2), by the tracker's nearest-cell rule (floor of the offset over the
+    cell size, clamped to the edge)."""
+    H, W = raster.array.shape
+    cols = np.clip(np.floor((xy[..., 0] - raster.xlim[0]) / raster.d[0]).astype(int), 0, W - 1)
+    rows = np.clip(np.floor((xy[..., 1] - raster.ylim[0]) / raster.d[1]).astype(int), 0, H - 1)
+    return rows, cols
+
+
+def hidden_at(viewshed, xy) -> np.ndarray:
+    """Whether world points (..., 2) lie on a hidden cell of the viewshed
+    ``Raster``."""
+    return viewshed.array[nearest_cells(viewshed, xy)] <= 0
+
+
+def occlusion_points(scene, n: int, n_frames: int, ridge: dict, seed: int = 26):
+    """Phase 26's points, stratified by their true paths (``OBLIQUE_VELOCITY``
+    a frame over ``n_frames``) against the viewshed, from candidates drawn
+    uniformly over phase 14's tracked area (x 120-280, y 150-280) that start
+    on visible terrain at least 5 m from any hidden cell and whose path stays
+    off the ridge (under 0.5 m of it, so no point climbs its 40 m wall,
+    where the texture stretches out of recognition): a fifth whose path
+    enters hidden cells, three fifths whose path keeps 20 m from every hidden
+    cell, and a fifth of neither. Distances are between cell centres, less
+    a cell's diagonal. Returns (points (n, 2) shuffled, true positions (n,
+    n_frames, 2), the category of each point: "enters", "kept", "near")."""
+    import scipy.ndimage
+
+    viewshed = scene["viewshed"]
+    hidden = viewshed.array <= 0
+    cell = abs(viewshed.d[0])
+    slack = cell * np.sqrt(2.0)
+    distance = scipy.ndimage.distance_transform_edt(~hidden) * cell
+
+    def clearance(xy):
+        return distance[nearest_cells(viewshed, xy)] - slack
+
+    rng = np.random.default_rng(seed)
+    candidates = rng.uniform([120, 150], [280, 280], size=(40 * n, 2))
+    candidates = candidates[clearance(candidates) >= 5.0]
+    paths = candidates[:, None] + np.arange(n_frames)[None, :, None] * np.asarray(OBLIQUE_VELOCITY)
+    flat = ridge_heights(paths[..., 0], paths[..., 1], ridge).max(axis=1) < 0.5
+    candidates, paths = candidates[flat], paths[flat]
+    enters = hidden_at(viewshed, paths).any(axis=1)
+    kept = clearance(paths).min(axis=1) >= 20.0
+    quotas = {"enters": (enters, n // 5), "kept": (kept, 3 * n // 5), "near": (~enters & ~kept, n - n // 5 - 3 * n // 5)}
+    picked, labels = [], []
+    for label, (where, count) in quotas.items():
+        index = np.flatnonzero(where)
+        if len(index) < count:
+            raise AssertionError(f"phase 26: {len(index)} candidate points of kind {label!r}, {count} wanted")
+        picked.append(index[:count])
+        labels += [label] * count
+    order = rng.permutation(n)
+    chosen = np.concatenate(picked)[order]
+    return candidates[chosen], paths[chosen], np.asarray(labels)[order]
 
 
 def oblique_tracker(scene, points_xy, n_particles: int, device):
@@ -1045,10 +1166,11 @@ def profile_step(tracker, state, frame) -> str:
     )
 
 
-def lockstep_from_shared_state(card, cpu, images, noise, n_steps: int):
+def lockstep_from_shared_state(card, cpu, images, noise, n_steps: int, valid_log=None):
     """Each of ``n_steps`` steps on both trackers from the CPU's state moved
     to the card, with the same injected draws; returns (largest |diff| of
-    the outputs "mean" and "sigma", number of validity flags that differ)."""
+    the outputs "mean" and "sigma", number of validity flags that differ).
+    A list ``valid_log`` receives the CPU's validity flags (N,) of each step."""
     import torch
 
     cuda = card.device
@@ -1064,6 +1186,8 @@ def lockstep_from_shared_state(card, cpu, images, noise, n_steps: int):
         state, cpu_out = cpu.step(state, torch.from_numpy(images[i + 1]), torch.tensor(1.0), noise=step_noise)
         carried = max(carried, *(float((card_out[k].cpu() - cpu_out[k]).abs().max()) for k in ("mean", "sigma")))
         flags += int((card_out["valid"].cpu() != cpu_out["valid"]).sum())
+        if valid_log is not None:
+            valid_log.append(cpu_out["valid"])
     return carried, flags
 
 
@@ -1145,6 +1269,108 @@ def objects_to_tracks(cuda, card: str, n14: int = 10240, p14: int = 2048, t14: i
         f" peak {peak14 / 2**30:.2f} GiB; {profile14}"
     )
     return line, launches14, scene, points14
+
+
+def occluding_viewshed(devices, card: str, n26: int = 10240, p26: int = 2048, t26: int = 20, n_check: int = 256):
+    """Phase 26: phase 14's object path over a DEM with :data:`RIDGE`, whose
+    viewshed hides part of the tracked area, at ``n26`` points x ``p26``
+    particles x ``t26`` frames: host objects, ``from_motions``,
+    ``from_observers(viewshed=)``, ``feeder.stream_track`` and ``to_tracks``.
+    Raises unless every point whose true position lies on a hidden cell at a
+    step is lost by that step, every point whose path keeps 20 m from hidden
+    cells is kept and their median velocity is within 0.3 of the truth, each
+    lost point's means and sigmas are NaN from its failing step on (finite
+    before) with ``Tracks.errors`` set, the kernels launched once a step plus
+    the templates (high-pass) and once a step (resample), and, for up to
+    ``n_check`` of the lost points, the card follows the CPU at every step
+    from the CPU's state within 1e-3 with equal validity flags and loses at
+    least one of them. Returns (the line to print, both kernels' launches)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels.highpass import median_highpass
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+    from glimpse_tpu_torch.track import batch as batch_module
+    from glimpse_tpu_torch.track import feeder
+
+    cuda = devices["card"]
+    scene = oblique_scene(t26, cuda, ridge=RIDGE)
+    points, paths, labels = occlusion_points(scene, n26, t26, RIDGE)
+    tracker = oblique_tracker(scene, points, p26, cuda)
+    images = scene["observer"].images
+    median_highpass.launches = 0
+    systematic_resample.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    _, outputs = feeder.stream_track(tracker, torch.Generator(device=cuda).manual_seed(26), [images],
+                                     np.ones(t26 - 1, np.float32))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
+    if launches != {"median_highpass": t26, "systematic_resample": t26 - 1}:
+        raise AssertionError(f"phase 26: the kernels did not carry the run: launches {launches}")
+    out = stacked(outputs)
+    valid = out["valid"].cpu().numpy() > 0  # (t26 - 1, n26): step t at row t - 1
+    hidden = hidden_at(scene["viewshed"], paths[:, 1:]).T  # the truth at steps 1..t26 - 1
+    missed = hidden & valid
+    if missed.any():
+        steps, which = np.nonzero(missed)
+        raise AssertionError(f"phase 26: {len(set(which))} points on hidden cells still valid, e.g. point {which[0]}"
+                             f" ({labels[which[0]]}) at step {steps[0] + 1}")
+    kept = labels == "kept"
+    if not valid[:, kept].all():
+        raise AssertionError(f"phase 26: {int((~valid[:, kept]).any(axis=0).sum())} points 20 m from hidden cells lost")
+    tracks = batch_module.to_tracks(list(scene["observer"].datetimes), scene["day"], out)
+    lost = ~valid[-1]
+    failed = np.array([e is not None for e in tracks.errors])
+    if not np.array_equal(failed, lost):
+        raise AssertionError(f"phase 26: Tracks.errors on {int(failed.sum())} points, {int(lost.sum())} lost")
+    for n in np.flatnonzero(lost):
+        t_fail = int(np.argmin(valid[:, n])) + 1  # the first failing step, as a column of Tracks
+        for name, value in (("means", tracks.means), ("sigmas", tracks.sigmas)):
+            if not (np.isnan(value[n, t_fail:]).all() and np.isfinite(value[n, 1:t_fail]).all()):
+                raise AssertionError(f"phase 26: point {n}'s {name} are not NaN from its failing step {t_fail} on")
+    velocity = np.median(tracks.vxyz[kept, -1, 0:2], axis=0)
+    if np.abs(velocity - OBLIQUE_VELOCITY).max() > 0.3:
+        raise AssertionError(f"phase 26: median velocity of the kept points {velocity}, truth {OBLIQUE_VELOCITY}")
+    # The card against the CPU on lost points, whose clouds met the shadow's edge.
+    check = np.flatnonzero(lost)[:n_check]
+    if len(check) < n_check:
+        raise AssertionError(f"phase 26: {len(check)} points lost, {n_check} wanted for the card against the CPU")
+    draws = np.random.default_rng(27)
+    n, p = len(check), p26
+    noise = {
+        "init": {"xy": draws.normal(size=(n, p, 2)).astype(np.float32), "z": draws.normal(size=(n, p)).astype(np.float32),
+                 "v": draws.normal(size=(n, p, 3)).astype(np.float32)},
+        "a": draws.normal(size=(t26 - 1, n, p, 3)).astype(np.float32),
+        "resample_u": draws.random((t26 - 1, n)).astype(np.float32),
+    }
+    pair = {k: oblique_tracker(scene, points[check], p, d) for k, d in devices.items()}
+    frames = np.stack([f for f in feeder.FrameFeeder([images])])
+    cpu_valid = []
+    start = time.perf_counter()
+    carried, flags = lockstep_from_shared_state(pair["card"], pair["cpu"], frames, noise, t26 - 1, valid_log=cpu_valid)
+    lockstep_s = time.perf_counter() - start
+    lost_cpu = int((cpu_valid[-1] == 0).sum())
+    if carried > 1e-3 or flags or lost_cpu < 1:
+        raise AssertionError(f"phase 26 card against CPU: max |diff| {carried} (limit 1e-3), {flags} validity flags"
+                             f" differ, {lost_cpu} of {n} points lost on the CPU")
+    shares = (~valid).mean(axis=1)
+    entering = labels == "enters"
+    return (
+        f"phase 26 an occluding viewshed on {card}: {n26}x{p26}x{t26} frames of {OBLIQUE_IMG}x{OBLIQUE_IMG}, a ridge"
+        f" {RIDGE['height']:.0f} m high at y {RIDGE['y']:.0f}, x {RIDGE['x'][0]:.0f}-{RIDGE['x'][1]:.0f}; DEM"
+        f" {scene['visible']:.4f} visible, Raster.viewshed {scene['viewshed_s']:.3f} s on the card, render"
+        f" {scene['render_s']:.2f} s; points {int(entering.sum())} whose truth enters hidden cells,"
+        f" {int(kept.sum())} keeping 20 m away, {int((labels == 'near').sum())} near; share lost by step: "
+        + " ".join(f"{x:.4f}" for x in shares)
+        + f"; {int(lost.sum())} lost ({int(lost[entering].sum())} of those entering, {int(lost[labels == 'near'].sum())}"
+        f" near, 0 kept), every point on a hidden cell lost by then, means and sigmas NaN from each failing step;"
+        f" kept points' median velocity ({velocity[0]:.3f}, {velocity[1]:.3f}), truth {OBLIQUE_VELOCITY}, limit 0.3;"
+        f" {n26 * (t26 - 1) / seconds:.1f} point-steps/s ({seconds:.3f} s), peak {peak / 2**30:.2f} GiB; launches"
+        f" {launches}; card against CPU on {n} lost points x {p} particles, each step from the CPU's state: max |diff|"
+        f" {carried:.3g} (limit 1e-3), validity flags equal, {lost_cpu} lost on the CPU, {lockstep_s:.1f} s"
+    ), launches
 
 
 def object_path_lockstep(scene, points_xy, devices) -> str:
@@ -1699,42 +1925,37 @@ def calibration_phase(devices, card: str, sizes=None) -> str:
     return f"phase 17 calibration on {card}, Jacobians by torch.func.jacfwd in float64 on the card: " + "; ".join(parts)
 
 
-def stabilize_from_files(n_frames: int, cuda, workdir: str):
-    """Phase 18: phase 11's scene written as JPEG files (quality 95), read
-    back as ``Image`` objects and stabilized through the user's entry
-    points: ``ObserverCameras.build_keypoints(detector="device")``,
-    ``build_matches(matcher="device", refine=True)``, ``fit``, then
-    ``project_images`` of every frame on the card. A second pass on fresh
-    objects must come from the pickle caches with no detection and the same
-    matches. Raises on a failed check; returns (the line to print, what
-    phase 24 tracks on: the JPEG paths, the ``Image`` objects whose cameras
-    ``set_cameras`` gave the fitted view directions, the true view
-    directions and the nominal camera vector)."""
+def stabilize_jpegs(frames, truth, nominal: dict, mask, workdir: str, cuda, timer, marker, steps=None,
+                    prefix: str = "") -> dict:
+    """``frames`` (n, h, w) uint8 written as JPEG files (quality 95) under
+    ``workdir``, read back as ``Image`` objects an hour a step apart
+    (``steps``, default 0..n-1) with the ``nominal`` camera, and stabilized
+    through the user's entry points: ``ObserverCameras(anchors=[0])``,
+    ``build_keypoints(detector="device")`` under ``mask``, ``build_matches(
+    matcher="device", seq=STAB_OFFSETS, refine=True)`` and ``fit``, each
+    stage timed by ``timer`` under ``prefix``. Returns a dict: the model,
+    the fit, each frame's view direction error against ``truth`` (deg), the
+    JPEG paths, a factory of fresh observers and the detect and match
+    settings."""
     import datetime
 
     import PIL.Image
-    import torch
 
-    from glimpse_tpu_torch import Camera, Image, optimize, profiling
-    from glimpse_tpu_torch.io import geotiff
+    from glimpse_tpu_torch import Camera, Image, optimize
     from glimpse_tpu_torch.track import Observer
 
-    timer = profiling.Timer()
-    marker = torch.zeros(1, device=cuda)  # phases timed by CUDA events on the card's stream
-    torch.cuda.reset_peak_memory_stats()
-    with timer("render", sync_value=marker):
-        frames, truth, base, mask = stabilization_scene(n_frames, cuda)
+    n_frames = len(frames)
+    steps = np.arange(n_frames) if steps is None else np.asarray(steps)
     folder = os.path.join(workdir, "frames")
     os.makedirs(folder, exist_ok=True)
     paths = [os.path.join(folder, f"frame_{i:04d}.jpg") for i in range(n_frames)]
-    with timer("write jpeg", sync_value=marker):
+    with timer(prefix + "write jpeg", sync_value=marker):
         with concurrent.futures.ThreadPoolExecutor(8) as pool:
             list(pool.map(lambda i: PIL.Image.fromarray(frames[i]).save(paths[i], quality=95), range(n_frames)))
     t0, hour = datetime.datetime(2020, 1, 1), datetime.timedelta(hours=1)
-    nominal = dict(imgsz=STAB_IMG, f=STAB_IMG, xyz=STAB_CAM_XYZ, viewdir=STAB_VIEWDIR)
 
     def observer():
-        return Observer([Image(p, cam=Camera(**nominal), datetime=t0 + i * hour) for i, p in enumerate(paths)],
+        return Observer([Image(p, cam=Camera(**nominal), datetime=t0 + int(t) * hour) for p, t in zip(paths, steps)],
                         cache=False)
 
     detect = dict(detector="device", masks=mask, nfeatures=2048, batch=16, refine="lattice",
@@ -1742,13 +1963,41 @@ def stabilize_from_files(n_frames: int, cuda, workdir: str):
     match = dict(matcher="device", seq=STAB_OFFSETS, max_ratio=0.75, max_distance=20.0, refine=True,
                  path=os.path.join(workdir, "matches"))
     model = optimize.ObserverCameras(observer(), anchors=[0], device=cuda)
-    with timer("keypoints", sync_value=marker):
+    with timer(prefix + "keypoints", sync_value=marker):
         model.build_keypoints(**detect)
-    with timer("matches and refinement", sync_value=marker):
+    with timer(prefix + "matches and refinement", sync_value=marker):
         model.build_matches(**match)
-    with timer("fit", sync_value=marker):
+    with timer(prefix + "fit", sync_value=marker):
         fit = model.fit(maxiter=2000)
     errors = rotation_errors(fit.x.reshape(-1, 3), truth)
+    return {"model": model, "fit": fit, "errors": errors, "paths": paths, "observer": observer, "detect": detect,
+            "match": match}
+
+
+def stabilize_from_files(n_frames: int, cuda, workdir: str):
+    """Phase 18: phase 11's scene written as JPEG files (quality 95), read
+    back as ``Image`` objects and stabilized through the user's entry
+    points (:func:`stabilize_jpegs`), then ``project_images`` of every
+    frame on the card. A second pass on fresh objects must come from the
+    pickle caches with no detection and the same matches. Raises on a
+    failed check; returns (the line to print, what phase 24 tracks on: the
+    JPEG paths, the ``Image`` objects whose cameras ``set_cameras`` gave the
+    fitted view directions, the true view directions and the nominal camera
+    vector)."""
+    import torch
+
+    from glimpse_tpu_torch import Camera, Image, optimize, profiling
+    from glimpse_tpu_torch.io import geotiff
+
+    timer = profiling.Timer()
+    marker = torch.zeros(1, device=cuda)  # phases timed by CUDA events on the card's stream
+    torch.cuda.reset_peak_memory_stats()
+    with timer("render", sync_value=marker):
+        frames, truth, base, mask = stabilization_scene(n_frames, cuda)
+    nominal = dict(imgsz=STAB_IMG, f=STAB_IMG, xyz=STAB_CAM_XYZ, viewdir=STAB_VIEWDIR)
+    stabilized = stabilize_jpegs(frames, truth, nominal, mask, workdir, cuda, timer, marker)
+    model, fit, errors, paths, observer, detect, match = (
+        stabilized[k] for k in ("model", "fit", "errors", "paths", "observer", "detect", "match"))
     if not np.isfinite(fit.x).all() or errors.max() > 0.01:
         raise AssertionError(f"stabilization from files: max view direction error {errors.max()} deg (limit 0.01)")
     images = model.observer.images
@@ -1831,6 +2080,47 @@ def decode_frames(paths) -> np.ndarray:
         return np.stack(list(pool.map(lambda path: np.asarray(PIL.Image.open(path).convert("L")), paths)))
 
 
+def fitted_vectors(images, base, phase: str) -> np.ndarray:
+    """The camera vectors (n, 20) that ``ObserverCameras.set_cameras`` gave
+    ``images``; raises if they differ from the nominal ``base`` anywhere but
+    the view direction."""
+    fitted = np.stack([image.cam.to_array() for image in images])
+    others = np.delete(np.tile(base, (len(images), 1)), [3, 4, 5], axis=1)
+    if fitted.shape != (len(images), 20) or not np.array_equal(np.delete(fitted, [3, 4, 5], axis=1), others):
+        raise AssertionError(f"{phase}: the stabilized cameras differ from the nominal one beyond the view direction")
+    return fitted
+
+
+def streamed_run(tracker, first, frames, n_steps: int, truth_xy, phase: str, **stream) -> dict:
+    """One ``track_stream`` of ``frames`` (an iterable of the frames at steps
+    1..n_steps - 1) from generator seed 0, timed on the host clock to the
+    card's end, both kernels' launches counted from 0. Raises unless it ran
+    n_steps - 1 steps to finite final means; returns the final RMSE against
+    ``truth_xy``, the seconds, the peak memory and the launches."""
+    import torch
+
+    from glimpse_tpu_torch.kernels.highpass import median_highpass
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+
+    median_highpass.launches = 0
+    systematic_resample.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    _, outputs = tracker.track_stream(torch.Generator(device=tracker.device).manual_seed(0), first, frames,
+                                      np.ones(n_steps - 1, np.float32), **stream)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    final = outputs[-1]["mean"][-1].double().cpu().numpy()
+    steps = sum(len(o["mean"]) for o in outputs)
+    if steps != n_steps - 1 or final.shape != (len(truth_xy), 6) or not np.isfinite(final).all():
+        raise AssertionError(f"{phase}: {steps} steps, final means {final.shape}, finite {np.isfinite(final).all()}")
+    return {
+        "rmse": float(np.sqrt(np.mean(np.sum((final[:, 0:2] - truth_xy) ** 2, axis=-1)))), "seconds": seconds,
+        "peak": torch.cuda.max_memory_allocated(),
+        "launches": {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches},
+    }
+
+
 def stabilize_then_track(joined, frames, cuda, n_points: int = 10240, n_particles: int = 512, chunk: int = 8):
     """Phase 24: benchmarks/columbia_pipeline.py's tracking stage on phase
     18's JPEG frames (``frames``, decoded once) and fit: 10,240 points x 512
@@ -1841,44 +2131,18 @@ def stabilize_then_track(joined, frames, cuda, n_points: int = 10240, n_particle
     true cameras. Raises unless every final mean is finite, both kernels
     launched in the stabilized run and its RMSE is below the unstabilized
     one; returns (the line's part, the stabilized run's launches)."""
-    import torch
-
-    from glimpse_tpu_torch.kernels.highpass import median_highpass
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
-
     n_frames = len(frames)
     base, truth = joined["base"], joined["truth"]
-    fitted = np.stack([image.cam.to_array() for image in joined["images"]])
-    if fitted.shape != (n_frames, 20) or not np.array_equal(np.delete(fitted, [3, 4, 5], axis=1),
-                                                             np.delete(np.tile(base, (n_frames, 1)), [3, 4, 5], axis=1)):
-        raise AssertionError("phase 24: the stabilized cameras differ from the nominal one beyond the view direction")
+    fitted = fitted_vectors(joined["images"], base, "phase 24")
     true = np.tile(base, (n_frames, 1))
     true[:, 3:6] = truth
     starts, truth_xy = join_points(n_points, n_frames)
     tracker = columbia_tracker(base[None], None, starts, n_particles, cuda)
-    runs = {}
-    for name, seq in (("stabilized", fitted[:, None]), ("unstabilized", None), ("true cameras", true[:, None])):
-        median_highpass.launches = 0
-        systematic_resample.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        start = time.perf_counter()
-        _, outputs = tracker.track_stream(
-            torch.Generator(device=cuda).manual_seed(0), frames[0][None], (frames[i][None] for i in range(1, n_frames)),
-            np.ones(n_frames - 1, np.float32), camera_vectors_seq=seq, chunk=chunk,
-        )
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-        final = outputs[-1]["mean"][-1].double().cpu().numpy()
-        steps = sum(len(o["mean"]) for o in outputs)
-        if steps != n_frames - 1 or final.shape != (n_points, 6) or not np.isfinite(final).all():
-            raise AssertionError(f"phase 24 {name}: {steps} steps, final means {final.shape},"
-                                 f" finite {np.isfinite(final).all()}")
-        runs[name] = {
-            "rmse": float(np.sqrt(np.mean(np.sum((final[:, 0:2] - truth_xy) ** 2, axis=-1)))), "seconds": seconds,
-            "peak": torch.cuda.max_memory_allocated(),
-            "launches": {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches},
-        }
-        del outputs
+    runs = {
+        name: streamed_run(tracker, frames[0][None], (frames[i][None] for i in range(1, n_frames)), n_frames, truth_xy,
+                           f"phase 24 {name}", camera_vectors_seq=seq, chunk=chunk)
+        for name, seq in (("stabilized", fitted[:, None]), ("unstabilized", None), ("true cameras", true[:, None]))
+    }
     stabilized = runs["stabilized"]
     if min(stabilized["launches"].values()) < 1:
         raise AssertionError(f"phase 24: the kernels did not carry the stabilized run: {stabilized['launches']}")
@@ -1894,6 +2158,118 @@ def stabilize_then_track(joined, frames, cuda, n_points: int = 10240, n_particle
         f" {stabilized['peak'] / 2**30:.2f} GiB; launches "
         + "; ".join(f"{name} {r['launches']}" for name, r in runs.items())
         + "; the other runs " + ", ".join(f"{name} {r['seconds']:.3f} s" for name, r in runs.items() if r is not stabilized)
+    )
+    return line, stabilized["launches"]
+
+
+# main_two_observers' second station (benchmarks/columbia_pipeline.py:53-54):
+# west of the scene, looking east, the same height and pitch as the first.
+CAM_B_XYZ = (-200.0, 270.0, 400.0)
+CAM_B_VIEWDIR = (90.0, -35.0, 0.0)
+# The JAX package's own run of main_two_observers (docs/validation.md:149,
+# host SIFT): the largest view direction error of each observer (deg), and
+# the final RMSE stabilized and unstabilized: accuracies of the scene and the
+# filter.
+REFERENCE_TWO_OBSERVER_ROTATION = (0.0044, 0.0053)
+REFERENCE_TWO_OBSERVER_RMSE = {"stabilized": 4.14, "unstabilized": 92.0}
+
+
+def two_observers(cuda, workdir: str, n_steps: int = 1000, n_points: int = 10240, n_particles: int = 512,
+                  chunk: int = 8):
+    """Phase 25: benchmarks/columbia_pipeline.py's ``main_two_observers`` at
+    full length. Observer A (phase 18's camera) fires at even steps,
+    observer B (the west station) at odd ones; each observer's frames show
+    the glacier at its own fire steps, wobble from its first fire on, go
+    through JPEG files and are stabilized on their own
+    (:func:`stabilize_jpegs`, anchored at their first fire). One tracker
+    holds both nominal cameras and follows ``join_points``' starts over
+    the union timeline with ``track_stream``: each step a (2, 512, 512)
+    frame, the firing observer's image and zeros for the other, ``obs_masks``
+    A on even steps and B on odd ones, and a (T, 2, 20)
+    ``camera_vectors_seq`` of the fitted cameras at each observer's fire
+    steps, its nominal camera elsewhere (B's template row is its first
+    fire's). Twice from one generator seed: stabilized, and with no
+    ``camera_vectors_seq`` (the reference's unstabilized run). Raises unless
+    every final mean is finite after T - 1 steps, each observer's mean view
+    direction error is at most 0.01 deg, the stabilized RMSE is below the
+    unstabilized one and the stabilized run launched the high-pass once for
+    each observer's templates and once a step and the resample once a step.
+    Returns (the line's part, the stabilized run's launches)."""
+    import torch
+
+    from glimpse_tpu_torch import profiling
+
+    fires = [np.arange(0, n_steps, 2), np.arange(1, n_steps, 2)]
+    stations = [dict(cam_xyz=STAB_CAM_XYZ, viewdir=STAB_VIEWDIR, jitter_seed=42),
+                dict(cam_xyz=CAM_B_XYZ, viewdir=CAM_B_VIEWDIR, jitter_seed=43)]
+    timer = profiling.Timer()
+    marker = torch.zeros(1, device=cuda)
+    observers = []
+    for name, steps, station in zip("AB", fires, stations):
+        with timer(f"{name} render", sync_value=marker):
+            frames, truth, base, mask = stabilization_scene(len(steps), cuda, steps=steps, **station)
+        nominal = dict(imgsz=STAB_IMG, f=STAB_IMG, xyz=station["cam_xyz"], viewdir=station["viewdir"])
+        done = stabilize_jpegs(frames, truth, nominal, mask, os.path.join(workdir, name), cuda, timer, marker,
+                               steps=steps, prefix=f"{name} ")
+        done["model"].set_cameras(done["fit"].x.reshape(-1, 3))
+        fitted = fitted_vectors(done["model"].observer.images, base, f"phase 25 {name}")
+        with timer(f"{name} decode", sync_value=marker):
+            decoded = decode_frames(done["paths"])
+        errors = done["errors"]
+        if not np.isfinite(done["fit"].x).all() or errors.mean() > 0.01:
+            raise AssertionError(f"phase 25 {name}: mean view direction error {errors.mean()} deg (limit 0.01)")
+        observers.append({"frames": decoded, "base": base, "fitted": fitted, "errors": errors,
+                          "pairs": sum(m.size for m in done["model"].matches.data)})
+    bases = np.stack([o["base"] for o in observers])
+    seq = np.tile(bases, (n_steps, 1, 1))
+    for o, steps in enumerate(fires):
+        seq[steps, o] = observers[o]["fitted"]
+    seq[0, 1] = seq[1, 1]  # B's template frame is its first fire
+    steps_1 = np.arange(1, n_steps)
+    masks = np.stack([steps_1 % 2 == 0, steps_1 % 2 == 1], axis=1).astype(np.float32)
+    zero = np.zeros((STAB_IMG, STAB_IMG), np.uint8)
+
+    def frame_at(t):
+        image = observers[t % 2]["frames"][t // 2]
+        return np.stack([image, zero] if t % 2 == 0 else [zero, image])
+
+    first = np.stack([observers[0]["frames"][0], observers[1]["frames"][0]])
+    starts, truth_xy = join_points(n_points, n_steps)
+    tracker = columbia_tracker(bases, None, starts, n_particles, cuda)
+    runs = {
+        name: streamed_run(tracker, first, (frame_at(t) for t in range(1, n_steps)), n_steps, truth_xy,
+                           f"phase 25 {name}", camera_vectors_seq=cameras, obs_masks=masks, chunk=chunk)
+        for name, cameras in (("stabilized", seq), ("unstabilized", None))
+    }
+    stabilized = runs["stabilized"]
+    # Each observer's templates once, then one launch a step on the 2 x
+    # 10,240 stacked search tiles (both observers are scored every step and
+    # the log likelihood masked); one resample a step.
+    expected = {"median_highpass": 2 + (n_steps - 1), "systematic_resample": n_steps - 1}
+    if stabilized["launches"] != expected:
+        raise AssertionError(f"phase 25: the kernels did not carry the stabilized run: {stabilized['launches']},"
+                             f" expected {expected}")
+    if not stabilized["rmse"] < runs["unstabilized"]["rmse"]:
+        raise AssertionError(f"phase 25: stabilized RMSE {stabilized['rmse']} is not below the unstabilized"
+                             f" {runs['unstabilized']['rmse']}")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    np.save(os.path.join(REPO, "chiprun_out", "phase25_cameras.npy"), seq)
+    line = (
+        f"{n_points}x{n_particles}x{n_steps} union steps, A ({len(fires[0])} frames, even steps) and B"
+        f" ({len(fires[1])} frames, odd steps) each stabilized from its JPEGs: view direction error max "
+        + ", ".join(f"{n} {o['errors'].max():.5f}" for n, o in zip("AB", observers))
+        + ", mean " + ", ".join(f"{n} {o['errors'].mean():.5f}" for n, o in zip("AB", observers))
+        + f" deg (limit 0.01 on the mean; the JAX package's max {REFERENCE_TWO_OBSERVER_ROTATION[0]},"
+        f" {REFERENCE_TWO_OBSERVER_ROTATION[1]} with host SIFT); matched pairs "
+        + ", ".join(f"{n} {o['pairs']}" for n, o in zip("AB", observers))
+        + "; " + ", ".join(f"{k} {v['total_s']:.2f} s" for k, v in timer.as_dict().items())
+        + f"; track_stream(chunk {chunk}), obs_masks, the same generator seed: final RMSE (world units) stabilized"
+        f" {stabilized['rmse']:.4f} (the JAX package's own run: {REFERENCE_TWO_OBSERVER_RMSE['stabilized']}),"
+        f" unstabilized {runs['unstabilized']['rmse']:.4f} ({REFERENCE_TWO_OBSERVER_RMSE['unstabilized']});"
+        f" stabilized {n_points * (n_steps - 1) / stabilized['seconds']:.1f} point-steps/s"
+        f" ({stabilized['seconds']:.3f} s), peak {stabilized['peak'] / 2**30:.2f} GiB; launches "
+        + "; ".join(f"{name} {r['launches']}" for name, r in runs.items())
+        + f"; unstabilized {runs['unstabilized']['seconds']:.3f} s"
     )
     return line, stabilized["launches"]
 
@@ -2719,6 +3095,7 @@ def main() -> None:
         ((10240, 31, 31), (5, 5)),  # phase 24's search tiles: 1 observer x 10,240 points
         ((10240, 41, 41), (5, 5)), ((10240, 15, 15), (5, 5)),  # phase 14's search tiles and templates
         ((2560, 41, 41), (5, 5)), ((2560, 15, 15), (5, 5)),  # phase 20's: one of four mesh slices
+        ((256, 41, 41), (5, 5)), ((256, 15, 15), (5, 5)),  # phase 26's card against CPU on 256 points
         # phase 16: the host tracker's template, its smallest search tile (the
         # template plus the spline support) and non-square ones
         *(((1, h, w), (5, 5)) for h, w in HOST_TRACKER_TILES),
@@ -2778,10 +3155,11 @@ def main() -> None:
 
     # Phase 4: the resample kernel on skewed weights, thresholds built as
     # the tracker builds them, at phase 5's, phase 8's, one of phase 20's
-    # four mesh slices' and phase 24's shapes; N = 37 divides no block size.
+    # four mesh slices', phase 24's and phase 26's card-against-CPU shapes;
+    # N = 37 divides no block size.
     rs_err = 0.0
     rs_times = {}
-    for n, p in [(1024, 1024), (10240, 2048), (2560, 2048), (10240, 512), (37, 1024)]:
+    for n, p in [(1024, 1024), (10240, 2048), (2560, 2048), (10240, 512), (256, 2048), (37, 1024)]:
         weights = torch.from_numpy(np.exp(3 * rng.normal(size=(n, p))).astype(np.float32)).to(cuda)
         u = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
         particles = torch.from_numpy(rng.normal(size=(n, p, 6)).astype(np.float32)).to(cuda)
@@ -3048,7 +3426,7 @@ def main() -> None:
 
     # Phase 11: stabilization at full width.
     torch.cuda.reset_peak_memory_stats()
-    n11 = 250  # phase 18 runs the recipe at 1,000 frames from files
+    n11 = 100  # phase 18 runs the recipe at 1,000 frames from files
     stab = stabilize(n11, cuda)
     peak11 = torch.cuda.max_memory_allocated()
     worst11 = [float(e.max()) for e in stab["errors"]]
@@ -3160,6 +3538,17 @@ def main() -> None:
     say(f"phase 24 stabilize, then track: {len(frames24)} frames decoded in {decode24:.2f} s; " + line24, flush=True)
     del frames24
 
+    # Phase 25: two observers with disjoint fire times, each sequence
+    # stabilized on its own, then one masked, streamed filter over the union
+    # timeline.
+    with tempfile.TemporaryDirectory(prefix="phase25_", dir=os.path.join(REPO, "build")) as workdir:
+        line25, launches25 = two_observers(cuda, workdir, chunk=chunk)
+    say("phase 25 two observers, stabilized, then tracked: " + line25, flush=True)
+
+    # Phase 26: a viewshed that hides tracked terrain, at full width.
+    line26, launches26 = occluding_viewshed(devices, card)
+    say(line26, flush=True)
+
     # The kernels at phase 8's shapes; ``launches`` are phase 20's (the
     # tracker in four mesh slices; phases 18-19 launch neither), and
     # ``launches_by_path`` every main path's, each counted from 0 just before
@@ -3183,7 +3572,7 @@ def main() -> None:
         name: {"phase 5": launches[name], "phase 8": launches8[name], "phase 14": launches14[name],
                "phase 16": launches16[name], "phase 20": launches20[name], "phase 21": launches21[name],
                "phase 22": launches22[name], **{f"phase 23 {k}": v[name] for k, v in launches23.items()},
-               "phase 24": launches24[name]}
+               "phase 24": launches24[name], "phase 25": launches25[name], "phase 26": launches26[name]}
         for name in ("median_highpass", "systematic_resample")
     }
     if any(count < 1 for counts in by_path.values() for count in counts.values()):
@@ -3216,6 +3605,15 @@ def main() -> None:
     ]
     rs24 = [{"shape": [10240, 512], "ms": rs_times[(10240, 512)][0], "plain_ms": rs_times[(10240, 512)][1],
              "bound_ms": 10240 * 512 * 60 / HBM_BYTES_PER_S * 1e3}]
+    # Phase 26's card-against-CPU run on 256 points: search tiles every
+    # step, templates once, one resample a step.
+    hp26 = [
+        {"shape": list(shape), "ms": hp_times[(shape, (5, 5))][0], "plain_ms": hp_times[(shape, (5, 5))][1],
+         "bound_ms": 2 * int(np.prod(shape)) * 4 / HBM_BYTES_PER_S * 1e3}
+        for shape in ((256, 41, 41), (256, 15, 15))
+    ]
+    rs26 = [{"shape": [256, 2048], "ms": rs_times[(256, 2048)][0], "plain_ms": rs_times[(256, 2048)][1],
+             "bound_ms": 256 * 2048 * 60 / HBM_BYTES_PER_S * 1e3}]
     # Each dtype's times at the main path's shapes: float32 from phases 3
     # and 4, the others from phase 23 (a). The bound counts the dtype's
     # bytes: 2 E a pixel for the high-pass, 4 + 14 E a particle for the
@@ -3241,7 +3639,7 @@ def main() -> None:
             "bound_share": bound_hp / main_hp[0], "library_ms": None, "shape": [20480, 31, 31],
             "launches_by_path": by_path["median_highpass"], "phase_14_shapes": hp14, "phase_16_shapes": hp16,
             "phase_16_tile_shapes": len(shapes16), "phase_16_wide_tile": wide16, "phase_20_shapes": hp20,
-            "phase_24_shapes": hp24, "dtypes": hp_dtypes, "large_tile_shapes": large_records + records23["large_tiles"],
+            "phase_24_shapes": hp24, "phase_26_lockstep_shapes": hp26, "dtypes": hp_dtypes, "large_tile_shapes": large_records + records23["large_tiles"],
         },
         {
             "name": "systematic_resample", "route": "cuda",
@@ -3251,6 +3649,7 @@ def main() -> None:
             "ms": main_rs[0], "plain_ms": main_rs[1], "bound_ms": bound_rs, "bound_by": "bytes",
             "bound_share": bound_rs / main_rs[0], "library_ms": None, "shape": [10240, 2048],
             "launches_by_path": by_path["systematic_resample"], "phase_20_shapes": rs20, "phase_24_shapes": rs24,
+            "phase_26_lockstep_shapes": rs26,
             "dtypes": rs_dtypes,
         },
     ]}))

@@ -3,9 +3,10 @@
 // Replaces the TPU kernel glimpse_tpu/kernels/highpass_pallas.py
 // (median_highpass, body _median_hp_kernel). Same function, same domain:
 // tiles (N, h, w) of float32, float64, float16 or bfloat16, the output in the
-// input's type, odd kh and kw with kh * kw <= 49, h >= kh / 2 + 1,
-// w >= kw / 2 + 1, symmetric padding that includes the edge pixel (row -1
-// reads row 0, row h reads row h - 1), as numpy's mode="symmetric".
+// input's type, odd kh and kw with kh * kw <= 49, symmetric padding that
+// includes the edge pixel (row -1 reads row 0, row h reads row h - 1), as
+// numpy's mode="symmetric". The TPU kernel also asks h >= kh / 2 + 1 and
+// w >= kw / 2 + 1; this one takes any tile of at least one pixel (7.).
 //
 // What bounds it on the card: the issue of min/max, not bytes. Each tile is
 // read once and written once (8 bytes a pixel in float32: 157 MB, 47 us at 3.35 TB/s
@@ -83,6 +84,13 @@
 //    Tracker's, a wide search box's), so the call, not bytes or min/max
 //    issue, bounds them: 0.02-0.05 ms up to 1,024 x 1,024 on an H100
 //    (chip_smoke phase 3), where the byte bound is 0.0025 ms.
+// 7. Tiles thinner than half the window (h < kh / 2 + 1 or w < kw / 2 + 1,
+//    a 3 x 3 template under 7 x 7 taps): their padding reflects more than
+//    once, as numpy's symmetric mode pads an axis by more than its length,
+//    so an index folds with period 2n (reflect_periodic). Only
+//    generic_global_kernel<S, T, true> runs that fold, and the launcher
+//    sends every thin tile there (thin()); every other launch keeps the
+//    one-fold reflect() and compiles to the code it had before.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -359,6 +367,23 @@ constexpr int strip_rows(int r) {
 // 0 from 2n on, where only rows that feed unstored outputs land.
 __device__ __forceinline__ int reflect(int i, int n) { return max(min(max(i, ~i), 2 * n - 1 - i), 0); }
 
+// Symmetric reflection of any index: period 2n, the second half mirrored,
+// as numpy's mode="symmetric" pads an axis by more than its length.
+__device__ __forceinline__ int reflect_periodic(int i, int n) {
+  const int m = (i % (2 * n) + 2 * n) % (2 * n);
+  return m < n ? m : 2 * n - 1 - m;
+}
+
+// reflect_periodic on a thin tile's route, reflect on every other.
+template <bool kFold>
+__device__ __forceinline__ int reflect_index(int i, int n) {
+  if constexpr (kFold) {
+    return reflect_periodic(i, n);
+  } else {
+    return reflect(i, n);
+  }
+}
+
 // One element into shared memory: cp.async for 4 and 8 bytes, a plain copy
 // for 2 (cp.async copies 4, 8 or 16 bytes).
 template <typename T>
@@ -534,7 +559,8 @@ __global__ void __launch_bounds__(kThreads) generic_kernel(const T* __restrict__
 
 // The global routes: a thread a strip of separable_kernel's shape, or a
 // pixel of generic_kernel's, over every tile of the stack (a grid-stride
-// loop), each window read from device memory.
+// loop), each window read from device memory; generic_global_kernel with
+// kFold is the thin tiles' route.
 template <int KH, int KW, int R, typename T>
 __global__ void __launch_bounds__(kThreads) separable_global_kernel(const T* __restrict__ in, T* __restrict__ out,
                                                                     int n, int h, int w) {
@@ -551,7 +577,7 @@ __global__ void __launch_bounds__(kThreads) separable_global_kernel(const T* __r
   }
 }
 
-template <int S, typename T>
+template <int S, typename T, bool kFold>
 __global__ void __launch_bounds__(kThreads) generic_global_kernel(const T* __restrict__ in, T* __restrict__ out,
                                                                   int n, int h, int w, int kh, int kw) {
   using C = typename Compute<T>::type;
@@ -571,7 +597,8 @@ __global__ void __launch_bounds__(kThreads) generic_global_kernel(const T* __res
 #pragma unroll
     for (int k = 0; k < S; ++k) {
       if (k < taps) {
-        v[k] = widen(load<true>(src + reflect(y - kh / 2 + dr, h) * w + reflect(x - kw / 2 + dc, w)));
+        v[k] = widen(load<true>(src + reflect_index<kFold>(y - kh / 2 + dr, h) * w +
+                                reflect_index<kFold>(x - kw / 2 + dc, w)));
         if (++dc == kw) {
           dc = 0;
           ++dr;
@@ -656,8 +683,8 @@ template <int S, typename T>
 cudaError_t launch_generic(const T* in, T* out, int n, int h, int w, int kh, int kw, bool global,
                            cudaStream_t stream) {
   if (global) {
-    return launch_global(generic_global_kernel<S, T>, static_cast<long long>(n) * h * w, stream, in, out, n, h, w,
-                         kh, kw);
+    return launch_global(generic_global_kernel<S, T, false>, static_cast<long long>(n) * h * w, stream, in, out, n,
+                         h, w, kh, kw);
   }
   const int smem = offset_bytes<T>(S) + (h + kh - 1) * (w + kw - 1) * static_cast<int>(sizeof(T));
   if (smem > 48 * 1024) {
@@ -669,6 +696,21 @@ cudaError_t launch_generic(const T* in, T* out, int n, int h, int w, int kh, int
   return cudaGetLastError();
 }
 
+// A thin tile's route: generic_global_kernel<S, T, true>, for any window.
+template <typename T>
+cudaError_t launch_thin(const T* in, T* out, int n, int h, int w, int kh, int kw, cudaStream_t stream) {
+  const long long pixels = static_cast<long long>(n) * h * w;
+  switch (generic_size(kh, kw)) {
+    case 9: return launch_global(generic_global_kernel<9, T, true>, pixels, stream, in, out, n, h, w, kh, kw);
+    case 25: return launch_global(generic_global_kernel<25, T, true>, pixels, stream, in, out, n, h, w, kh, kw);
+    default: return launch_global(generic_global_kernel<49, T, true>, pixels, stream, in, out, n, h, w, kh, kw);
+  }
+}
+
+// Whether a tile is thinner than half the window, so that its padding
+// reflects more than once (7. above).
+bool thin(int h, int w, int kh, int kw) { return h < kh / 2 + 1 || w < kw / 2 + 1; }
+
 bool separable_window(int kh, int kw) {
 #define GLIMPSE_IS(KH, KW, R) \
   if (kh == KH && kw == KW) return true;
@@ -679,7 +721,8 @@ bool separable_window(int kh, int kw) {
 
 // The routes: kAuto lets the launcher choose (takes_global); kStaged and
 // kGlobal force one, for kernels/bench_highpass.py to time both on the same
-// tiles. kStaged on a tile that does not fit is an invalid value.
+// tiles. kStaged on a tile that does not fit, or on a thin one, is an
+// invalid value; a thin tile takes launch_thin by kAuto and kGlobal.
 enum Route { kAuto = 0, kStaged = 1, kGlobal = 2 };
 
 template <typename T>
@@ -720,6 +763,9 @@ template <typename T>
 int launch(const void* in_ptr, void* out_ptr, int n, int h, int w, int kh, int kw, int route, cudaStream_t s) {
   const T* in = static_cast<const T*>(in_ptr);
   T* out = static_cast<T*>(out_ptr);
+  if (thin(h, w, kh, kw)) {
+    return static_cast<int>(route == kStaged ? cudaErrorInvalidValue : launch_thin<T>(in, out, n, h, w, kh, kw, s));
+  }
   if (route == kStaged && !stages<T>(h, w, kh, kw)) return static_cast<int>(cudaErrorInvalidValue);
   const bool global = route == kGlobal || (route == kAuto && takes_global<T>(n, h, w, kh, kw));
 #define GLIMPSE_LAUNCH(KH, KW, R)                                                                 \
@@ -737,6 +783,10 @@ int launch(const void* in_ptr, void* out_ptr, int n, int h, int w, int kh, int k
 // The name of the kernel launch<T> runs, by kAuto, for this stack and window.
 template <typename T>
 void name_variant(char* name, int size, int n, int h, int w, int kh, int kw, const char* type) {
+  if (thin(h, w, kh, kw)) {
+    snprintf(name, size, "generic_folded<%d>[%s]", generic_size(kh, kw), type);
+    return;
+  }
   const char* route = takes_global<T>(n, h, w, kh, kw) ? "_global" : "";
 #define GLIMPSE_NAME(KH, KW, R)                                                                    \
   if (kh == KH && kw == KW) {                                                                      \
@@ -762,7 +812,8 @@ const char* dtype_name(int dtype) {
 
 // The kernel glimpse_median_highpass_typed runs for a stack (n, h, w), a
 // kh x kw window and an element type, as "separable<KH,KW,R>[type]" or
-// "generic<S>[type]", with "_global" after the family on the global route.
+// "generic<S>[type]", with "_global" after the family on the global route,
+// or "generic_folded<S>[type]" for a thin tile.
 extern "C" const char* glimpse_median_highpass_variant_typed(int n, int h, int w, int kh, int kw, int dtype) {
   static thread_local char name[64];
   const char* type = dtype_name(dtype);

@@ -4,15 +4,17 @@ Replaces the TPU kernel ``glimpse_tpu/kernels/highpass_pallas.py``
 (``median_highpass``). The wrapper picks by device alone: a CPU tensor runs
 the plain version, :func:`glimpse_tpu_torch.ops.imageproc.highpass`; a CUDA
 tensor launches the kernel, or raises. The kernel's domain is odd taps, at
-most 49, on tiles at least half the window high and wide, of any larger
-size: :func:`covers` says whether a window lies inside it, and
-:func:`highpass` asks it before any launch and sends the other windows to the
-plain version, which takes every size. Inside the domain the library picks
-one of two routes on the host, from the stack's shape, the window and the
-element size: a tile that one block's shared memory holds (in float32 about
-170 x 170 pixels for the separable windows, 240 x 240 for the others; in 16
-bits about 240 x 240 and 340 x 340, in float64 120 x 120 and 170 x 170) is
-staged there, several small tiles to a block; a larger one is read from
+most 49, on tiles of any size: :func:`covers` says whether a window lies
+inside it, and :func:`highpass` asks it before any launch and sends the
+other windows to the plain version, which takes every size. A tile thinner
+than half the window reflects more than once at its edges, as numpy's
+symmetric padding does, and takes a route of its own on the card. For the
+other tiles the library picks one of two routes on the host, from the
+stack's shape, the window and the element size: a tile that one block's
+shared memory holds (in float32 about 170 x 170 pixels for the separable
+windows, 240 x 240 for the others; in 16 bits about 240 x 240 and 340 x
+340, in float64 120 x 120 and 170 x 170) is staged there, several small
+tiles to a block; a larger one is read from
 device memory by kernels whose grid spreads it over many SMs, and so is a
 stack of fewer tiles than the card has SMs whose tiles each hold more work
 than one block's threads, which the staged route would leave to one block
@@ -64,8 +66,7 @@ def kernel_variant(size: Tuple[int, int], dtype: torch.dtype, shape: Tuple[int, 
 def covers(size: Tuple[int, int]) -> bool:
     """Whether this window lies in the kernel's domain: odd taps, at most 49.
     A predicate on the window alone, as the TPU kernel's own domain is: the
-    kernel takes a tile of any size that is at least half the window high
-    and wide."""
+    kernel takes a tile of any size."""
     kh, kw = size
     return kh % 2 == 1 and kw % 2 == 1 and kh * kw <= MAX_TAPS
 
@@ -74,8 +75,8 @@ def highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torch.Tenso
     """The median high-pass of a stack (N, h, w) by the route its window
     gives: :func:`median_highpass` where :func:`covers` says so, else the
     plain version. The choice is made from the window alone, before any
-    launch; inside the domain a tile smaller than half the window, a build
-    failure or a launch failure raises.
+    launch; inside the domain a tile with no pixels, a build failure or a
+    launch failure raises.
     """
     if covers(size):
         return median_highpass(tiles, size)
@@ -86,10 +87,11 @@ def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torc
     """``tile - median_{kh x kw}(tile)`` over a stack (N, h, w) of tiles of
     float32, float64, float16 or bfloat16, in the input's type.
 
-    Symmetric padding that repeats the edge pixel; odd ``kh`` and ``kw`` with
-    at most 49 taps, on tiles of any size at least half the window high and
-    wide (on a card, one that a block's shared memory cannot hold is read
-    from device memory). Bit-equal on both devices for every input: a window
+    Symmetric padding that repeats the edge pixel, reflected as often as a
+    tile thinner than half the window needs (numpy's mode='symmetric'); odd
+    ``kh`` and ``kw`` with at most 49 taps, on tiles of any size (on a card,
+    one that a block's shared memory cannot hold is read from device
+    memory). Bit-equal on both devices for every input: a window
     that holds a NaN gives NaN, as ``torch.median`` does; ties and +-inf
     select the same value. A 16-bit tile's difference is taken in float32 and
     rounded once to its type, as the plain version's is.
@@ -105,8 +107,8 @@ def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torc
     if not tiles.is_contiguous():
         raise ValueError("median_highpass takes a contiguous tensor")
     N, h, w = tiles.shape
-    if h < kh // 2 + 1 or w < kw // 2 + 1:
-        raise ValueError(f"tiles {h}x{w} are too small for {kh}x{kw} taps")
+    if h == 0 or w == 0:
+        raise ValueError(f"median_highpass takes tiles of at least one pixel, got {h}x{w}")
     if tiles.device.type == "cpu":
         return median_highpass_plain(tiles, size)
     if tiles.device.type != "cuda":

@@ -84,9 +84,10 @@ def match_cdf(a, cdf):
 
 def _symmetric_index(n: int, before: int, after: int, device) -> torch.Tensor:
     """Indices of a length-``n`` axis padded by reflection that repeats the
-    edge element (numpy's mode='symmetric'); ``before``/``after`` <= n."""
-    i = torch.arange(-before, n + after, device=device)
-    return torch.where(i < 0, -i - 1, torch.where(i >= n, 2 * n - i - 1, i))
+    edge element (numpy's mode='symmetric'): period 2n, the second half
+    mirrored, so a pad longer than the axis reflects again."""
+    i = torch.remainder(torch.arange(-before, n + after, device=device), 2 * n)
+    return torch.where(i >= n, 2 * n - 1 - i, i)
 
 
 def median_filter(tile, size: Tuple[int, int] = (5, 5)):

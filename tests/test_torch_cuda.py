@@ -9,7 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import HIGHPASS_LARGE_TILES, highpass_case_tiles, highpass_check_cases
+from chip_smoke import HIGHPASS_LARGE_TILES, THIN_TILES, highpass_case_tiles, highpass_check_cases
 from glimpse_tpu_torch.kernels.highpass import SEPARABLE, covers, kernel_variant, median_highpass, median_highpass_plain
 from glimpse_tpu_torch.kernels.resample import systematic_resample, systematic_resample_plain
 from glimpse_tpu_torch.ops.resampling import systematic_thresholds
@@ -465,6 +465,26 @@ def test_highpass_kernel_takes_large_tiles(cuda, shape, size, misaligned, name) 
     assert median_highpass.launches == before + 1 and got.dtype == dtype
     torch.testing.assert_close(got, median_highpass_plain(tiles, size), rtol=0, atol=0, equal_nan=True,
                                msg=lambda m: f"{variant}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["float32", *WIDE_AND_NARROW])
+@pytest.mark.parametrize("tile, size", THIN_TILES, ids=[f"{t[0]}x{t[1]}-{k[0]}x{k[1]}" for t, k in THIN_TILES])
+def test_highpass_kernel_takes_tiles_thinner_than_half_the_window(cuda, tile, size, name) -> None:
+    """Tiles whose padding reflects more than once (ROADMAP C13), with
+    ties, NaN and +-inf: the kernel launches by the folded route, returns
+    the tile's dtype and equals the plain version, NaN included."""
+    dtype = getattr(torch, name)
+    shape = (37, *tile)
+    variant = kernel_variant(size, dtype, shape)
+    assert variant.startswith("generic_folded<"), variant
+    tiles = highpass_case_tiles(shape, True, False, cuda, seed=6, dtype=dtype)
+    before = median_highpass.launches
+    got = median_highpass(tiles, size)
+    assert median_highpass.launches == before + 1 and got.dtype == dtype
+    want = median_highpass_plain(tiles, size)
+    assert torch.isnan(want).any()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True, msg=lambda m: f"{variant}: {m}")
 
 
 @pytest.mark.cuda

@@ -228,6 +228,40 @@ def test_a_step_at_windows_outside_the_kernels_domain(exact_sse, highpass) -> No
         assert_moments_close(got[1], want[1])
 
 
+def test_steps_with_a_template_thinner_than_half_the_window(exact_sse) -> None:
+    """A template two columns wide (``tile_size=(2, 15)``, x first) under
+    7 x 7 taps: fewer columns than the window's pad of three, so its padding
+    reflects more than once (ROADMAP C13).
+    The template within 1e-12 and the log likelihoods from shared particles
+    within this file's bound (2e-5 absolute, 1e-6 of their spread); then
+    each step from the reference's carried state, the moments after
+    resampling within 1e-6, as for the windows outside the kernel's domain."""
+    both = trackers(tracker_args={"highpass": {"size": (7, 7)}})
+    particles = motion(glimpse_tpu, n=400, seed=3).initialize_particles()
+    likelihoods = {}
+    for name, tracker in both.items():
+        tracker.particles = particles.copy()
+        tracker.initialize_weights()
+        tracker.initialize_template(obs=0, img=0, tile_size=(2, 15))
+        tracker.particles[:, 0:2] += (2.0, -1.0)
+        likelihoods[name] = tracker.compute_observer_log_likelihoods(obs=0, img=1)
+    got, want = both["torch"].templates[0]["tile"], both["jax"].templates[0]["tile"]
+    assert got.shape == want.shape == (15, 2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    spread = np.ptp(likelihoods["jax"])
+    np.testing.assert_allclose(likelihoods["torch"], likelihoods["jax"], rtol=0, atol=max(2e-5, 1e-6 * spread))
+
+    both = trackers(n_frames=4, tracker_args={"highpass": {"size": (7, 7)}})
+    models = {name: motion(pkg, seed=9) for name, (pkg, _) in PACKAGES.items()}
+    table = both["jax"].match_datetimes(both["jax"].datetimes)
+    args = (table, np.array([True]), np.array([0]), np.diff(both["jax"].datetimes))
+    for i in range(4):
+        copy_state(both["jax"], both["torch"], models["jax"], models["torch"])
+        want = filter_step(both["jax"], models["jax"], i, 0, *args, tile_size=(2, 15))
+        got = filter_step(both["torch"], models["torch"], i, 0, *args, tile_size=(2, 15))
+        assert_moments_close(got[1], want[1])
+
+
 @pytest.mark.parametrize("record", ["resampled", "posterior"])
 def test_free_run_equal(exact_sse, record) -> None:
     """Three tracks over five frames, every generator from the same seeds

@@ -195,14 +195,69 @@ def test_highpass_takes_a_tile_of_any_size(shape, size) -> None:
         np.testing.assert_array_equal(entry(torch.from_numpy(x), size).numpy(), want)
 
 
-def test_highpass_refuses_a_tile_smaller_than_half_the_window(monkeypatch) -> None:
-    """A (2, 9) tile under 5x5 taps, whose padding the reference's slices
-    cannot take either, raises from the wrapper and from the routing entry
-    alike: it is never sent to the plain version."""
-    monkeypatch.setattr(highpass_kernel, "median_highpass_plain", lambda *a, **k: pytest.fail("rerouted to the plain version"))
+def test_highpass_refuses_a_tile_smaller_than_half_the_window() -> None:
+    """A (2, 9) tile under 5x5 taps, whose padding reflects more than once
+    (the reference's Pallas slices cannot take it, reference fault 11): the
+    wrapper and the routing entry take it, as the reference's NumPy and XLA
+    routes do, and equal them bit for bit."""
+    x = tile((1, 2, 9), seed=19).astype(np.float32)
+    want = jax_imageproc.highpass(x, size=(5, 5), xp=np)
+    np.testing.assert_array_equal(np.asarray(jax_imageproc.highpass(jnp.asarray(x), size=(5, 5), xp=jnp)), want)
     for entry in (highpass_kernel.median_highpass, highpass_kernel.highpass):
-        with pytest.raises(ValueError, match="too small"):
-            entry(torch.zeros(1, 2, 9), (5, 5))
+        np.testing.assert_array_equal(entry(torch.from_numpy(x), (5, 5)).numpy(), want)
+
+
+# Tiles thinner than half the window (ROADMAP C13): the padding reflects more
+# than once, as numpy's symmetric mode pads an axis by more than its length.
+THIN_TILES = [((3, 2, 9), (5, 5)), ((3, 1, 9), (5, 5)), ((3, 9, 2), (5, 5)), ((3, 2, 2), (5, 5)), ((3, 3, 3), (7, 7))]
+THIN_DTYPES = {"float32": (torch.float32, jnp.float32), "float64": (torch.float64, jnp.float64),
+               "bfloat16": (torch.bfloat16, jnp.bfloat16), "float16": (torch.float16, jnp.float16)}
+
+
+@pytest.mark.parametrize("name", THIN_DTYPES)
+@pytest.mark.parametrize("shape, size", THIN_TILES, ids=[f"{s[1]}x{s[2]}-{k[0]}x{k[1]}" for s, k in THIN_TILES])
+def test_highpass_on_tiles_thinner_than_half_the_window(shape, size, name) -> None:
+    """The routed ``highpass``, the wrapper ``median_highpass`` and the plain
+    ``median_filter`` on thin tiles equal the reference's routes bit for bit:
+    in float32 and float64 its NumPy route (``xp=np``, what its host Tracker
+    and its BatchTracker off a TPU run) and its XLA route (float64 under a
+    scoped ``jax.enable_x64``); in 16 bits its XLA route in the tile's
+    dtype, by the rule of ``tests/test_torch_dtypes.py`` (the sort median
+    bit for bit)."""
+    tdtype, jdtype = THIN_DTYPES[name]
+    x = tile(shape, seed=20, levels=5 if name in ("bfloat16", "float16") else 0)
+    x = x.astype(np.float64 if name == "float64" else np.float32)
+    ported = torch.from_numpy(x).to(tdtype)
+    with jax.enable_x64(name == "float64"):
+        xla_low = jax_imageproc.median_filter(jnp.asarray(x).astype(jdtype), size=size, xp=jnp)
+        xla = jax_imageproc.highpass(jnp.asarray(x).astype(jdtype), size=size, xp=jnp)
+        assert xla.dtype == jdtype
+        xla_low, xla = (np.asarray(a.astype(jnp.float32) if name in ("bfloat16", "float16") else a) for a in (xla_low, xla))
+    wants = [(xla_low, xla)]
+    if name in ("float32", "float64"):
+        wants.append((jax_imageproc.median_filter(x, size=size, xp=np), jax_imageproc.highpass(x, size=size, xp=np)))
+    for want_low, want in wants:
+        np.testing.assert_array_equal(imageproc.median_filter(ported, size).double().numpy(), want_low.astype(np.float64))
+        for entry in (highpass_kernel.highpass, highpass_kernel.median_highpass):
+            got = entry(ported, size)
+            assert got.dtype == tdtype
+            np.testing.assert_array_equal(got.double().numpy(), want.astype(np.float64))
+
+
+@pytest.mark.parametrize("shape, size", [((3, 2, 9), (5, 5)), ((3, 3, 3), (7, 7))], ids=["2x9-5x5", "3x3-7x7"])
+def test_highpass_on_a_thin_tile_with_nan(shape, size) -> None:
+    """NaN at a corner, an edge and inside a thin tile, and +-inf
+    (``chip_smoke.highpass_tiles``): every window that reaches a NaN gives
+    NaN, where the reference's NumPy and XLA routes give it, and every
+    other pixel is equal."""
+    from chip_smoke import highpass_tiles
+
+    x = highpass_tiles(shape, seed=21)
+    got = highpass_kernel.highpass(torch.from_numpy(x), size).numpy()
+    assert np.isnan(got).any()
+    for want in (jax_imageproc.highpass(x, size=size, xp=np),
+                 np.asarray(jax_imageproc.highpass(jnp.asarray(x), size=size, xp=jnp))):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_highpass_takes_a_large_float64_tile() -> None:

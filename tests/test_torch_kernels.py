@@ -108,9 +108,9 @@ def test_resample_left_tie_rule() -> None:
         lambda: median_highpass(torch.zeros(2, 9, 9), (4, 5)),
         lambda: median_highpass(torch.zeros(2, 9, 9), (9, 9)),
         lambda: median_highpass(torch.zeros(2, 9, 9).transpose(1, 2), (5, 5)),
-        lambda: median_highpass(torch.zeros(2, 9, 2, dtype=torch.float64), (5, 5)),
+        lambda: median_highpass(torch.zeros(2, 9, 2, dtype=torch.float64), (5, 4)),
         lambda: median_highpass(torch.zeros(2, 9, 9, dtype=torch.int32), (5, 5)),
-        lambda: median_highpass(torch.zeros(2, 2, 9), (5, 5)),
+        lambda: median_highpass(torch.zeros(2, 0, 9), (5, 5)),
         lambda: systematic_resample(
             torch.zeros(1, MAX_PARTICLES + 1), torch.zeros(1, MAX_PARTICLES + 1, 6),
             torch.zeros(1, MAX_PARTICLES + 1),
@@ -134,8 +134,8 @@ def test_resample_left_tie_rule() -> None:
 )
 def test_wrappers_refuse(call) -> None:
     """Each wrapper raises ValueError on what its kernel does not take; the
-    float64 case is a tile narrower than half the window (a tile of any
-    larger size is taken, whatever its element type)."""
+    float64 case is an even window, the small tile one with no rows (a tile
+    of any other size is taken, whatever its element type)."""
     with pytest.raises(ValueError):
         call()
 

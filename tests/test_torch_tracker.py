@@ -268,6 +268,46 @@ def test_highpass_windows_outside_the_kernels_domain(size) -> None:
     np.testing.assert_allclose(nxt.particles.numpy(), np.asarray(ref_next.particles), atol=1e-3, rtol=0)
 
 
+def test_three_by_three_templates_under_seven_by_seven_taps() -> None:
+    """``BatchConfig(template_size=(3, 3), highpass_size=(7, 7))``: every
+    template is thinner than half the window, so its padding reflects more
+    than once (ROADMAP C13). The port's templates equal the reference's
+    (its XLA high-pass, what ``highpass_mode="auto"`` takes off a TPU)
+    within 1e-5, and three steps, each from the reference's carried state,
+    agree within 1e-3."""
+    steps = 3
+    cam, frames, _ = make_scene(n_frames=steps + 1, velocity=(2.0, 1.0))
+    points_xy = np.random.default_rng(1).uniform(180, 320, size=(N, 2))
+    rng = np.random.default_rng(5)
+    noise = {
+        "init": {"xy": rng.normal(size=(N, P, 2)).astype(np.float32), "v": rng.normal(size=(N, P, 3)).astype(np.float32)},
+        "a": rng.normal(size=(steps, N, P, 3)).astype(np.float32), "resample_u": rng.random((steps, N)).astype(np.float32),
+    }
+    sizes = dict(template_size=(3, 3), search_size=(41, 41), highpass_size=(7, 7))
+    jax_motion = make_motion(points_xy)
+    reference = jax_batch.BatchTracker(
+        cam.to_array()[None], [None], [0.15], jax_motion, jax_batch.BatchConfig(n_particles=P, **sizes))
+    assert reference.config.highpass_mode == "xla"
+    port = batch.BatchTracker(
+        cam.to_array()[None], [None], [0.15], convert.motion_from_numpy(dataclasses.asdict(jax_motion), "cpu"),
+        batch.BatchConfig(n_particles=P, **sizes), device="cpu")
+    images = frames[:, None]
+    ref_state = jax.jit(reference.initialize)(jax.random.PRNGKey(0), images[0], noise=noise["init"])
+    state = port.initialize(torch.Generator().manual_seed(0), torch.from_numpy(images[0]), noise=noise["init"])
+    assert state.templates.shape == (1, N, 3, 3)
+    np.testing.assert_allclose(state.templates.numpy(), np.asarray(ref_state.templates), atol=1e-5, rtol=0)
+    reference_step = jax.jit(reference.step)
+    for i in range(steps):
+        step_noise = {"a": noise["a"][i], "resample_u": noise["resample_u"][i]}
+        leaves = {f.name: np.asarray(getattr(ref_state, f.name)) for f in dataclasses.fields(ref_state) if f.name != "key"}
+        _, out = port.step(convert.state_from_numpy(**leaves, device="cpu"), torch.from_numpy(images[i + 1]),
+                           torch.tensor(1.0), noise=step_noise)
+        ref_state, ref_out = reference_step(ref_state, images[i + 1], np.float32(1.0), noise=step_noise)
+        for key in ("mean", "sigma"):
+            np.testing.assert_allclose(out[key].numpy(), np.asarray(ref_out[key]), atol=1e-3, rtol=0, err_msg=f"{key} {i}")
+        np.testing.assert_array_equal(out["valid"].numpy(), np.asarray(ref_out["valid"]))
+
+
 def test_package_surface() -> None:
     """``import glimpse_tpu_torch`` gives what ``import glimpse_tpu`` gives:
     ``optimize``, ``svg``, ``convert``, ``parallel``, ``profiling``,

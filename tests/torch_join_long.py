@@ -21,9 +21,17 @@ two packages' RMSEs agree as statistics, not bit for bit. Each run prints
 its final RMSE against the truth and its seconds; the last line is one JSON
 object of them all.
 
+With ``--observers 2`` the script runs ``main_two_observers`` instead, as
+``chip_smoke.py`` phase 25 does: observer A fires at even steps and B (the
+west station) at odd ones, each on its own JPEG frames of the port's scene,
+and both packages' ``track_stream`` follow the union timeline with phase 25's
+``obs_masks`` and a (T, 2, 20) ``camera_vectors_seq``: the fitted cameras
+phase 25 saved (``--cameras chiprun_out/phase25_cameras.npy``, when given),
+the true cameras, and none (the nominal cameras).
+
 Run from the root of a checkout, with JAX on the CPU:
 ``JAX_PLATFORMS=cpu python tests/torch_join_long.py [--points 64]
-[--particles 512] [--frames 1000]``.
+[--particles 512] [--frames 1000] [--observers 2 [--cameras PATH]]``.
 """
 import argparse
 import io
@@ -51,7 +59,7 @@ def jpeg_round_trip(frames: np.ndarray) -> np.ndarray:
     return out
 
 
-def reference_tracker(base, starts, n_particles):
+def reference_tracker(bases, starts, n_particles):
     import jax.numpy as jnp
 
     from glimpse_tpu.track.batch import BatchConfig, BatchMotion, BatchTracker, DeviceRaster
@@ -65,32 +73,80 @@ def reference_tracker(base, starts, n_particles):
         dem_sigma=DeviceRaster.constant(0.0), use_dem_sigma=False,
     )
     config = BatchConfig(n_particles=n_particles, template_size=(15, 15), search_size=(31, 31))
-    return BatchTracker(camera_vectors=base[None], corrections=[None], sigmas=[0.3], motion=motion, config=config)
+    O = len(bases)
+    return BatchTracker(camera_vectors=bases, corrections=[None] * O, sigmas=[0.3] * O, motion=motion, config=config)
 
 
-def run_reference(frames, base, seq, starts, n_particles, chunk):
+def run_reference(problem, seq, starts, n_particles, chunk):
+    """The JAX package's ``track_stream`` on a problem (nominal cameras (O,
+    20), the template frame (O, H, W), a function of the frame (O, H, W) at
+    steps 1..T-1, T, obs_masks or None)."""
     import jax
 
-    tracker = reference_tracker(base, starts, n_particles)
+    bases, first, frame_at, T, masks = problem
+    tracker = reference_tracker(bases, starts, n_particles)
     _, outputs = tracker.track_stream(
-        jax.random.PRNGKey(0), frames[0][None].astype(np.float32),
-        (frames[i][None].astype(np.float32) for i in range(1, len(frames))), np.ones(len(frames) - 1, np.float32),
-        camera_vectors_seq=seq, chunk=chunk,
+        jax.random.PRNGKey(0), first.astype(np.float32), (frame_at(t).astype(np.float32) for t in range(1, T)),
+        np.ones(T - 1, np.float32), camera_vectors_seq=seq, obs_masks=masks, chunk=chunk,
     )
     return np.asarray(outputs[-1]["mean"][-1], np.float64)
 
 
-def run_port(frames, base, seq, starts, n_particles, chunk):
+def run_port(problem, seq, starts, n_particles, chunk):
     import torch
 
     from chip_smoke import columbia_tracker
 
-    tracker = columbia_tracker(base[None], None, starts, n_particles, torch.device("cpu"))
+    bases, first, frame_at, T, masks = problem
+    tracker = columbia_tracker(bases, None, starts, n_particles, torch.device("cpu"))
     _, outputs = tracker.track_stream(
-        torch.Generator().manual_seed(0), frames[0][None], (frames[i][None] for i in range(1, len(frames))),
-        np.ones(len(frames) - 1, np.float32), camera_vectors_seq=seq, chunk=chunk,
+        torch.Generator().manual_seed(0), first, (frame_at(t) for t in range(1, T)),
+        np.ones(T - 1, np.float32), camera_vectors_seq=seq, obs_masks=masks, chunk=chunk,
     )
     return outputs[-1]["mean"][-1].double().numpy()
+
+
+def one_observer(frames, base):
+    """A one-observer problem over ``frames`` (T, H, W)."""
+    return base[None], frames[0][None], lambda t: frames[t][None], len(frames), None
+
+
+def two_observers(T: int, cameras=None):
+    """Phase 25's problem on the CPU: each observer's frames (the port's
+    scene at its fire steps, through JPEG), the masks, and the true and (from
+    ``cameras``, a (T, 2, 20) array) fitted camera sequences."""
+    from chip_smoke import CAM_B_VIEWDIR, CAM_B_XYZ, STAB_CAM_XYZ, STAB_IMG, STAB_VIEWDIR, stabilization_scene
+
+    fires = [np.arange(0, T, 2), np.arange(1, T, 2)]
+    stations = [dict(cam_xyz=STAB_CAM_XYZ, viewdir=STAB_VIEWDIR, jitter_seed=42),
+                dict(cam_xyz=CAM_B_XYZ, viewdir=CAM_B_VIEWDIR, jitter_seed=43)]
+    frames, bases, truths = [], [], []
+    for steps, station in zip(fires, stations):
+        rendered, truth, base, _ = stabilization_scene(len(steps), "cpu", steps=steps, **station)
+        frames.append(jpeg_round_trip(rendered))
+        bases.append(base)
+        truths.append(truth)
+    bases = np.stack(bases)
+    true_seq = np.tile(bases, (T, 1, 1))
+    for o, steps in enumerate(fires):
+        true_seq[steps, o, 3:6] = truths[o]
+    true_seq[0, 1] = true_seq[1, 1]  # B's template frame is its first fire
+    fitted = None
+    if cameras is not None:
+        fitted = np.load(cameras)
+        others = np.delete(fitted, [3, 4, 5], axis=-1)
+        if fitted.shape != (T, 2, 20) or not np.array_equal(others, np.delete(np.tile(bases, (T, 1, 1)), [3, 4, 5], axis=-1)):
+            raise AssertionError(f"{cameras}: not phase 25's cameras for {T} steps")
+    steps_1 = np.arange(1, T)
+    masks = np.stack([steps_1 % 2 == 0, steps_1 % 2 == 1], axis=1).astype(np.float32)
+    zero = np.zeros((STAB_IMG, STAB_IMG), np.uint8)
+
+    def frame_at(t):
+        image = frames[t % 2][t // 2]
+        return np.stack([image, zero] if t % 2 == 0 else [zero, image])
+
+    first = np.stack([frames[0][0], frames[1][0]])
+    return (bases, first, frame_at, T, masks), true_seq, fitted
 
 
 def main(argv=None) -> None:
@@ -99,6 +155,8 @@ def main(argv=None) -> None:
     parser.add_argument("--particles", type=int, default=512)
     parser.add_argument("--frames", type=int, default=1000)
     parser.add_argument("--chunk", type=int, default=8)
+    parser.add_argument("--observers", type=int, choices=(1, 2), default=1)
+    parser.add_argument("--cameras", help="phase 25's fitted cameras, a (T, 2, 20) .npy (two observers only)")
     args = parser.parse_args(argv)
 
     import faulthandler
@@ -110,6 +168,15 @@ def main(argv=None) -> None:
 
     T = args.frames
     starts, truth = join_points(args.points, T)
+    if args.observers == 2:
+        start = time.perf_counter()
+        problem, true_seq, fitted = two_observers(T, args.cameras)
+        print(f"frames: {T} union steps of two observers through JPEG, {time.perf_counter() - start:.1f} s", flush=True)
+        cases = [(f"two observers, {name}, {label}", package, problem, seq)
+                 for name, seq in (("fitted cameras", fitted), ("true cameras", true_seq), ("nominal cameras", None))
+                 if name != "fitted cameras" or fitted is not None
+                 for label, package in (("JAX package", run_reference), ("port", run_port))]
+        return report(cases, starts, truth, args)
     rng = np.random.default_rng(42)
     true_viewdirs = np.tile(np.asarray((0.0, -35.0, 0.0)), (T, 1))
     true_viewdirs[1:] += rng.normal(0, (0.1, 0.1, 0.03), size=(T - 1, 3))
@@ -127,17 +194,24 @@ def main(argv=None) -> None:
     true_seq[:, 3:6] = true_viewdirs
     true_seq = true_seq[:, None]
 
-    runs = {}
-    for name, package, frames, seq in (
+    rendered, jpeg = one_observer(rendered, base), one_observer(jpeg, base)
+    report([
         ("reference frames, true cameras, JAX package", run_reference, rendered, true_seq),
         ("reference frames, true cameras, port", run_port, rendered, true_seq),
         ("reference frames, nominal camera, JAX package", run_reference, rendered, None),
         ("reference frames, nominal camera, port", run_port, rendered, None),
         ("JPEG frames, true cameras, JAX package", run_reference, jpeg, true_seq),
         ("JPEG frames, true cameras, port", run_port, jpeg, true_seq),
-    ):
+    ], starts, truth, args)
+
+
+def report(cases, starts, truth, args) -> None:
+    """Each case (name, package's runner, problem, camera sequence) run and
+    its final RMSE printed; then one JSON line of them all."""
+    runs = {}
+    for name, package, problem, seq in cases:
         start = time.perf_counter()
-        final = package(frames, base, seq, starts, args.particles, args.chunk)
+        final = package(problem, seq, starts, args.particles, args.chunk)
         if final.shape != (args.points, 6) or not np.isfinite(final).all():
             raise AssertionError(f"{name}: final means {final.shape}, finite {np.isfinite(final).all()}")
         error = np.sqrt(np.sum((final[:, 0:2] - truth) ** 2, axis=-1))
@@ -145,7 +219,8 @@ def main(argv=None) -> None:
                       "max": float(error.max()), "seconds": time.perf_counter() - start}
         print(f"{name}: final RMSE {runs[name]['rmse']:.4f}, median {runs[name]['median']:.4f}, max"
               f" {runs[name]['max']:.4f} ({runs[name]['seconds']:.1f} s)", flush=True)
-    print(json.dumps({"points": args.points, "particles": args.particles, "frames": T, "runs": runs}))
+    print(json.dumps({"points": args.points, "particles": args.particles, "frames": args.frames,
+                      "observers": args.observers, "runs": runs}))
 
 
 if __name__ == "__main__":
