@@ -205,7 +205,21 @@ each:
     hidden cell lost by that step, every far point kept with the median
     velocity within 0.3 of the truth, ``Tracks`` NaN from each failing step
     with ``errors`` set; then 256 lost points on the card against the CPU,
-    each step from the CPU's state within 1e-3, validity flags equal.
+    each step from the CPU's state within 1e-3, validity flags equal;
+27. graphs against eager: ``track`` and ``track_stream`` replay one captured
+    CUDA graph a step after the first (``track.batch.StepProgram``); each of
+    phase 5's 1,024 x 1,024 x 50, phase 6's 10,240 x 2,048 x 10, phase
+    24's 10,240 x 512 x 100 (its fitted cameras, ``track_stream(chunk=8)``)
+    and phase 20's four mesh slices on one card (injected draws) runs eager
+    (every step through ``step``), graphed, graphed, eager in one process:
+    point-steps/s, ms a step and peak memory of each run, every step's means
+    and the final particles and weights bit-equal across the four runs
+    (eager against eager first: the path is deterministic), both kernels'
+    launches equal; then one eager and one replayed step under the
+    profiler: idle share, host ``cudaLaunchKernel`` and ``cudaGraphLaunch``
+    calls a step, and both kernels' names among the replay's kernels.
+
+Every phase that runs ``track`` or ``track_stream`` runs it graphed.
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
@@ -215,6 +229,7 @@ phases 20-21's tracker across 1, 2 and 4 cards instead (see
 :func:`scaling`); ``--worker`` is phase 21's process.
 """
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -223,6 +238,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import List, Tuple
 
 import numpy as np
 
@@ -1127,6 +1143,13 @@ def stacked(outputs) -> dict:
     import torch
 
     return {k: torch.stack([o[k] for o in outputs]) for k in outputs[0]}
+
+
+def stacked_chunks(outputs) -> dict:
+    """``track_stream(chunk > 1)``'s entries as time-major tensors."""
+    import torch
+
+    return {k: torch.cat([o[k] for o in outputs]) for k in outputs[0]}
 
 
 def profile_step(tracker, state, frame) -> str:
@@ -2121,6 +2144,18 @@ def streamed_run(tracker, first, frames, n_steps: int, truth_xy, phase: str, **s
     }
 
 
+def tracking_setup(joined, n_frames: int, cuda, n_points: int = 10240, n_particles: int = 512):
+    """benchmarks/columbia_pipeline.py's tracking stage on phase 18's fit:
+    (the tracker, the fitted and the true camera vectors (n_frames, 20), the
+    points' true final positions)."""
+    base, truth = joined["base"], joined["truth"]
+    fitted = fitted_vectors(joined["images"], base, "phase 24")
+    true = np.tile(base, (n_frames, 1))
+    true[:, 3:6] = truth[:n_frames]
+    starts, truth_xy = join_points(n_points, n_frames)
+    return columbia_tracker(base[None], None, starts, n_particles, cuda), fitted[:n_frames], true, truth_xy
+
+
 def stabilize_then_track(joined, frames, cuda, n_points: int = 10240, n_particles: int = 512, chunk: int = 8):
     """Phase 24: benchmarks/columbia_pipeline.py's tracking stage on phase
     18's JPEG frames (``frames``, decoded once) and fit: 10,240 points x 512
@@ -2132,12 +2167,7 @@ def stabilize_then_track(joined, frames, cuda, n_points: int = 10240, n_particle
     launched in the stabilized run and its RMSE is below the unstabilized
     one; returns (the line's part, the stabilized run's launches)."""
     n_frames = len(frames)
-    base, truth = joined["base"], joined["truth"]
-    fitted = fitted_vectors(joined["images"], base, "phase 24")
-    true = np.tile(base, (n_frames, 1))
-    true[:, 3:6] = truth
-    starts, truth_xy = join_points(n_points, n_frames)
-    tracker = columbia_tracker(base[None], None, starts, n_particles, cuda)
+    tracker, fitted, true, truth_xy = tracking_setup(joined, n_frames, cuda, n_points, n_particles)
     runs = {
         name: streamed_run(tracker, frames[0][None], (frames[i][None] for i in range(1, n_frames)), n_frames, truth_xy,
                            f"phase 24 {name}", camera_vectors_seq=seq, chunk=chunk)
@@ -2901,6 +2931,191 @@ def precision_lockstep(camera, frames_np, points_xy, devices, dtype, small=(16, 
     return error, budget
 
 
+@contextlib.contextmanager
+def eager_steps(tracker):
+    """``tracker``'s ``track`` and ``track_stream`` with every step through
+    the eager ``step``, as they ran before step programs: each slice's
+    ``_advance`` is its ``step`` while the block runs."""
+    parts = getattr(tracker, "parts", [tracker])
+    for part in parts:
+        part._advance = part.step
+    try:
+        yield
+    finally:
+        for part in parts:
+            del part._advance
+
+
+#: The host calls that launch work on the card, as the profiler names them.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profile_graphed_step(tracker, first, frame, dt, init=None, **kwargs) -> dict:
+    """One eager ``step`` and one replayed step (``_advance`` after its
+    warm-up step and capture) from ``first``'s state under the profiler:
+    for each, the window's ms, the device's busy ms, the idle share, the
+    host's kernel launch and ``cudaGraphLaunch`` calls, all CUDA API calls,
+    and the kernels' names; busy None where the profiler saw no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(row):
+        return getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0)
+
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - start) * 1e3
+        rows = prof.key_averages()
+        kernels = [r for r in rows if r.device_type == torch.autograd.DeviceType.CUDA and device_us(r) > 0]
+        api = {r.key: r.count for r in rows
+               if r.device_type == torch.autograd.DeviceType.CPU and r.key.startswith("cu")}
+        busy_ms = sum(device_us(r) for r in kernels) / 1e3 or None
+        return {
+            "window_ms": window_ms, "busy_ms": busy_ms,
+            "idle": None if busy_ms is None else max(0.0, 1 - busy_ms / window_ms),
+            "launch_calls": sum(api.get(k, 0) for k in LAUNCH_CALLS), "graph_launches": api.get("cudaGraphLaunch", 0),
+            "api_calls": sum(api.values()), "kernel_launches": sum(r.count for r in kernels),
+            "kernels": [r.key for r in kernels],
+        }
+
+    state = tracker.initialize(torch.Generator(device=dt.device).manual_seed(0), first, **(init or {}))
+    for _ in range(2):
+        tracker.step(state, frame, dt, **kwargs)
+    eager = profiled(lambda: tracker.step(state, frame, dt, **kwargs))
+    try:
+        warm, _ = tracker._advance(state, frame, dt, **kwargs)  # the key's eager first step
+        captured, _ = tracker._advance(warm, frame, dt, **kwargs)  # capture, then the first replay
+        graphed = profiled(lambda: tracker._advance(captured, frame, dt, **kwargs))
+    finally:
+        tracker._release()
+    return {"eager": eager, "graphed": graphed}
+
+
+def graphs_phase(shapes: dict) -> Tuple[List[str], dict]:
+    """Phase 27: each shape's run eager (:func:`eager_steps`) and graphed in
+    turns in this process, eager first, then graphed first (E, G, G, E),
+    each from the same generator seed; then one eager and one replayed step
+    under the profiler (:func:`profile_graphed_step`).
+
+    ``shapes`` maps a name to ``run`` (the tracker and a function that runs
+    one pass, returning (final state, time-major outputs)), the points and
+    steps a pass, and ``profile`` (the arguments of
+    :func:`profile_graphed_step`). Raises unless the two eager runs are
+    bit-equal to each other and each graphed run to them (every step's
+    means, sigmas and validity, the final particles and weights), both
+    kernels' launches are equal across the four, and the replay's profile
+    shows both kernels' names where the profiler sees the card. Returns
+    (one line a shape, each kernel's launches in each shape's first graphed
+    run)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels.highpass import median_highpass
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+    from glimpse_tpu_torch.track.batch import StepProgram
+
+    captures = []
+    build = StepProgram.__init__
+
+    def timed_build(self, *args):
+        start = time.perf_counter()
+        build(self, *args)
+        captures.append(time.perf_counter() - start)
+
+    lines, launches = [], {"median_highpass": {}, "systematic_resample": {}}
+    StepProgram.__init__ = timed_build
+    try:
+        for name, spec in shapes.items():
+            lines.append(_graphs_shape(name, spec, captures, launches))
+    finally:
+        StepProgram.__init__ = build
+    return lines, launches
+
+
+def _graphs_shape(name: str, spec: dict, captures: list, launches: dict) -> str:
+    """One shape of :func:`graphs_phase`: its line; each kernel's launches
+    in its first graphed run go into ``launches``."""
+    import torch
+
+    from glimpse_tpu_torch.kernels.highpass import median_highpass
+    from glimpse_tpu_torch.kernels.resample import systematic_resample
+
+    tracker, run = spec["run"]
+    records = []
+    for kind in ("eager", "graphed", "graphed", "eager"):
+        median_highpass.launches = 0
+        systematic_resample.launches = 0
+        captures.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        with eager_steps(tracker) if kind == "eager" else contextlib.nullcontext():
+            state, out = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        parts = getattr(state, "parts", [state])
+        records.append({
+            "kind": kind, "seconds": seconds, "peak": torch.cuda.max_memory_allocated() - base, "out": out,
+            "captures": list(captures),
+            "final": {f: torch.cat([getattr(p, f) for p in parts]) for f in ("particles", "weights")},
+            "launches": (median_highpass.launches, systematic_resample.launches),
+        })
+    launches["median_highpass"][name], launches["systematic_resample"][name] = records[1]["launches"]
+
+    def same(a, b):
+        return all(torch.equal(a["out"][k], b["out"][k]) for k in a["out"]) and all(
+            torch.equal(a["final"][f], b["final"][f]) for f in a["final"])
+
+    def spread(a, b):
+        return max([float((a["out"][k].double() - b["out"][k].double()).abs().max()) for k in a["out"]]
+                   + [float((a["final"][f].double() - b["final"][f].double()).abs().max()) for f in a["final"]])
+
+    if not same(records[0], records[3]):
+        raise AssertionError(f"phase 27 {name}: two eager runs from one seed part by {spread(records[0], records[3])}")
+    for graphed in (records[1], records[2]):
+        if not same(graphed, records[0]):
+            raise AssertionError(f"phase 27 {name}: a graphed run parts from the eager runs by"
+                                 f" {spread(graphed, records[0])}")
+    if len({r["launches"] for r in records}) != 1 or min(records[0]["launches"]) < 1:
+        raise AssertionError(f"phase 27 {name}: launches {[r['launches'] for r in records]}")
+    profiles = profile_graphed_step(tracker, *spec["profile"][0], **spec["profile"][1])
+    replay = profiles["graphed"]
+    if replay["graph_launches"] < 1:
+        raise AssertionError(f"phase 27 {name}: no cudaGraphLaunch in a replayed step: {replay}")
+    if replay["busy_ms"] is not None:
+        names = " ".join(replay["kernels"])
+        if "systematic_resample_kernel" not in names or not re.search(r"(separable|generic)\w*_kernel", names):
+            raise AssertionError(f"phase 27 {name}: the kernels are not among the replay's: {replay['kernels'][:20]}")
+
+    def step_profile(p):
+        measured = ("device time not measured" if p["busy_ms"] is None else
+                    f"device busy {p['busy_ms']:.3f} ms, idle share {p['idle']:.3f}")
+        return (f"{p['window_ms']:.3f} ms under the profiler, {measured}, {p['kernel_launches']} kernels;"
+                f" host calls {p['launch_calls']} cudaLaunchKernel, {p['graph_launches']} cudaGraphLaunch,"
+                f" {p['api_calls']} CUDA API calls in all")
+
+    n, steps = spec["points"], spec["steps"]
+
+    def described(r):
+        capture = (f", {len(r['captures'])} captures of {sum(r['captures']) * 1e3:.1f} ms on the host"
+                   if r["captures"] else "")
+        return (f"{r['kind']} {n * steps / r['seconds']:.1f} point-steps/s ({r['seconds'] / steps * 1e3:.3f} ms a"
+                f" step, peak {r['peak'] / 2**30:.2f} GiB above the run's start{capture})")
+
+    return (
+        f"phase 27 graphs against eager, {name}: " + ", ".join(described(r) for r in records)
+        + f"; every step's means, sigmas, validity and the final particles and weights bit-equal in all four"
+        f" runs (eager against eager too); launches {records[0]['launches']} in each; one eager step:"
+        f" {step_profile(profiles['eager'])}; one replayed step: {step_profile(replay)}"
+        + ("" if replay["busy_ms"] is None else ", both kernels among its kernels")
+    )
+
+
 def scaling() -> None:
     """``python3 chip_smoke.py --scaling`` on a machine with several cards:
     phase 6's and phase 5's widths on 1, 2 and 4 cards (as many as there
@@ -3536,6 +3751,7 @@ def main() -> None:
     # tracker at the reference's full recipe.
     line24, launches24 = stabilize_then_track(joined, frames24, cuda, chunk=chunk)
     say(f"phase 24 stabilize, then track: {len(frames24)} frames decoded in {decode24:.2f} s; " + line24, flush=True)
+    frames27 = frames24[:101].copy()  # phase 27's 100 steps of phase 24's setup
     del frames24
 
     # Phase 25: two observers with disjoint fire times, each sequence
@@ -3549,13 +3765,59 @@ def main() -> None:
     line26, launches26 = occluding_viewshed(devices, card)
     say(line26, flush=True)
 
+    # Phase 27: graphs against eager, in turns, at phase 5's, phase 6's,
+    # phase 24's and phase 20's shapes.
+    from glimpse_tpu_torch import parallel
+
+    tracker24, fitted27, _, _ = tracking_setup(joined, len(frames27), cuda)
+    cams27 = torch.as_tensor(fitted27[:, None], device=cuda)
+    first27 = torch.from_numpy(frames27[:2, None]).to(cuda, torch.float32)
+    mesh27 = make_tracker(camera, big_xy, p_big, cuda, mesh=parallel.get_mesh(devices=[cuda] * 4))
+    noise27 = injected_draws(n_big, p_big, steps_big, cuda, seed=20)
+    one = torch.ones((), device=cuda)
+
+    def seeded():
+        return torch.Generator(device=cuda).manual_seed(27)
+
+    def stream27():
+        state, outputs = tracker24.track_stream(
+            seeded(), frames27[0][None], (f[None] for f in frames27[1:]), np.ones(len(frames27) - 1, np.float32),
+            camera_vectors_seq=fitted27[:, None], chunk=chunk)
+        return state, stacked_chunks(outputs)
+
+    shapes27 = {
+        f"phase 5's {n_points}x{n_particles}x{n_steps}": {
+            "run": (tracker, lambda: tracker.track(seeded(), frames[:, None], torch.ones(n_steps, device=cuda))),
+            "points": n_points, "steps": n_steps, "profile": ((frames[0][None], frames[1][None], one), {}),
+        },
+        f"phase 6's {n_big}x{p_big}x{steps_big}": {
+            "run": (big, lambda: big.track(seeded(), frames[: steps_big + 1, None],
+                                           torch.ones(steps_big, device=cuda))),
+            "points": n_big, "steps": steps_big, "profile": ((frames[0][None], frames[1][None], one), {}),
+        },
+        f"phase 24's 10240x512x{len(frames27) - 1}, track_stream(chunk {chunk}), fitted cameras": {
+            "run": (tracker24, stream27),
+            "points": 10240, "steps": len(frames27) - 1,
+            "profile": ((first27[0], first27[1], one, {"camera_vectors": cams27[0]}), {"camera_vectors": cams27[1]}),
+        },
+        f"phase 20's {n_big}x{p_big}x{steps_big} in 4 mesh slices on one card, injected draws": {
+            "run": (mesh27, lambda: mesh27.track(seeded(), frames[: steps_big + 1, None],
+                                                 torch.ones(steps_big, device=cuda), noise=noise27)),
+            "points": n_big, "steps": steps_big, "profile": ((frames[0][None], frames[1][None], one), {}),
+        },
+    }
+    lines27, launches27 = graphs_phase(shapes27)
+    for line in lines27:
+        say(line, flush=True)
+
     # The kernels at phase 8's shapes; ``launches`` are phase 20's (the
     # tracker in four mesh slices; phases 18-19 launch neither), and
     # ``launches_by_path`` every main path's, each counted from 0 just before
     # its run (phase 5's and phase 8's counts are one timed pass's; phase
     # 21's the four processes' first timed pass at phase 6's width, summed;
     # phase 22's the timed passes of the three SSE modes; phase 24's the
-    # stabilized run's). ``large_tile_shapes`` are phases 3 and 23 (a)'s
+    # stabilized run's; phase 27's each shape's first graphed run, whose
+    # launches the replays count). ``large_tile_shapes`` are phases 3 and 23 (a)'s
     # tiles past one block's shared memory, bound by their dtype's bytes.
     # Each bound is the bytes the function must move (every input read
     # once, every output written once) over the device memory rate: the
@@ -3572,7 +3834,8 @@ def main() -> None:
         name: {"phase 5": launches[name], "phase 8": launches8[name], "phase 14": launches14[name],
                "phase 16": launches16[name], "phase 20": launches20[name], "phase 21": launches21[name],
                "phase 22": launches22[name], **{f"phase 23 {k}": v[name] for k, v in launches23.items()},
-               "phase 24": launches24[name], "phase 25": launches25[name], "phase 26": launches26[name]}
+               "phase 24": launches24[name], "phase 25": launches25[name], "phase 26": launches26[name],
+               **{f"phase 27 {k}": v for k, v in launches27[name].items()}}
         for name in ("median_highpass", "systematic_resample")
     }
     if any(count < 1 for counts in by_path.values() for count in counts.values()):

@@ -22,6 +22,12 @@ a tile.
 :func:`kernel_variant` names the kernel a stack takes. Both routes run the
 same networks and are bit-equal to the plain version. Tiles are float32,
 float64, float16 or bfloat16, and the output has the input's type.
+
+``median_highpass.launches`` counts the kernel's launches. A call made while
+its stream is being captured into a CUDA graph launches nothing: it adds to
+``median_highpass.captured`` instead, and whoever replays the graph adds its
+captured launches to ``launches`` at each replay
+(:class:`glimpse_tpu_torch.track.batch.StepProgram`).
 """
 import ctypes
 import functools
@@ -118,9 +124,14 @@ def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torc
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(tiles.data_ptr(), out.data_ptr(), N, h, w, kh, kw, DTYPE_CODES[tiles.dtype], stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     _build.check(lib, code, "median_highpass")
-    median_highpass.launches += 1
+    if capturing:
+        median_highpass.captured += 1
+    else:
+        median_highpass.launches += 1
     return out
 
 
 median_highpass.launches = 0
+median_highpass.captured = 0

@@ -6,6 +6,12 @@ picks by device alone: a CPU tensor runs :func:`systematic_resample_plain`;
 a CUDA tensor launches the kernel, or raises. The thresholds are float32;
 particles and weights share one type of float32, float64, float16 or
 bfloat16 and are copied bit for bit.
+
+``systematic_resample.launches`` counts the kernel's launches. A call made
+while its stream is being captured into a CUDA graph launches nothing: it
+adds to ``systematic_resample.captured`` instead, and whoever replays the
+graph adds its captured launches to ``launches`` at each replay
+(:class:`glimpse_tpu_torch.track.batch.StepProgram`).
 """
 import ctypes
 import functools
@@ -79,9 +85,14 @@ def systematic_resample(t: torch.Tensor, particles: torch.Tensor, weights: torch
             t.data_ptr(), particles.data_ptr(), weights.data_ptr(),
             out_particles.data_ptr(), out_weights.data_ptr(), N, P, particles.element_size(), stream,
         )
+        capturing = torch.cuda.is_current_stream_capturing()
     _build.check(lib, code, "systematic_resample")
-    systematic_resample.launches += 1
+    if capturing:
+        systematic_resample.captured += 1
+    else:
+        systematic_resample.launches += 1
     return out_particles, out_weights
 
 
 systematic_resample.launches = 0
+systematic_resample.captured = 0

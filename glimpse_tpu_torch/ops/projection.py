@@ -309,7 +309,10 @@ def world_to_camera(
             d2 = dxyz[..., 0] ** 2 + dxyz[..., 1] ** 2
             dz = dxyz[..., 2] + elevation_correction(d2, radius, refraction)
             dxyz = torch.cat([dxyz[..., 0:2], dz[..., None]], dim=-1)
-    xyz_c = torch.matmul(dxyz, R.transpose(-1, -2))
+    # In the type both promote to, as the reference's matmul: float64 points
+    # meet a float32 camera's rotation in float64.
+    dtype = torch.promote_types(dxyz.dtype, R.dtype)
+    xyz_c = torch.matmul(dxyz.to(dtype), R.transpose(-1, -2).to(dtype))
     depth = xyz_c[..., 2]
     behind = depth <= 0
     safe_depth = torch.where(behind, torch.ones_like(depth), depth)

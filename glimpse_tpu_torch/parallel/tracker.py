@@ -12,13 +12,16 @@ slice's device with a generator of its own, drawn from the caller's
 generator and the slice's index (:func:`slice_generators`). Slices never
 exchange data, so a step joins nothing: it launches each slice's step in
 turn from one thread, and no slice's step waits for the device, so the
-slices of a mesh over several cards run at once. That thread issues every
-slice's kernels (about a thousand a step each), so past two cards it bounds
-the step; one process a card (:func:`.mesh.initialize_distributed`,
-:func:`.mesh.local_points_slice`, :func:`.mesh.gather_points`) issues each
-slice from its own interpreter and scales further, and a thread a slice
-does worse than one thread (``PERF.md``). Outputs are gathered on the
-tracker's ``device`` once per :meth:`track` call, or once per chunk of
+slices of a mesh over several cards run at once. In :meth:`track` and
+:meth:`track_stream` each slice's step after the first is one replay of
+that slice's own captured CUDA graph
+(:class:`~glimpse_tpu_torch.track.batch.StepProgram`, the counterpart of
+the reference's program placed by ``_shard``), so the thread issues a
+handful of calls a slice a step; :meth:`step` issues every slice's kernels
+eagerly (about a thousand a step each). One process a card
+(:func:`.mesh.initialize_distributed`, :func:`.mesh.local_points_slice`,
+:func:`.mesh.gather_points`) issues each slice from its own interpreter.
+Outputs are gathered on the tracker's ``device`` once per :meth:`track` call, or once per chunk of
 :meth:`track_stream` (once a step through :meth:`step`).
 ``track/checkpoint.py`` saves a ``MeshState`` slice by slice and resumes it
 on a mesh of the same devices.
@@ -105,15 +108,25 @@ class MeshTracker(BatchTracker):
             for part, points, g in zip(self.parts, self.slices, generators)
         ])
 
-    def _advance(self, state: MeshState, images, dt, noise=None, **kwargs) -> Tuple[MeshState, list]:
-        """Each slice's step, launched in turn; the outputs stay on the
-        slices' devices."""
+    def _slices(self, how: str, state: MeshState, images, dt, noise=None, **kwargs) -> Tuple[MeshState, list]:
+        """Each slice's ``how`` (``"step"`` or ``"_advance"``), launched in
+        turn; the outputs stay on the slices' devices."""
         steps = [
-            part.step(part_state, _to(images, part.device), _to(dt, part.device), noise=_noise_slice(noise, points),
-                      **kwargs)
+            getattr(part, how)(part_state, _to(images, part.device), _to(dt, part.device),
+                               noise=_noise_slice(noise, points), **kwargs)
             for part, points, part_state in zip(self.parts, self.slices, state.parts)
         ]
         return MeshState([s for s, _ in steps]), [out for _, out in steps]
+
+    def _advance(self, state: MeshState, images, dt, noise=None, **kwargs) -> Tuple[MeshState, list]:
+        """Each slice's :meth:`BatchTracker._advance`: on a card, after the
+        first step, one replay of the slice's own captured graph, with its
+        own generator and memory pool."""
+        return self._slices("_advance", state, images, dt, noise=noise, **kwargs)
+
+    def _release(self) -> None:
+        for part in self.parts:
+            part._release()
 
     def _join(self, out: list) -> dict:
         return {k: torch.cat([o[k].to(self.device) for o in out], dim=0) for k in out[0]}
@@ -124,8 +137,8 @@ class MeshTracker(BatchTracker):
 
     def step(self, state: MeshState, images, dt, noise=None, camera_vectors=None, obs_mask=None,
              init_template_for=()) -> Tuple[MeshState, dict]:
-        """:meth:`BatchTracker.step` of every slice; the outputs are joined
-        on ``device``."""
-        state, out = self._advance(state, images, dt, noise=noise, camera_vectors=camera_vectors,
-                                   obs_mask=obs_mask, init_template_for=init_template_for)
+        """:meth:`BatchTracker.step` of every slice, eagerly; the outputs
+        are joined on ``device``."""
+        state, out = self._slices("step", state, images, dt, noise=noise, camera_vectors=camera_vectors,
+                                  obs_mask=obs_mask, init_template_for=init_template_for)
         return state, self._join(out)

@@ -21,23 +21,32 @@ The counterpart of :mod:`glimpse_tpu.track.batch` on one device. One step:
    threshold), moments, then resampling: systematic through the kernel
    ``systematic_resample``, the other methods by a row gather.
 
-The time loop is a Python loop. Randomness comes from an explicit
-``torch.Generator``; ``noise=`` takes injected draws with the reference's
-keys and shapes, so both packages can run in lockstep. Nothing in a step
-waits for the device, so a host that streams frames runs ahead of it.
+``step`` is the eager function, the public per-step API. ``track`` and
+``track_stream`` loop over :class:`StepProgram`: on a card each step after
+the first is one replay of a CUDA graph captured from ``step``, the
+counterpart of the reference's compiled programs (``_track_program``,
+``_chunk_program``, the jitted stream step). Randomness comes from an
+explicit ``torch.Generator``; ``noise=`` takes injected draws with the
+reference's keys and shapes, so both packages can run in lockstep. Nothing
+in a step waits for the device, so a host that streams frames runs ahead of
+it.
 
 With a ``mesh`` (:func:`glimpse_tpu_torch.parallel.get_mesh`) the
 constructor builds a :class:`glimpse_tpu_torch.parallel.tracker.MeshTracker`,
 which runs one tracker per contiguous slice of the points, each on its
 mesh entry's device.
 """
+import contextlib
 import dataclasses
 import functools
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels import highpass as highpass_kernel
+from ..kernels import resample as resample_kernel
 from ..kernels.highpass import highpass as routed_highpass
 from ..kernels.resample import systematic_resample
 from ..ops import imageproc, ncc, projection, resampling, sampling
@@ -731,6 +740,160 @@ def masks_from_frame_table(frame_table) -> np.ndarray:
     return np.not_equal(np.asarray(frame_table, dtype=object), None).astype(np.float32)
 
 
+# ---- Captured steps ---- #
+
+#: The fields of a :class:`BatchState` that a step reads and writes on the device.
+STATE_FIELDS = ("particles", "weights", "valid", "templates", "template_table", "template_duv")
+#: The draws a step may take injected.
+STEP_NOISE_KEYS = ("a", "zwalk", "resample_u")
+
+
+def _step_inputs(cfg: BatchConfig, images, dt, noise, camera_vectors, obs_mask) -> dict:
+    """A step's inputs by name, each with the type :meth:`BatchTracker.step`
+    casts it to: the frame, ``dt`` and the mask to the configuration's
+    dtype, the cameras and the draws to float32. Absent inputs are left out."""
+    given = {
+        "images": (images, cfg.dtype), "dt": (dt, cfg.dtype),
+        "camera_vectors": (camera_vectors, torch.float32), "obs_mask": (obs_mask, cfg.dtype),
+        **{k: (noise.get(k), torch.float32) for k in STEP_NOISE_KEYS},
+    }
+    return {name: pair for name, pair in given.items() if pair[0] is not None}
+
+
+#: Per thread, per card: the side stream every step program captures and
+#: replays on, and the first graph captured there, whose memory pool the
+#: later ones share (:func:`_capture_context`).
+_CAPTURE = threading.local()
+
+
+def _capture_context() -> list:
+    """[stream, anchor] of this thread on the current card. Every step
+    program of every tracker captures and replays on ``stream``, in the
+    memory pool of ``anchor`` (None until the first capture), so captures
+    reuse one pool's blocks, call after call, and replays never overlap
+    (each waits for the caller's stream, which then waits for it). The
+    anchor keeps the pool alive for the thread's life: a pool a program was
+    freed only when the allocator emptied its cache (2-18 % of a 10-step
+    call at 10,240 x 2,048 to empty it at each call's end, 5.4 GiB more
+    reserved a call not to), and a pool a tracker ran a process holding
+    many trackers out of memory (PERF.md PR 13)."""
+    contexts = getattr(_CAPTURE, "contexts", None)
+    if contexts is None:
+        contexts = _CAPTURE.contexts = {}
+    index = torch.cuda.current_device()
+    if index not in contexts:
+        contexts[index] = [torch.cuda.Stream(index), None]
+    return contexts[index]
+
+
+class StepProgram:
+    """One :meth:`BatchTracker.step` as a program over static buffers: the
+    port's counterpart of the reference's compiled tracking programs
+    (``_track_program``, ``_chunk_program``, the jitted stream step).
+
+    It owns a buffer for each of the step's inputs (the frame (O, H, W),
+    ``dt``, the cameras (O, 20) and the mask (O,) where given, each injected
+    draw) and for the state the step reads and writes (particles, weights,
+    ``valid``, templates, template table, ``template_duv``), and holds the
+    state's generator. On a card it captures the eager ``step`` on those
+    buffers into one ``torch.cuda.CUDAGraph``, on the thread's side stream
+    and in its memory pool (:func:`_capture_context`), with the generator
+    registered so that a replay draws what an eager step would and leaves
+    the generator where it would; the new state is copied back into the
+    state's buffers at the end of the captured region (at 10,240 x 2,048
+    the particles' copy moves about 1 GB, some 0.3 ms of a step of about 84
+    ms; ping-ponging between two captures would need ``step`` to write into
+    given tensors). A call copies the inputs into the buffers, replays,
+    copies the outputs out of the graph's pool (the next replay overwrites
+    it) and returns the state, whose tensors are the buffers. On the CPU,
+    where there is no graph, the same object copies into its buffers and
+    runs the eager step.
+
+    Capture needs a step that reads nothing on the host: a step that does
+    raises here with the reason, and nothing falls back to the eager loop.
+    Each kernel wrapper counts the launches it captured; each replay adds
+    them to the kernels' ``launches``.
+    """
+
+    #: The kernel wrappers whose launches a replay adds to their counts.
+    KERNELS = (highpass_kernel.median_highpass, resample_kernel.systematic_resample)
+
+    def __init__(self, tracker: "BatchTracker", state: BatchState, inputs: dict) -> None:
+        self.tracker = tracker
+        self.device = tracker.device
+        self.generator = state.generator
+        self.state = dataclasses.replace(
+            state, **{name: getattr(state, name).clone(memory_format=torch.contiguous_format) for name in STATE_FIELDS}
+        )
+        self.buffers = {
+            name: _as_tensor(x, self.device, dtype).clone(memory_format=torch.contiguous_format)
+            for name, (x, dtype) in inputs.items()
+        }
+        self.graph = None
+        self.launches = (0,) * len(self.KERNELS)
+        if self.device.type != "cuda":
+            return
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(self.generator)
+        before = [kernel.captured for kernel in self.KERNELS]
+        # What torch.cuda.graph does, without its synchronize and
+        # empty_cache: capture records and runs nothing, so the host
+        # captures while the card still runs the steps before.
+        with torch.cuda.device(self.device):
+            context = _capture_context()
+            self.stream = context[0]
+            pool = () if context[1] is None else (context[1].pool(),)
+            with torch.cuda.stream(self.stream):
+                self.graph.capture_begin(*pool, capture_error_mode="thread_local")
+                try:
+                    self.outputs = self._body()
+                finally:
+                    self.graph.capture_end()
+            if context[1] is None:
+                context[1] = self.graph
+        self.launches = tuple(kernel.captured - n for kernel, n in zip(self.KERNELS, before))
+
+    def _body(self) -> dict:
+        """The eager step on the buffers, its new state copied back into them."""
+        b = self.buffers
+        kwargs = {name: b[name] for name in ("camera_vectors", "obs_mask") if name in b}
+        noise = {k: b[k] for k in STEP_NOISE_KEYS if k in b}
+        if noise:
+            kwargs["noise"] = noise
+        new_state, outputs = self.tracker.step(self.state, b["images"], b["dt"], **kwargs)
+        for name in STATE_FIELDS:
+            field, buffer = getattr(new_state, name), getattr(self.state, name)
+            if field is not buffer:
+                buffer.copy_(field)
+        return outputs
+
+    def __call__(self, state: BatchState, inputs: dict) -> Tuple[BatchState, dict]:
+        """One step from ``state`` on ``inputs`` (as :func:`_step_inputs`
+        gives them): (new state, the step's outputs)."""
+        if state.generator is not self.generator:
+            raise ValueError("this step program was captured with another generator")
+        with torch.cuda.device(self.device) if self.graph is not None else contextlib.nullcontext():
+            for name in STATE_FIELDS:
+                field, buffer = getattr(state, name), getattr(self.state, name)
+                if field is not buffer:
+                    buffer.copy_(field)
+            for name, (x, dtype) in inputs.items():
+                self.buffers[name].copy_(_as_tensor(x, self.device, dtype))
+            if self.graph is None:
+                outputs = self._body()
+            else:
+                current = torch.cuda.current_stream()
+                self.stream.wait_stream(current)
+                with torch.cuda.stream(self.stream):
+                    self.graph.replay()
+                current.wait_stream(self.stream)
+                outputs = self.outputs
+                for kernel, n in zip(self.KERNELS, self.launches):
+                    kernel.launches += n
+            outputs = {k: v.clone() for k, v in outputs.items()}
+        return dataclasses.replace(self.state, step=state.step + 1), outputs
+
+
 # ---- The tracker ---- #
 
 
@@ -783,6 +946,9 @@ class BatchTracker:
         if mesh is not None:
             raise TypeError(f"{type(self).__name__} takes no mesh; build BatchTracker(..., mesh=mesh)")
         self.mesh = None
+        # The step programs of the running track or track_stream call, by
+        # static key (see _advance); None marks a key whose first step ran eagerly.
+        self._programs: dict = {}
 
     @classmethod
     def from_observers(cls, observers, motion: BatchMotion, config: BatchConfig = None,
@@ -997,8 +1163,40 @@ class BatchTracker:
     def _advance(self, state, images, dt, **kwargs):
         """One step of :meth:`track` and :meth:`track_stream`: (new state,
         the step's outputs as the tracker holds them until :meth:`_join` or
-        :meth:`_collect` gathers them)."""
-        return self.step(state, images, dt, **kwargs)
+        :meth:`_collect` gathers them). ``images`` and ``dt`` are tensors;
+        ``kwargs`` are :meth:`step`'s.
+
+        The step runs through the :class:`StepProgram` of its static key, as
+        the reference's ``cache_key`` picks a compiled program: which draws
+        are injected, whether ``obs_mask`` and per-frame ``camera_vectors``
+        are given, the state's generator and the frame's shape. A key's
+        first step runs eagerly and warms up (the kernels' build, library
+        handles, allocator pools); its second builds the program, which runs
+        every later step. A step with ``init_template_for`` runs eagerly, as
+        the reference runs it between scan segments.
+        """
+        if kwargs.get("init_template_for"):
+            return self.step(state, images, dt, **kwargs)
+        inputs = _step_inputs(self.config, images, dt, kwargs.get("noise") or {}, kwargs.get("camera_vectors"),
+                              kwargs.get("obs_mask"))
+        key = (
+            tuple(k for k in STEP_NOISE_KEYS if k in inputs), "obs_mask" in inputs, "camera_vectors" in inputs,
+            id(state.generator), tuple(images.shape),
+        )
+        if key not in self._programs:
+            self._programs[key] = None
+            return self.step(state, images, dt, **kwargs)
+        if self._programs[key] is None:
+            self._programs[key] = StepProgram(self, state, inputs)
+        return self._programs[key](state, inputs)
+
+    def _release(self) -> None:
+        """Drop the step programs at the end of a :meth:`track` or
+        :meth:`track_stream` call: a new call comes with its own generator,
+        and so with programs of its own. The state the call returned keeps
+        the programs' buffers as its tensors; their graphs' memory goes back
+        to the thread's capture pool (:func:`_capture_context`)."""
+        self._programs = {}
 
     def _join(self, out) -> dict:
         """One step's outputs from :meth:`_advance` as a dict on ``device``."""
@@ -1035,6 +1233,11 @@ class BatchTracker:
         Returns (final state, outputs) with outputs "mean" and "sigma"
         (T-1, N, 6), "valid" (T-1, N) and, with ``return_covariances``,
         "covariance" (T-1, N, 6, 6).
+
+        On a card the first step runs eagerly, each later one as a replay of
+        one CUDA graph captured from :meth:`step` (:meth:`_advance`); steps
+        that cut a late observer's template run eagerly. Results equal a loop
+        of :meth:`step` from the same generator bit for bit.
         """
         mask0, plan = self._template_plan(obs_masks, obs_mask0)
         dtype = self.config.dtype
@@ -1047,12 +1250,15 @@ class BatchTracker:
         }
         state = self.initialize(generator, images[0], noise=noise.get("init"), obs_mask0=mask0)
         outs = []
-        for i in range(dts.shape[0]):
-            state, out = self._advance(
-                state, images[1 + i], dts[i], noise={k: x[i] for k, x in step_noise.items()},
-                obs_mask=None if masks is None else masks[i], init_template_for=plan.get(i + 1, ()),
-            )
-            outs.append(out)
+        try:
+            for i in range(dts.shape[0]):
+                state, out = self._advance(
+                    state, images[1 + i], dts[i], noise={k: x[i] for k, x in step_noise.items()},
+                    obs_mask=None if masks is None else masks[i], init_template_for=plan.get(i + 1, ()),
+                )
+                outs.append(out)
+        finally:
+            self._release()
         if not outs:
             return state, self._empty_outputs(self.motion.n_points)
         return state, self._collect(outs)
@@ -1081,11 +1287,16 @@ class BatchTracker:
         ``obs_masks`` (T-1, O) and ``obs_mask0`` (O,) are as in
         :meth:`track`.
 
-        With ``chunk`` 1 the returned list holds one output dict per step.
-        With ``chunk`` > 1 the frames go to the device ``chunk`` at a time,
-        each chunk in one copy, and each entry covers a chunk with a leading
-        time axis; a chunk that holds a late observer's template step runs
-        step by step, each entry with a leading axis of 1.
+        Each step runs as in :meth:`track`: on a card, after the first, as
+        one replay of a captured CUDA graph, whatever ``chunk`` is. With
+        ``chunk`` 1 the returned list holds one output dict per step. With
+        ``chunk`` > 1 the frames go to the device ``chunk`` at a time, each
+        chunk in one pinned, asynchronous copy, each of its frames copied
+        from there into the graph's frame buffer, and each entry covers a
+        chunk with a leading time axis, gathered once a chunk: ``chunk``
+        buys fewer host-to-device copies and output entries, no longer fewer
+        launches. A chunk that holds a late observer's template step gives
+        one entry a step, each with a leading axis of 1.
         """
         mask0, plan = self._template_plan(obs_masks, obs_mask0)
         dtype = self.config.dtype
@@ -1106,24 +1317,27 @@ class BatchTracker:
 
         outputs = []
         it = iter(frame_iter)
-        if chunk <= 1:
-            for t, frame in enumerate(it, start=1):
-                if t > n_steps:
-                    break
-                state, out = one(state, t, self._upload([frame])[0])
-                outputs.append(self._join(out))
-            return state, outputs
-        t = 1
-        while t <= n_steps:
-            t_end = min(t + chunk - 1, n_steps)
-            frames = self._upload([next(it) for _ in range(t_end - t + 1)])
-            outs = []
-            for k in range(len(frames)):
-                state, out = one(state, t + k, frames[k])
-                outs.append(out)
-            if any(b in plan for b in range(t, t_end + 1)):
-                outputs.extend(self._collect([out]) for out in outs)
-            else:
-                outputs.append(self._collect(outs))
-            t = t_end + 1
+        try:
+            if chunk <= 1:
+                for t, frame in enumerate(it, start=1):
+                    if t > n_steps:
+                        break
+                    state, out = one(state, t, self._upload([frame])[0])
+                    outputs.append(self._join(out))
+                return state, outputs
+            t = 1
+            while t <= n_steps:
+                t_end = min(t + chunk - 1, n_steps)
+                frames = self._upload([next(it) for _ in range(t_end - t + 1)])
+                outs = []
+                for k in range(len(frames)):
+                    state, out = one(state, t + k, frames[k])
+                    outs.append(out)
+                if any(b in plan for b in range(t, t_end + 1)):
+                    outputs.extend(self._collect([out]) for out in outs)
+                else:
+                    outputs.append(self._collect(outs))
+                t = t_end + 1
+        finally:
+            self._release()
         return state, outputs

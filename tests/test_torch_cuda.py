@@ -564,3 +564,281 @@ def test_host_tracker_finishes_a_wide_cloud_on_card(cuda) -> None:
     line, largest = wide_cloud_run(scene, points, noise, {"card": cuda, "cpu": torch.device("cpu")}, p, n_points=n,
                                    n_frames=t)
     assert "_global" in largest["variant"] and largest["variant"] in line
+
+
+def _graph_scene(cuda, T: int = 12, n: int = 48, **settings):
+    """Two observers on 128 x 128 frames, the second late (its template cut
+    at step 4, after the step program is built) and masked at step 7, a
+    viewshed, ESS resampling and covariances:
+    (tracker, frames (T, 2, 128, 128), masks, mask0, per-frame cameras)."""
+    import scipy.ndimage
+
+    from glimpse_tpu_torch.track import batch, convert
+
+    rng = np.random.default_rng(13)
+    size = 128
+    base = scipy.ndimage.gaussian_filter(rng.normal(size=(size + 32, size + 32)), 0.8) * 100
+    frames = np.stack([[base[i : i + size, i : i + size], base[i + 2 : i + 2 + size, i : i + size]] for i in range(T)])
+    cam = np.zeros(20, np.float32)
+    cam[0:3], cam[3:6], cam[6:10] = (size / 2, size / 2, size), (0, -90, 0), size
+    cams = np.stack([[cam, cam]] * T)
+    cams[:, :, 3] = 0.05 * np.sin(np.arange(T))[:, None]
+    flat = {"array": [[0.0]], "x0": 0.0, "y0": 0.0, "dx": 1e30, "dy": 1e30}
+    motion = convert.motion_from_numpy(
+        {
+            "kind": "cartesian", "xy": rng.uniform(40, 88, size=(n, 2)), "xy_sigma": np.ones((n, 2)),
+            "v_mean": np.zeros((n, 3)), "v_sigma": np.tile([1.0, 1.0, 0.0], (n, 1)), "a_mean": np.zeros((n, 3)),
+            "a_sigma": np.tile([0.1, 0.1, 0.0], (n, 1)), "slope_sigma": np.zeros(n), "dem": flat, "dem_sigma": flat,
+            "use_dem_sigma": False,
+        },
+        cuda,
+    )
+    viewshed = convert.raster_from_numpy(
+        {"array": np.ones((8, 8)), "x0": -size, "y0": 2 * size, "dx": 3 * size / 8, "dy": -3 * size / 8}, cuda
+    )
+    config = batch.BatchConfig(n_particles=256, template_size=(11, 11), search_size=(25, 25), resample_threshold=0.5,
+                               return_covariances=True, **settings)
+    tracker = batch.BatchTracker(np.stack([cam, cam]), [None] * 2, [0.3] * 2, motion, config, device=cuda,
+                                 viewshed=viewshed)
+    masks = np.ones((T - 1, 2), np.float32)
+    masks[0:3, 1] = 0.0
+    masks[6:7, 1] = 0.0
+    return tracker, frames, masks, np.array([1.0, 0.0]), cams
+
+
+def _step_loop(tracker, generator, frames, masks, mask0, cams=None, lo=0, hi=None, state=None):
+    """initialize (unless ``state`` is given), then the eager ``step`` from
+    frame ``lo + 1`` to ``hi``: (state, time-major outputs, the kernels'
+    launches)."""
+    from glimpse_tpu_torch.track import batch
+
+    dtype = tracker.config.dtype
+    images = batch._as_tensor(frames, tracker.device, dtype)
+    cams = None if cams is None else torch.as_tensor(cams, device=tracker.device)
+    hi = len(frames) - 1 if hi is None else hi
+    _, plan = tracker._template_plan(masks, mask0)
+    before = (median_highpass.launches, systematic_resample.launches)
+    if state is None:
+        state = tracker.initialize(generator, images[0], obs_mask0=tuple(mask0 > 0),
+                                   camera_vectors=None if cams is None else cams[0])
+    outs = []
+    for i in range(lo, hi):
+        state, out = tracker.step(
+            state, images[1 + i], torch.tensor(1.0, dtype=dtype, device=tracker.device),
+            obs_mask=batch._as_tensor(masks[i], tracker.device, dtype), init_template_for=plan.get(i + 1, ()),
+            camera_vectors=None if cams is None else cams[1 + i],
+        )
+        outs.append(out)
+    launches = (median_highpass.launches - before[0], systematic_resample.launches - before[1])
+    return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}, launches
+
+
+def _programs(monkeypatch):
+    """Record every StepProgram built and every call of one."""
+    from glimpse_tpu_torch.track import batch
+
+    seen = {"built": [], "calls": 0}
+    init, call = batch.StepProgram.__init__, batch.StepProgram.__call__
+
+    def built(self, *args):
+        init(self, *args)
+        seen["built"].append(self)
+
+    def called(self, *args):
+        seen["calls"] += 1
+        return call(self, *args)
+
+    monkeypatch.setattr(batch.StepProgram, "__init__", built)
+    monkeypatch.setattr(batch.StepProgram, "__call__", called)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["einsum", "nearest", "bilinear"])
+@pytest.mark.parametrize("name", ["float32", "bfloat16", "float16", "float64"])
+@pytest.mark.parametrize("entry", ["track", "track_stream"])
+def test_graphed_run_equals_the_step_loop_on_card(cuda, monkeypatch, entry, name, mode) -> None:
+    """``track`` and ``track_stream(chunk=8)`` with per-frame cameras replay
+    one captured graph a step after the first (the late observer's template
+    step eager between replays, the next replay copying its state in): bit
+    for bit the eager step loop's outputs
+    and state from the same generator seed, the generator's next draw the
+    same, and both kernels' launch counts the same."""
+    from glimpse_tpu_torch.track import batch
+
+    dtype = getattr(torch, name)
+    tracker, frames, masks, mask0, cams = _graph_scene(cuda, sse_sample_mode=mode, dtype=dtype)
+    T = len(frames)
+    generators = [torch.Generator(device=cuda).manual_seed(21) for _ in range(2)]
+    want_state, want, want_launches = _step_loop(tracker, generators[1], frames, masks, mask0,
+                                                 cams=None if entry == "track" else cams)
+    seen = _programs(monkeypatch)
+    before = (median_highpass.launches, systematic_resample.launches)
+    if entry == "track":
+        state, out = tracker.track(generators[0], frames, np.ones(T - 1), obs_masks=masks, obs_mask0=mask0)
+    else:
+        state, outputs = tracker.track_stream(generators[0], frames[0], iter(frames[1:]), np.ones(T - 1),
+                                              camera_vectors_seq=cams, obs_masks=masks, obs_mask0=mask0, chunk=8)
+        assert [len(o["mean"]) for o in outputs] == [1] * 8 + [3]
+        out = {k: torch.cat([o[k] for o in outputs]) for k in outputs[0]}
+    assert (median_highpass.launches - before[0], systematic_resample.launches - before[1]) == want_launches
+    assert len(seen["built"]) == 1 and seen["built"][0].graph is not None and seen["calls"] == T - 3
+    assert seen["built"][0].launches == (1, 1)
+    for k in want:
+        assert torch.equal(out[k], want[k]), k
+    for field in batch.STATE_FIELDS:
+        assert torch.equal(getattr(state, field), getattr(want_state, field)), field
+    assert torch.equal(generators[0].get_state(), generators[1].get_state())
+    assert torch.equal(*(torch.randn(7, generator=g, device=cuda) for g in generators))
+    assert torch.isfinite(out["mean"]).all() and (out["valid"] == 1).all()
+
+
+@pytest.mark.cuda
+def test_graphed_outputs_survive_later_replays_on_card(cuda, monkeypatch) -> None:
+    """Each output ``track`` stacks is a copy out of the graph's pool: the
+    whole list after the run equals snapshots taken as each step returned."""
+    tracker, frames, masks, mask0, _ = _graph_scene(cuda)
+    from glimpse_tpu_torch.track import batch
+
+    snapshots, kept = [], []
+    call = batch.StepProgram.__call__
+
+    def spy(self, state, inputs):
+        new_state, out = call(self, state, inputs)
+        snapshots.append({k: v.clone() for k, v in out.items()})
+        kept.append(out)
+        return new_state, out
+
+    monkeypatch.setattr(batch.StepProgram, "__call__", spy)
+    tracker.track(torch.Generator(device=cuda).manual_seed(2), frames, np.ones(len(frames) - 1), obs_masks=masks,
+                  obs_mask0=mask0)
+    assert len(kept) == len(frames) - 3
+    for out, snapshot in zip(kept, snapshots):
+        for k in snapshot:
+            assert torch.equal(out[k], snapshot[k]), k
+
+
+@pytest.mark.cuda
+def test_graphed_calls_share_one_pool_on_card(cuda) -> None:
+    """Every call's programs capture into the one memory pool of this
+    thread's capture context and give its blocks back at the call's end: the
+    next call reuses them, so later calls reserve no more device memory, and
+    every graph-pool segment belongs to that pool."""
+    from glimpse_tpu_torch.track import batch
+
+    tracker, frames, masks, mask0, _ = _graph_scene(cuda)
+
+    def run(seed):
+        tracker.track(torch.Generator(device=cuda).manual_seed(seed), frames, np.ones(len(frames) - 1),
+                      obs_masks=masks, obs_mask0=mask0)
+        torch.cuda.synchronize()
+        assert tracker._programs == {}
+        pools = {tuple(s["segment_pool_id"]) for s in torch.cuda.memory_snapshot()
+                 if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0)}
+        return torch.cuda.memory_reserved(), pools
+
+    first, pools = run(0)
+    anchor = batch._capture_context()[1]
+    assert anchor is not None and pools == {tuple(anchor.pool())}
+    for seed in (1, 2, 3):
+        assert run(seed) == (first, pools)
+    assert batch._capture_context()[1] is anchor
+
+
+@pytest.mark.cuda
+def test_graphed_checkpoint_resumes_bit_exactly_on_card(cuda, tmp_path) -> None:
+    """A state that replays produced, saved after step 5 and loaded, runs
+    on through the step programs (its first step eager, the rest replays)
+    to the uninterrupted graphed run's outputs, state and generator, bit for
+    bit."""
+    from glimpse_tpu_torch.track import batch, checkpoint
+
+    tracker, frames, masks, mask0, _ = _graph_scene(cuda)
+    T = len(frames)
+    whole, out = tracker.track(torch.Generator(device=cuda).manual_seed(5), frames, np.ones(T - 1), obs_masks=masks,
+                               obs_mask0=mask0)
+    half, _ = tracker.track(torch.Generator(device=cuda).manual_seed(5), frames[:6], np.ones(5), obs_masks=masks[:5],
+                            obs_mask0=mask0)
+    checkpoint.save_state(half, tmp_path / "state.npz")
+    state = checkpoint.load_state(tmp_path / "state.npz")
+    images = batch._as_tensor(frames, cuda, torch.float32)
+    masks_t = batch._as_tensor(masks, cuda, torch.float32)
+    outs = []
+    for i in range(5, T - 1):
+        state, step_out = tracker._advance(state, images[1 + i], torch.ones((), device=cuda), obs_mask=masks_t[i])
+        outs.append(step_out)
+    assert isinstance(list(tracker._programs.values())[0], batch.StepProgram)
+    tracker._release()
+    for k in out:
+        assert torch.equal(torch.stack([o[k] for o in outs]), out[k][5:]), k
+    for field in batch.STATE_FIELDS:
+        assert torch.equal(getattr(state, field), getattr(whole, field)), field
+    assert torch.equal(state.generator.get_state(), whole.generator.get_state())
+
+
+@pytest.mark.cuda
+def test_graphed_mesh_on_one_card_equals_its_step_loop(cuda) -> None:
+    """Two mesh slices on one card, each replaying its own graph with its
+    own generator: bit for bit the mesh's eager step loop."""
+    from glimpse_tpu_torch import parallel
+    from glimpse_tpu_torch.track import batch
+
+    tracker, frames, masks, mask0, _ = _graph_scene(cuda)
+    mesh = batch.BatchTracker(tracker.camera_vectors, tracker.corrections, tracker.sigmas, tracker.motion,
+                              tracker.config, device=cuda, viewshed=tracker.viewshed,
+                              mesh=parallel.get_mesh(devices=[cuda, cuda]))
+    T = len(frames)
+    before = (median_highpass.launches, systematic_resample.launches)
+    state, out = mesh.track(torch.Generator(device=cuda).manual_seed(8), frames, np.ones(T - 1), obs_masks=masks,
+                            obs_mask0=mask0)
+    graphed = (median_highpass.launches - before[0], systematic_resample.launches - before[1])
+    images = batch._as_tensor(frames, cuda, torch.float32)
+    _, plan = mesh._template_plan(masks, mask0)
+    before = (median_highpass.launches, systematic_resample.launches)
+    want = mesh.initialize(torch.Generator(device=cuda).manual_seed(8), images[0], obs_mask0=(True, False))
+    outs = []
+    for i in range(T - 1):
+        want, step_out = mesh.step(want, images[1 + i], torch.ones((), device=cuda),
+                                   obs_mask=batch._as_tensor(masks[i], cuda, torch.float32),
+                                   init_template_for=plan.get(i + 1, ()))
+        outs.append(step_out)
+    assert graphed == (median_highpass.launches - before[0], systematic_resample.launches - before[1])
+    for k in out:
+        assert torch.equal(out[k], torch.stack([o[k] for o in outs])), k
+    for mine, theirs in zip(state.parts, want.parts):
+        assert torch.equal(mine.particles, theirs.particles)
+        assert torch.equal(mine.generator.get_state(), theirs.generator.get_state())
+
+
+@pytest.mark.cuda
+def test_uncapturable_step_raises_on_card(cuda, monkeypatch) -> None:
+    """A step that reads the card on the host (an ``.item()``) cannot be
+    captured: ``track`` raises with CUDA's reason and does not fall back
+    to the eager loop. (Last in the file: it leaves a failed capture
+    behind.)"""
+    from glimpse_tpu_torch.track import batch
+
+    tracker, frames, masks, mask0, _ = _graph_scene(cuda, T=5)
+    moments = batch.particle_moments
+
+    def host_read(particles, weights):
+        if float(weights.sum().item()) <= 0:
+            raise AssertionError("no weight")
+        return moments(particles, weights)
+
+    monkeypatch.setattr(batch, "particle_moments", host_read)
+    calls = []
+    step = tracker.step
+
+    def counted(*args, **kwargs):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return step(*args, **kwargs)
+
+    monkeypatch.setattr(tracker, "step", counted)
+    with pytest.raises(RuntimeError, match="captur"):
+        tracker.track(torch.Generator(device=cuda).manual_seed(0), frames, np.ones(len(frames) - 1), obs_masks=masks,
+                      obs_mask0=mask0)
+    # Step 1 eager, step 2's capture failed; no step ran after it.
+    assert calls == [False, True]
+    assert tracker._programs == {}
+    assert float(torch.ones(3, device=cuda).sum()) == 3.0

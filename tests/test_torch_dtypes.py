@@ -335,6 +335,23 @@ def test_projection_of_16_bit_particles(name) -> None:
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-6, atol=1e-3)
 
 
+def test_float64_points_project_through_a_float32_camera() -> None:
+    """Float64 points (a float64 tracker's particle means, from which a late
+    observer's template is cut) through a float32 camera come out float64,
+    as the reference's do under x64, and equal its numbers to float64
+    rounding; the port's matmul raised on the mixed types before."""
+    cam = RefCamera(imgsz=(640, 480), f=(500, 510), c=(3, -2), k=(0.05, -0.01, 0, 0, 0, 0), p=(1e-3, -2e-3),
+                    xyz=(100, 200, 300), viewdir=(10, -80, 5)).to_array().astype(np.float32)
+    rng = np.random.default_rng(10)
+    xyz = np.column_stack([rng.uniform(60, 140, 64), rng.uniform(160, 240, 64), rng.uniform(-5, 5, 64)])
+    uv = projection.project(torch.from_numpy(cam), torch.from_numpy(xyz), correction=(6.3e6, 0.13))
+    assert uv.dtype == torch.float64
+    with jax.enable_x64(True):
+        ref = jax_projection.project(jnp.asarray(cam), jnp.asarray(xyz), correction=(6.3e6, 0.13), xp=jnp)
+        assert ref.dtype == jnp.float64
+        np.testing.assert_allclose(uv.numpy(), np.asarray(ref), rtol=1e-12, atol=1e-9)
+
+
 def test_motion_draws_float32_and_casts_at_use() -> None:
     """BatchMotion.evolve of 16-bit particles draws float32 and returns
     float32, as the reference's does; the tracker casts to its dtype.
