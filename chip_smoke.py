@@ -219,7 +219,24 @@ each:
     profiler: idle share, host ``cudaLaunchKernel`` and ``cudaGraphLaunch``
     calls a step, and both kernels' names among the replay's kernels.
 
-Every phase that runs ``track`` or ``track_stream`` runs it graphed.
+28. calibration and stabilization programs against eager: each runs eager,
+    graphed, graphed, eager in one process: (a) phase 18's ``ObserverCameras``
+    objective through 200 L-BFGS iterations (``optimize._TensorSteps``
+    against ``optimize.LBFGSPrograms``): ms an iteration, evaluations, x,
+    value, gradient and iterations bit-equal, and iteration 41 profiled each
+    way (idle share, ``cudaLaunchKernel``, ``cudaGraphLaunch``, memory copies
+    and all CUDA API calls; a replayed iteration launches at most one graph
+    an evaluation plus one for its direction, and no kernel); (b) phase 17's
+    three problems' exact Jacobian at the start (``optimize._exact_jacobian``
+    against ``Cameras._autodiff_jac``'s program): ms a call, bit-equal,
+    beside phase 17's fit seconds exact and 2-point; (c) one detection batch
+    of 16 of phase 24's decoded frames (phase 18's mask), one matching batch
+    of 32 pairs of their 2,048-slot stacks and one refinement chunk of 8
+    pairs x 3,072 matches: ms eager and graphed, bit-equal.
+
+Every phase that runs ``track`` or ``track_stream`` runs it graphed; every
+phase that detects, matches, refines, fits an ``ObserverCameras`` or takes
+``Cameras``' exact Jacobian (11, 12, 17, 18, 24, 25) runs their programs.
 
 Any failure raises and the exit code is not 0. The line before the last is
 the kernels' JSON record; the last is ``{"ok": true, "device": ...}``.
@@ -1846,19 +1863,20 @@ def host_tracker_phase(scene, points_xy, devices, card: str, n16: int = 64, p16:
 # ---- Phase 17: calibration ---- #
 
 
-def calibration_phase(devices, card: str, sizes=None) -> str:
+def calibration_phase(devices, card: str, sizes=None) -> Tuple[str, dict]:
     """Phase 17: ``benchmarks/ba_autodiff.py``'s three problems at their own
-    sizes through ``Cameras.fit`` with the exact Jacobian on the card and
-    with scipy's finite differences, then one ``ransac`` run. Raises on a
-    failed check and returns the line to print. ``sizes`` overrides the
-    problems' sizes (a rehearsal)."""
+    sizes through ``Cameras.fit`` with the exact Jacobian on the card (its
+    program: an eager first call, then replays) and with scipy's finite
+    differences, then one ``ransac`` run. Raises on a failed check; returns
+    the line to print and each problem's fit seconds by Jacobian (exact:
+    cold, warm). ``sizes`` overrides the problems' sizes (a rehearsal)."""
     import torch
 
     from glimpse_tpu_torch import Camera, optimize
 
     cuda, cpu = devices["card"], devices["cpu"]
     sizes = sizes or {}
-    parts = []
+    parts, seconds = [], {}
     for name, build_problem in BA_PROBLEMS.items():
         model, truth = build_problem(Camera, optimize, device=cuda, **sizes.get(name, {}))
         start_vectors = [cam.to_array() for cam in model.cams]
@@ -1883,6 +1901,7 @@ def calibration_phase(devices, card: str, sizes=None) -> str:
             walls.setdefault(jac, []).append(time.perf_counter() - start)
             counts[jac] = evaluations["n"]
         peak = torch.cuda.max_memory_allocated() if cuda.type == "cuda" else 0
+        seconds[name] = walls
         exact, fd = fits["exact"], fits["2-point"]
         if not (exact.success and fd.success and np.isfinite(exact.x).all()):
             raise AssertionError(f"calibration {name}: success exact {exact.success}, 2-point {fd.success}")
@@ -1945,7 +1964,8 @@ def calibration_phase(devices, card: str, sizes=None) -> str:
     parts.append(
         f"ransac on points with {len(bad)} of {model.size} moved 30-100 px: 40 samples of 16, {ransac_s:.3f} s, the {len(good)} true"
         f" inliers recovered, parameters {float(np.abs(params - truth).max()):.3g} from the truth (limit 1e-6)")
-    return f"phase 17 calibration on {card}, Jacobians by torch.func.jacfwd in float64 on the card: " + "; ".join(parts)
+    return (f"phase 17 calibration on {card}, Jacobians by torch.func.jacfwd in float64 on the card: "
+            + "; ".join(parts)), seconds
 
 
 def stabilize_jpegs(frames, truth, nominal: dict, mask, workdir: str, cuda, timer, marker, steps=None,
@@ -2006,7 +2026,7 @@ def stabilize_from_files(n_frames: int, cuda, workdir: str):
     failed check; returns (the line to print, what phase 24 tracks on: the
     JPEG paths, the ``Image`` objects whose cameras ``set_cameras`` gave the
     fitted view directions, the true view directions and the nominal camera
-    vector)."""
+    vector; and for phase 28 the ``ObserverCameras`` and the terrain mask)."""
     import torch
 
     from glimpse_tpu_torch import Camera, Image, optimize, profiling
@@ -2078,7 +2098,7 @@ def stabilize_from_files(n_frames: int, cuda, workdir: str):
             pair.append(float(np.abs(a - anchor)[common].mean()))
         alignment.append(f"frame {i} {pair[0]:.3f} DN (nominal view direction {pair[1]:.3f})")
     n_matches = sum(m.size for m in first.data)
-    joined = {"paths": paths, "images": images, "truth": truth, "base": base}
+    joined = {"paths": paths, "images": images, "truth": truth, "base": base, "model": model, "mask": mask}
     return (
         f"{n_frames} JPEG frames of {STAB_IMG}x{STAB_IMG} (quality 95) through ObserverCameras, 2,048 keypoints,"
         f" offsets {STAB_OFFSETS}, refined: "
@@ -2960,9 +2980,6 @@ def profile_graphed_step(tracker, first, frame, dt, init=None, **kwargs) -> dict
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def device_us(row):
-        return getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0)
-
     def profiled(fn):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2970,18 +2987,7 @@ def profile_graphed_step(tracker, first, frame, dt, init=None, **kwargs) -> dict
             fn()
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - start) * 1e3
-        rows = prof.key_averages()
-        kernels = [r for r in rows if r.device_type == torch.autograd.DeviceType.CUDA and device_us(r) > 0]
-        api = {r.key: r.count for r in rows
-               if r.device_type == torch.autograd.DeviceType.CPU and r.key.startswith("cu")}
-        busy_ms = sum(device_us(r) for r in kernels) / 1e3 or None
-        return {
-            "window_ms": window_ms, "busy_ms": busy_ms,
-            "idle": None if busy_ms is None else max(0.0, 1 - busy_ms / window_ms),
-            "launch_calls": sum(api.get(k, 0) for k in LAUNCH_CALLS), "graph_launches": api.get("cudaGraphLaunch", 0),
-            "api_calls": sum(api.values()), "kernel_launches": sum(r.count for r in kernels),
-            "kernels": [r.key for r in kernels],
-        }
+        return profile_window(prof, window_ms)
 
     state = tracker.initialize(torch.Generator(device=dt.device).manual_seed(0), first, **(init or {}))
     for _ in range(2):
@@ -3092,13 +3098,6 @@ def _graphs_shape(name: str, spec: dict, captures: list, launches: dict) -> str:
         if "systematic_resample_kernel" not in names or not re.search(r"(separable|generic)\w*_kernel", names):
             raise AssertionError(f"phase 27 {name}: the kernels are not among the replay's: {replay['kernels'][:20]}")
 
-    def step_profile(p):
-        measured = ("device time not measured" if p["busy_ms"] is None else
-                    f"device busy {p['busy_ms']:.3f} ms, idle share {p['idle']:.3f}")
-        return (f"{p['window_ms']:.3f} ms under the profiler, {measured}, {p['kernel_launches']} kernels;"
-                f" host calls {p['launch_calls']} cudaLaunchKernel, {p['graph_launches']} cudaGraphLaunch,"
-                f" {p['api_calls']} CUDA API calls in all")
-
     n, steps = spec["points"], spec["steps"]
 
     def described(r):
@@ -3111,9 +3110,260 @@ def _graphs_shape(name: str, spec: dict, captures: list, launches: dict) -> str:
         f"phase 27 graphs against eager, {name}: " + ", ".join(described(r) for r in records)
         + f"; every step's means, sigmas, validity and the final particles and weights bit-equal in all four"
         f" runs (eager against eager too); launches {records[0]['launches']} in each; one eager step:"
-        f" {step_profile(profiles['eager'])}; one replayed step: {step_profile(replay)}"
+        f" {describe_profile(profiles['eager'])}; one replayed step: {describe_profile(replay)}"
         + ("" if replay["busy_ms"] is None else ", both kernels among its kernels")
     )
+
+
+# ---- Phase 28: the calibration and stabilization programs ---- #
+
+
+class OneIterationProfile:
+    """L-BFGS steps (``optimize._TensorSteps`` or ``optimize.LBFGSPrograms``)
+    whose iteration ``at`` (1-based) runs under ``torch.profiler``: from its
+    direction to the next one, so the window holds one direction, its line
+    search's evaluations, the step's acceptance, the stopping test and the
+    next history push. :attr:`profile` is :func:`profile_window`'s dict plus
+    the evaluations in the window."""
+
+    def __init__(self, steps, at: int, evaluations) -> None:
+        self.steps, self.at, self.count = steps, at, evaluations
+        self.directions = 0
+        self.profile = None
+
+    def __getattr__(self, name):
+        return getattr(self.steps, name)
+
+    def direction(self, gamma, rho):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.directions += 1
+        if self.directions == self.at:
+            torch.cuda.synchronize()
+            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            self._start, self._evals = time.perf_counter(), self.count()
+        elif self.directions == self.at + 1:
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - self._start) * 1e3
+            self._prof.__exit__(None, None, None)
+            self.profile = dict(profile_window(self._prof, window_ms), evaluations=self.count() - self._evals)
+        return self.steps.direction(gamma, rho)
+
+
+def profile_window(prof, window_ms: float) -> dict:
+    """A finished profile's window: ms, the device's busy ms and idle share
+    (busy None where the profiler saw no device time), the host's kernel
+    launch, ``cudaGraphLaunch`` and memory copy calls, all CUDA API calls,
+    and the kernels' count and names."""
+    import torch
+
+    def device_us(row):
+        return getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0)
+
+    rows = prof.key_averages()
+    kernels = [r for r in rows if r.device_type == torch.autograd.DeviceType.CUDA and device_us(r) > 0]
+    api = {r.key: r.count for r in rows if r.device_type == torch.autograd.DeviceType.CPU and r.key.startswith("cu")}
+    busy_ms = sum(device_us(r) for r in kernels) / 1e3 or None
+    return {
+        "window_ms": window_ms, "busy_ms": busy_ms,
+        "idle": None if busy_ms is None else max(0.0, 1 - busy_ms / window_ms),
+        "launch_calls": sum(api.get(k, 0) for k in LAUNCH_CALLS), "graph_launches": api.get("cudaGraphLaunch", 0),
+        "copies": sum(v for k, v in api.items() if k.startswith("cudaMemcpy")), "api_calls": sum(api.values()),
+        "kernel_launches": sum(r.count for r in kernels), "kernels": [r.key for r in kernels],
+    }
+
+
+def describe_profile(p: dict) -> str:
+    measured = ("device time not measured" if p["busy_ms"] is None else
+                f"device busy {p['busy_ms']:.3f} ms, idle share {p['idle']:.3f}")
+    return (f"{p['window_ms']:.3f} ms under the profiler, {measured}, {p['kernel_launches']} kernels; host calls"
+            f" {p['launch_calls']} cudaLaunchKernel, {p['graph_launches']} cudaGraphLaunch, {p['copies']} memory"
+            f" copies, {p['api_calls']} CUDA API calls in all")
+
+
+def fit_programs(model, cuda, iterations: int = 200, memory: int = 30, profile_at: int = 41) -> str:
+    """Phase 28 (a): ``model``'s fit objective (``ObserverCameras``) through
+    ``iterations`` L-BFGS iterations eager (``optimize._TensorSteps``) and
+    through its programs (``optimize.LBFGSPrograms``) in turns (E, G, G, E)
+    from the same start: x, value, gradient and iterations bit-equal across
+    the four, the same evaluations; then iteration ``profile_at`` (the
+    history full, each program replaying) under the profiler each way.
+    Raises on a failed check; returns the line."""
+    import torch
+
+    from glimpse_tpu_torch import optimize
+
+    free = np.setdiff1d(np.arange(len(model.viewdirs)), np.asarray(model.anchors, dtype=int))
+    value = model.objective(free)
+    x0 = torch.as_tensor(np.asarray(model.initialize(), dtype=np.float32)[free].ravel(), device=cuda)
+    counted = {"n": 0}
+
+    def value_and_grad(flat):  # as ObserverCameras._fit_lbfgs_device's
+        counted["n"] += 1
+        flat = flat.detach().requires_grad_(True)
+        v = value(flat)
+        (g,) = torch.autograd.grad(v, flat)
+        return v.detach(), g
+
+    def steps_of(kind):
+        if kind == "eager":
+            return optimize._TensorSteps(value_and_grad, x0), lambda: counted["n"] - 1
+        steps = optimize.LBFGSPrograms(value_and_grad, x0, memory)
+        return steps, lambda: steps.evaluations
+
+    runs = []
+    for kind in ("eager", "graphed", "graphed", "eager"):
+        steps, evaluations = steps_of(kind)
+        counted["n"] = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        x, fval, grad, n_iter = optimize._lbfgs_loop(steps, iterations, 1e-7, memory)
+        torch.cuda.synchronize()
+        runs.append({"kind": kind, "seconds": time.perf_counter() - start, "x": x, "value": fval, "grad": grad,
+                     "n_iter": n_iter, "evaluations": evaluations()})
+    first = runs[0]
+    for run in runs[1:]:
+        if not (torch.equal(run["x"], first["x"]) and run["value"] == first["value"]
+                and torch.equal(run["grad"], first["grad"]) and run["n_iter"] == first["n_iter"]
+                and run["evaluations"] == first["evaluations"]):
+            raise AssertionError(
+                f"phase 28 (a): the {run['kind']} fit parts from the eager one: max |dx|"
+                f" {float((run['x'] - first['x']).abs().max())}, values {run['value']} and {first['value']},"
+                f" iterations {run['n_iter']} and {first['n_iter']}, evaluations {run['evaluations']} and"
+                f" {first['evaluations']}")
+    profiles = {}
+    for kind in ("eager", "graphed"):
+        steps, evaluations = steps_of(kind)
+        probe = OneIterationProfile(steps, profile_at, evaluations)
+        optimize._lbfgs_loop(probe, profile_at + 1, 1e-7, memory)
+        profiles[kind] = probe.profile
+    graphed = profiles["graphed"]
+    if graphed["graph_launches"] > graphed["evaluations"] + 1 or graphed["launch_calls"]:
+        raise AssertionError(f"phase 28 (a): a replayed iteration launched more than its programs: {graphed}")
+    described = ", ".join(f"{r['kind']} {r['seconds'] / r['n_iter'] * 1e3:.3f} ms an iteration" for r in runs)
+    return (
+        f"phase 28 (a) the fit: {len(model.viewdirs)} frames, {len(x0)} free parameters, {iterations} iterations"
+        f" (memory {memory}): {described}; {first['evaluations']} evaluations in each; x, value, gradient and"
+        f" iterations bit-equal in all four runs (eager against eager too); iteration {profile_at} eager"
+        f" ({profiles['eager']['evaluations']} evaluations): {describe_profile(profiles['eager'])}; replayed"
+        f" ({graphed['evaluations']} evaluations): {describe_profile(graphed)}"
+    )
+
+
+def jacobian_programs(cuda, fits17: dict, sizes=None) -> str:
+    """Phase 28 (b): each of phase 17's problems' exact Jacobian at its
+    start, eager (``optimize._exact_jacobian`` on fresh tensors) and through
+    the model's program (``Cameras._autodiff_jac``, after its eager first
+    call and its capture) in turns (E, G, G, E): ms a call (CUDA events,
+    copies to and from the host included), the four bit-equal; beside each,
+    phase 17's fit seconds with the exact Jacobian (graphed) and with
+    2-point differences. Raises on a failed check; returns the line."""
+    import torch
+
+    from glimpse_tpu_torch import Camera, optimize
+
+    parts = []
+    for name, build_problem in BA_PROBLEMS.items():
+        model, _ = build_problem(Camera, optimize, device=cuda, **(sizes or {}).get(name, {}))
+        x0 = model.values.copy()
+        scatter, assign, residual_array, fixed = model._build_autodiff_residual()
+        base = torch.as_tensor(np.stack([c.to_array() for c in model.cams + fixed]), dtype=torch.float64, device=cuda)
+
+        def eager():
+            params = torch.as_tensor(x0, dtype=torch.float64, device=cuda)
+            return optimize._exact_jacobian(scatter, assign, residual_array, params, base).cpu().numpy()
+
+        jac = model._autodiff_jac()
+
+        def graphed():
+            return jac(x0)
+
+        for _ in range(2):  # the eager first call, then the capture
+            graphed()
+        times, values = [], []
+        for fn in (eager, graphed, graphed, eager):
+            values.append(fn())
+            times.append(_cuda_ms(fn, reps=5))
+        if not all(np.array_equal(v, values[0]) for v in values[1:]):
+            raise AssertionError(f"phase 28 (b) {name}: the Jacobians part by"
+                                 f" {max(float(np.abs(v - values[0]).max()) for v in values[1:])}")
+        walls = fits17.get(name, {})
+        fits = (f"; phase 17's fits: exact {'/'.join(f'{w:.3f}' for w in walls.get('exact', []))} s (cold/warm),"
+                f" 2-point {'/'.join(f'{w:.3f}' for w in walls.get('2-point', []))} s" if walls else "")
+        parts.append(f"{name} {values[0].shape[0]}x{values[0].shape[1]}: eager {times[0]:.3f} / {times[3]:.3f} ms a"
+                     f" call, graphed {times[1]:.3f} / {times[2]:.3f} ms, bit-equal{fits}")
+    return "phase 28 (b) the exact Jacobian: " + "; ".join(parts)
+
+
+def chunk_programs(frames: np.ndarray, mask: np.ndarray, cuda, batch: int = 16) -> str:
+    """Phase 28 (c): one chunk of each stabilization stage at phase 18's
+    shapes, eager and through its program in turns (E, G, G, E), ms a call
+    (CUDA events, the program after its eager first call and its capture;
+    copies in and out included both ways), outputs bit-equal: detection of
+    ``batch`` frames (with ``mask``, 2,048 keypoints), matching of 32 pairs
+    of their padded descriptor stacks (2,048 x 2,048 x 128, ratio 0.75), and
+    refinement of 8 pairs x 3,072 matches (template 11, search 25, 4
+    Newton steps). Raises on a failed check; returns the line."""
+    import torch
+
+    from glimpse_tpu_torch.ops import features, matching, refine
+
+    images = np.ascontiguousarray(frames[:batch], dtype=np.uint8)
+    masks = np.broadcast_to(np.asarray(mask) > 0, images.shape).astype(np.uint8)
+    settings = dict(nfeatures=2048, refine="lattice")
+    detect = features.BatchProgram(images.shape, True, cuda, **settings)
+
+    def detect_eager():
+        return features.detect_batch(torch.from_numpy(images).to(cuda), torch.from_numpy(masks).to(cuda), **settings)
+
+    found = [t.cpu() for t in detect_eager()]
+    pairs = sorted((i, j) for i in range(batch) for j in (i + 1, i + 2, i + 8) if j < batch)[:32]
+    descs = [found[3][i][found[4][i]].numpy() for i in range(batch)]
+    matcher = matching.DescriptorMatcher(device=cuda)
+    n_pad = 2048
+    stacks = [matcher._device_stack(d, n_pad) for d in descs]
+    da, db = [stacks[i] for i, _ in pairs], [stacks[j] for _, j in pairs]
+    na, nb = [len(descs[i]) for i, _ in pairs], [len(descs[j]) for _, j in pairs]
+    match = matching.BatchProgram(len(pairs), n_pad, n_pad, 128, False, cuda)
+
+    def match_eager():
+        return [t.cpu().numpy() for t in matching.match_batch(
+            torch.stack(da), torch.stack(db), torch.tensor(na, device=cuda), torch.tensor(nb, device=cuda),
+            float(np.float32(0.75)), False)]
+
+    rng = np.random.default_rng(28)
+    tiles = [torch.from_numpy(f.astype(np.float32)).to(cuda) for f in images[:9]]
+    H, W = images.shape[1:]
+    ca = np.stack([np.column_stack([rng.integers(0, H - 11, 3072), rng.integers(0, W - 11, 3072)]) for _ in range(8)])
+    cb = np.clip(ca - 7 + rng.integers(-3, 4, size=ca.shape), 0, [H - 25, W - 25])
+    chunk = refine.ChunkProgram(8, 3072, H, W, 11, 25, 4, cuda)
+
+    def refine_eager():
+        return [t.cpu().numpy() for t in refine.refine_chunk(
+            torch.stack(tiles[:8]), torch.stack(tiles[1:]), torch.from_numpy(ca).to(cuda), torch.from_numpy(cb).to(cuda),
+            11, 25, 4)]
+
+    stages = {
+        f"detection of {batch} frames of {H}x{W}": (lambda: [t.cpu().numpy() for t in detect_eager()],
+                                                    lambda: [t.cpu().numpy() for t in detect(images, masks)]),
+        f"matching of {len(pairs)} pairs of {n_pad}x{n_pad}x128": (match_eager, lambda: match(da, db, na, nb, 0.75)),
+        "refinement of 8 pairs x 3,072 matches": (refine_eager, lambda: chunk(tiles[:8], tiles[1:], ca, cb)),
+    }
+    parts = []
+    for name, (eager, graphed) in stages.items():
+        for _ in range(2):  # the eager first call, then the capture
+            graphed()
+        times, values = [], []
+        for fn in (eager, graphed, graphed, eager):
+            values.append(fn())
+            times.append(_cuda_ms(fn, reps=5))
+        if not all(all(np.array_equal(a, b) for a, b in zip(v, values[0])) for v in values[1:]):
+            raise AssertionError(f"phase 28 (c) {name}: a graphed call parts from the eager one")
+        parts.append(f"{name}: eager {times[0]:.3f} / {times[3]:.3f} ms, graphed {times[1]:.3f} / {times[2]:.3f} ms,"
+                     f" bit-equal")
+    return "phase 28 (c) the chunk programs: " + "; ".join(parts)
 
 
 def scaling() -> None:
@@ -3678,7 +3928,8 @@ def main() -> None:
     say(line16, flush=True)
 
     # Phase 17: calibration, the exact Jacobian on the card.
-    say(calibration_phase(devices, card), flush=True)
+    line17, fits17 = calibration_phase(devices, card)
+    say(line17, flush=True)
 
     # Phase 18: stabilization from image files at full size.
     with tempfile.TemporaryDirectory(prefix="phase18_", dir=os.path.join(REPO, "build")) as workdir:
@@ -3809,6 +4060,13 @@ def main() -> None:
     lines27, launches27 = graphs_phase(shapes27)
     for line in lines27:
         say(line, flush=True)
+
+    # Phase 28: the calibration and stabilization programs against their
+    # eager code, in turns: phase 18's fit, phase 17's Jacobians, and one
+    # detection, matching and refinement chunk at phase 18's shapes.
+    say(fit_programs(joined["model"], cuda), flush=True)
+    say(jacobian_programs(cuda, fits17), flush=True)
+    say(chunk_programs(frames27, joined["mask"], cuda), flush=True)
 
     # The kernels at phase 8's shapes; ``launches`` are phase 20's (the
     # tracker in four mesh slices; phases 18-19 launch neither), and

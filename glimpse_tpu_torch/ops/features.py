@@ -18,6 +18,10 @@ form on the card:
   clipped at 0.2 and renormalized (128 floats, SIFT's layout).
 
 Keypoint coordinates follow the cv2 convention (array indices, subpixel).
+:func:`detect_and_describe` runs each batch through a :class:`BatchProgram`,
+one a batch shape, as the reference compiles ``_detect_batch`` once a shape
+and setting: on a card a replay of a graph captured from
+:func:`detect_batch`.
 """
 import contextlib
 import functools
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import graphs
 from .matching import full_float32
 
 _GAUSS_RADIUS = 3.0
@@ -318,6 +323,27 @@ def detect_batch(images, mask=None, nfeatures: int = 2048, n_octaves: int = 4, n
     return tuple(torch.cat([o[i] for o in outs], dim=1) for i in range(5))
 
 
+class BatchProgram:
+    """:func:`detect_batch` at one batch shape and one set of settings as a
+    program over static buffers (:class:`graphs.Program`): the images (B,
+    H, W) uint8 and, where ``masked``, their masks (B, H, W) uint8 on
+    ``device``. A call copies a batch in and returns ``detect_batch``'s
+    outputs, bit for bit the eager call's; read them before the next call."""
+
+    def __init__(self, shape, masked: bool, device, **settings) -> None:
+        device = torch.device(device)
+        self.images = torch.zeros(shape, dtype=torch.uint8, device=device)
+        self.masks = torch.zeros(shape, dtype=torch.uint8, device=device) if masked else None
+        self.program = graphs.Program(functools.partial(detect_batch, self.images, self.masks, **settings), device,
+                                      f"keypoint detection on {tuple(shape)} images")
+
+    def __call__(self, images: np.ndarray, masks: Optional[np.ndarray] = None):
+        self.images.copy_(torch.from_numpy(images))
+        if self.masks is not None:
+            self.masks.copy_(torch.from_numpy(masks))
+        return self.program()
+
+
 def detect_and_describe(arrays: Sequence[np.ndarray], masks: Optional[Sequence[Optional[np.ndarray]]] = None,
                         nfeatures: int = 2048, batch: int = 16, device="cuda",
                         **kwargs) -> List[Tuple[np.ndarray, np.ndarray]]:
@@ -331,21 +357,24 @@ def detect_and_describe(arrays: Sequence[np.ndarray], masks: Optional[Sequence[O
     """
     device = torch.device(device)
     out: List[Tuple[np.ndarray, np.ndarray]] = []
+    programs = {}
     for start in range(0, len(arrays), batch):
         chunk = [np.asarray(a) for a in arrays[start : start + batch]]
         rows = len(chunk)
         chunk = chunk + [chunk[-1]] * (batch - rows)
-        imgs = torch.from_numpy(np.stack(chunk).astype(np.uint8)).to(device)
+        imgs = np.stack(chunk).astype(np.uint8)
         mrows = None
         if masks is not None:
             sub = list(masks[start : start + rows])
             if any(mk is not None for mk in sub):
-                full = np.ones(imgs.shape, dtype=np.uint8)
+                mrows = np.ones(imgs.shape, dtype=np.uint8)
                 for i, mk in enumerate(sub):
                     if mk is not None:
-                        full[i] = np.asarray(mk) > 0
-                mrows = torch.from_numpy(full).to(device)
-        pts, _, _, desc, valid = detect_batch(imgs, mrows, nfeatures=nfeatures, **kwargs)
+                        mrows[i] = np.asarray(mk) > 0
+        key = (imgs.shape, mrows is not None)
+        if key not in programs:
+            programs[key] = BatchProgram(*key, device, nfeatures=nfeatures, **kwargs)
+        pts, _, _, desc, valid = programs[key](imgs, mrows)
         pts, desc, valid = pts.cpu().numpy(), desc.cpu().numpy(), valid.cpu().numpy()
         for i in range(rows):
             keep = np.flatnonzero(valid[i])

@@ -6,13 +6,20 @@ between two descriptor stacks as one matmul, ``a^2 + b^2 - 2 ab`` clamped at
 ratio ``d1 / d2 < max_ratio`` (strict) and an optional mutual-nearest cross
 check. ``torch.cdist`` is not used: it computes the distance another way and
 moves ratios near the threshold. Descriptor stacks are padded to a multiple
-of ``pad_step`` and batched over image pairs.
+of ``pad_step`` and batched over image pairs:
+:meth:`DescriptorMatcher.match_pairs` runs each batch through a
+:class:`BatchProgram`, one a batch shape, as the reference compiles
+``_match_batch`` once a shape: on a card a replay of a graph captured from
+:func:`match_batch`.
 """
 import contextlib
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .. import graphs
 
 
 def _ceil_to(n: int, step: int) -> int:
@@ -50,7 +57,7 @@ def match_batch(da, db, na, nb, max_ratio: float, cross_check: bool):
     cols = torch.arange(n_b, device=da.device)
     col_ok = cols[None, :] < nb[:, None]
     row_ok = rows[None, :] < na[:, None]
-    big = torch.tensor(np.finfo(np.float32).max, device=da.device)
+    big = torch.full((), np.finfo(np.float32).max, device=da.device)
     d2 = torch.where(col_ok[:, None, :], d2, big)
     d1sq, best = torch.min(d2, dim=2)
     d2nd_sq = torch.min(torch.where(cols[None, None, :] == best[:, :, None], big, d2), dim=2).values
@@ -62,6 +69,34 @@ def match_batch(da, db, na, nb, max_ratio: float, cross_check: bool):
         best_for_b = torch.argmin(torch.where(row_ok[:, :, None], d2, big), dim=1)  # (B, Nb)
         valid = valid & (torch.gather(best_for_b, 1, best) == rows[None, :])
     return best, ratio, valid
+
+
+class BatchProgram:
+    """:func:`match_batch` at one shape (B, Na, Nb, D) and ``cross_check``
+    as a program over static buffers (:class:`graphs.Program`): the padded
+    stacks, their lengths (B,) and ``max_ratio`` as a float32 scalar on
+    ``device``, which the reference passes traced. A call copies a batch in
+    and returns (best, ratio, valid) as NumPy arrays, bit for bit the eager
+    call's."""
+
+    def __init__(self, B: int, Na: int, Nb: int, D: int, cross_check: bool, device) -> None:
+        device = torch.device(device)
+        self.da = torch.zeros((B, Na, D), dtype=torch.float32, device=device)
+        self.db = torch.zeros((B, Nb, D), dtype=torch.float32, device=device)
+        self.na, self.nb = (torch.zeros(B, dtype=torch.int64, device=device) for _ in range(2))
+        self.max_ratio = torch.zeros((), dtype=torch.float32, device=device)
+        self.program = graphs.Program(
+            functools.partial(match_batch, self.da, self.db, self.na, self.nb, self.max_ratio, cross_check), device,
+            f"descriptor matching of {B} pairs of {Na} x {Nb}")
+
+    def __call__(self, da, db, na, nb, max_ratio: float):
+        """``da``/``db``: B padded stacks on the device; ``na``/``nb`` their lengths."""
+        torch.stack(da, out=self.da)
+        torch.stack(db, out=self.db)
+        self.na.copy_(torch.tensor(na))
+        self.nb.copy_(torch.tensor(nb))
+        self.max_ratio.copy_(torch.tensor(max_ratio, dtype=torch.float32))
+        return tuple(t.cpu().numpy() for t in self.program())
 
 
 class DescriptorMatcher:
@@ -105,7 +140,8 @@ class DescriptorMatcher:
         indices into it. Every stack is padded to one common size. Returns a
         list aligned with ``pairs`` of ``(indices (m, 2), ratios (m,))``, the
         contract of :meth:`match` per pair; a pair where either image has
-        fewer than 2 descriptors has no matches.
+        fewer than 2 descriptors has no matches. Each batch shape has its
+        :class:`BatchProgram` for the call.
         """
         pairs = np.asarray(pairs, dtype=int).reshape(-1, 2)
         empty = (np.empty((0, 2), dtype=int), np.empty(0, dtype=np.float32))
@@ -120,13 +156,17 @@ class DescriptorMatcher:
             # about 4 GB.
             batch = max(1, min(32, 4_000_000_000 // (n_pad * n_pad * 12)))
         ratio_limit = np.inf if max_ratio is None else float(np.float32(max_ratio))
+        programs = {}
         for start in range(0, len(todo), batch):
             chunk = todo[start : start + batch]
-            da = torch.stack([self._device_stack(descriptors[pairs[m, 0]], n_pad) for m in chunk])
-            db = torch.stack([self._device_stack(descriptors[pairs[m, 1]], n_pad) for m in chunk])
-            na = torch.tensor([len(descriptors[pairs[m, 0]]) for m in chunk], device=self.device)
-            nb = torch.tensor([len(descriptors[pairs[m, 1]]) for m in chunk], device=self.device)
-            best, ratio, valid = (t.cpu().numpy() for t in match_batch(da, db, na, nb, ratio_limit, cross_check))
+            da = [self._device_stack(descriptors[pairs[m, 0]], n_pad) for m in chunk]
+            db = [self._device_stack(descriptors[pairs[m, 1]], n_pad) for m in chunk]
+            key = (len(chunk), n_pad, n_pad, da[0].shape[-1], cross_check)
+            if key not in programs:
+                programs[key] = BatchProgram(*key, self.device)
+            best, ratio, valid = programs[key](
+                da, db, [len(descriptors[pairs[m, 0]]) for m in chunk], [len(descriptors[pairs[m, 1]]) for m in chunk],
+                ratio_limit)
             for row, m in enumerate(chunk):
                 keep = np.flatnonzero(valid[row])
                 out[m] = (np.column_stack([keep, best[row][keep]]), ratio[row][keep])

@@ -7,13 +7,19 @@ keypoint is taken (:func:`ops.ncc.sse_map_batched`), and the SSE minimum is
 refined to subpixel by damped Newton steps on the surface's exact bicubic
 B-spline (:func:`ops.sampling.bspline_derivatives`). Tiles are cut by
 integer gathers, exact on uint8-valued images; the spline and Newton steps
-run in full float32.
+run in full float32. :class:`MatchRefiner` runs each chunk through a
+:class:`ChunkProgram`, one a chunk shape, as the reference compiles
+``_refine_one_pair`` once a shape: on a card a replay of a graph captured
+from :func:`refine_chunk`.
 """
+import collections
+import functools
 from typing import Callable, Dict
 
 import numpy as np
 import torch
 
+from .. import graphs
 from . import ncc, sampling
 from .matching import full_float32
 
@@ -67,13 +73,45 @@ def refine_chunk(imgs_a, imgs_b, ca, cb, template: int, search: int, iters: int)
     return y.reshape(C, N), x.reshape(C, N)
 
 
+#: Chunk shapes whose programs a :class:`MatchRefiner` keeps: a sequence
+#: gives two (its full chunks and its last one) per image size.
+CHUNK_PROGRAMS = 4
+
+
+class ChunkProgram:
+    """:func:`refine_chunk` at one shape as a program over static buffers
+    (:class:`graphs.Program`): image pairs (C, H, W) float32 and corners (C,
+    N, 2) int64 on ``device``. A call copies a chunk in and returns the
+    subpixel peaks (y, x), each (C, N), as NumPy arrays, bit for bit the
+    eager call's."""
+
+    def __init__(self, C: int, N: int, H: int, W: int, template: int, search: int, iters: int, device) -> None:
+        device = torch.device(device)
+        self.imgs_a, self.imgs_b = (torch.zeros((C, H, W), dtype=torch.float32, device=device) for _ in range(2))
+        self.ca, self.cb = (torch.zeros((C, N, 2), dtype=torch.int64, device=device) for _ in range(2))
+        self.program = graphs.Program(
+            functools.partial(refine_chunk, self.imgs_a, self.imgs_b, self.ca, self.cb, template, search, iters),
+            device, f"match refinement of {C} x {N} matches")
+
+    def __call__(self, imgs_a, imgs_b, ca: np.ndarray, cb: np.ndarray):
+        """``imgs_a``/``imgs_b``: C (H, W) tensors on the device; ``ca``/``cb`` (C, N, 2)."""
+        torch.stack(imgs_a, out=self.imgs_a)
+        torch.stack(imgs_b, out=self.imgs_b)
+        self.ca.copy_(torch.from_numpy(ca))
+        self.cb.copy_(torch.from_numpy(cb))
+        y, x = self.program()
+        return y.cpu().numpy(), x.cpu().numpy()
+
+
 class MatchRefiner:
     """Correlation refinement over a match sequence, in chunks of
     ``pairs_per_dispatch`` image pairs x ``pad_matches`` matches.
 
     Images are kept on ``device`` in an LRU keyed by the caller's image
     index, sized to the matching window (``seq=(1, 8, 64)`` revisits an
-    image for up to 64 later pairs).
+    image for up to 64 later pairs). Each chunk shape (pairs, padded
+    matches, image size) has its :class:`ChunkProgram`; the last
+    :data:`CHUNK_PROGRAMS` shapes' are kept.
     """
 
     def __init__(self, template: int = 11, search: int = 25, iters: int = 4, pad_matches: int = 3072,
@@ -88,6 +126,7 @@ class MatchRefiner:
         self.device = torch.device(device)
         self._cache_images = int(cache_images)
         self._images: Dict[int, torch.Tensor] = {}  # insertion-ordered LRU
+        self._programs: Dict[tuple, ChunkProgram] = collections.OrderedDict()
 
     def _device_image(self, key: int, read: Callable[[int], np.ndarray]) -> torch.Tensor:
         img = self._images.pop(key, None)
@@ -97,6 +136,16 @@ class MatchRefiner:
         while len(self._images) > self._cache_images:
             self._images.pop(next(iter(self._images)))
         return img
+
+    def _program(self, C: int, N: int, H: int, W: int) -> ChunkProgram:
+        """The chunk program of this shape, built at first use."""
+        key = (C, N, H, W)
+        if key not in self._programs:
+            self._programs[key] = ChunkProgram(C, N, H, W, self.template, self.search, self.iters, self.device)
+            while len(self._programs) > CHUNK_PROGRAMS:
+                self._programs.popitem(last=False)
+        self._programs.move_to_end(key)
+        return self._programs[key]
 
     def refine_pairs(self, pairs, uvs, read_image):
         """Refine matched coordinates for a sequence of image pairs.
@@ -146,11 +195,7 @@ class MatchRefiner:
                 cas.append(ca)
                 cbs.append(cb)
                 metas.append((k, n, pa, pb, valid))
-            y, x = refine_chunk(
-                torch.stack(imgs_a), torch.stack(imgs_b), torch.from_numpy(np.stack(cas)).to(self.device),
-                torch.from_numpy(np.stack(cbs)).to(self.device), self.template, self.search, self.iters,
-            )
-            y, x = y.cpu().numpy(), x.cpu().numpy()
+            y, x = self._program(len(chunk), n_pad, H, W)(imgs_a, imgs_b, np.stack(cas), np.stack(cbs))
             for row, (k, n, pa, pb, valid) in enumerate(metas):
                 uv_a, uv_b = uvs[k]
                 if n == 0:

@@ -24,6 +24,7 @@ The counterpart of :mod:`glimpse_tpu.optimize`:
   sampled in float64 on ``device``.
 """
 import collections
+import functools
 import math
 from pathlib import Path
 from typing import Any, Dict, Generator, Iterable, List, Optional, Tuple, Type, Union
@@ -33,7 +34,7 @@ import scipy.optimize
 import scipy.sparse
 import torch
 
-from . import config, helpers
+from . import config, graphs, helpers
 from .camera import Camera
 from .ops import features, projection
 from .ops.matching import DescriptorMatcher, full_float32
@@ -1098,8 +1099,9 @@ class Cameras:
                         & (uvc[:, 1] >= 0) & (uvc[:, 1] <= imgsz[1])
                     )
                     # If clipping leaves nothing in frame, match against the
-                    # in-front candidates raw, as the host path does.
-                    use = inside if bool(inside.any()) else finite
+                    # in-front candidates raw, as the host path does (a
+                    # select on the card: nothing is read on the host).
+                    use = torch.where(inside.any(), inside, finite)
                     d2 = torch.sum((pick(uv_obs, sel)[:, None, :] - uvc[None, :, :]) ** 2, dim=-1)
                     d2 = torch.where(use[None, :], d2, math.inf)
                     return torch.argmin(d2, dim=1)
@@ -1169,30 +1171,36 @@ class Cameras:
 
     def _autodiff_jac(self, index: Index = slice(None)):
         """scipy-compatible callable returning the exact (m, n) Jacobian:
-        ``torch.func.jacfwd`` of the residual stack, float64 on ``device``,
-        over the rows ``index`` selects. Eager forward mode compiles nothing,
-        so nothing is cached between fits."""
+        ``torch.func.jacfwd`` of the residual stack (:func:`_exact_jacobian`),
+        float64 on ``device``, over the rows ``index`` selects.
+
+        As the reference caches its compiled ``jacfwd`` in ``_jac_cache``,
+        this keeps one :class:`_JacobianProgram` per row selection, rebuilt
+        when the number of cameras or the controls' sizes change: on a card
+        its first call runs eagerly and later calls replay a captured graph.
+        Repeated fits and RANSAC's refits of one sample reuse it."""
         rows = np.arange(self.size)[index]
         if rows.size == self.size and np.array_equal(rows, np.arange(self.size)):
             rows = None
-        scatter, assign, residual_array, fixed_cams = self._build_autodiff_residual(rows)
+        token = (len(self.cams), tuple(c.size for c in self.controls))
+        cache = getattr(self, "_jac_cache", None)
+        if cache is None or cache["token"] != token:
+            cache = self._jac_cache = {"token": token, "programs": collections.OrderedDict()}
+        programs = cache["programs"]
+        key = None if rows is None else rows.tobytes()
+        if key not in programs:
+            programs[key] = _JacobianProgram(self, rows)
+            while len(programs) > _JACOBIAN_PROGRAMS:
+                programs.popitem(last=False)
+        programs.move_to_end(key)
+        program = programs[key]
 
         def jac(x, *args):
             # Residuals restore the live camera vectors after every call, so
             # to_array() here is the fit-start (non-free) state; cameras that
             # are not fit ride along at their live values.
-            base = torch.as_tensor(
-                np.stack([cam.to_array() for cam in self.cams] + [cam.to_array() for cam in fixed_cams]),
-                dtype=torch.float64, device=self.device,
-            )
-            params = torch.as_tensor(np.asarray(x, dtype=float), dtype=torch.float64, device=self.device)
-            with torch.no_grad():
-                held = assign(scatter(params, base))
-
-            def flat(p):
-                return residual_array(p, base, held).reshape(-1)
-
-            return torch.func.jacfwd(flat)(params).cpu().numpy()
+            base = np.stack([cam.to_array() for cam in self.cams] + [cam.to_array() for cam in program.fixed_cams])
+            return program(x, base)
 
         return jac
 
@@ -1301,15 +1309,17 @@ class Cameras:
         fall back to finite differences). ``cam_params``/
         ``group_params`` run staged pre-fits.
 
-        The exact Jacobian is eager forward mode, one launch per op and dual
-        part, and so is not always the faster choice. On one NVIDIA H100
-        (700 W; ``chip_smoke.py`` phase 17) a call took 39-68 ms for 4
-        cameras x 2,000 points and 451-625 ms for 6 cameras x 4,000
-        ``Matches`` with three radial coefficients, and those fits took
-        0.62-0.79 s and 16.4-23.0 s against 0.19-0.26 s and 4.5-5.7 s with
-        ``'2-point'``; with 3 cameras of 1,200 ``Lines`` points against
-        4,096 candidates it won, 4.7-5.0 s against 13.0-14.3 s. Pass
-        ``jac='2-point'`` where a ``Matches`` term with distortion leads.
+        The exact Jacobian is forward mode, one launch per op and dual part
+        eagerly; on a card its program (:meth:`_autodiff_jac`) replays them
+        as one captured graph from its second call. On one NVIDIA H100 (700
+        W; ``chip_smoke.py`` phases 17 and 28) a call took 2.1-2.2 ms
+        replayed against 45-47 ms eager for 4 cameras x 2,000 points, 28 ms
+        against 542-610 ms for 6 cameras x 4,000 ``Matches`` with three
+        radial coefficients, and 2.8-3.0 ms against 45 ms for 3 cameras of
+        1,200 ``Lines`` points against 4,096 candidates; those fits took
+        0.36-0.69 s, 7.0-8.2 s and 3.1 s against 0.28 s, 4.9 s and 15.6 s
+        with ``'2-point'``. The ``Matches`` fit then waits on its host
+        residual: pass ``jac='2-point'`` where such a term leads.
         """
         iterations = max(
             len(cam_params) if cam_params else 0,
@@ -1386,6 +1396,52 @@ class Cameras:
             for c, vector in zip(self.cams, vectors):
                 c._vector = vector
         return results
+
+
+#: Row selections whose Jacobian program a :class:`Cameras` keeps (the full
+#: stack among them): RANSAC draws a new sample a fit, and each program holds
+#: its graph's memory.
+_JACOBIAN_PROGRAMS = 8
+
+
+def _exact_jacobian(scatter, assign, residual_array, params, base):
+    """The exact Jacobian of :meth:`Cameras._build_autodiff_residual`'s
+    residual stack at ``params`` (n,), the fit-start camera vectors ``base``
+    (rows, 20): what each ``Lines`` term holds fixed is assigned first, then
+    ``torch.func.jacfwd`` of the flat residual, (m, n) float64. Eager: one
+    launch an operation and dual part."""
+    with torch.no_grad():
+        held = assign(scatter(params, base))
+
+    def flat(p):
+        return residual_array(p, base, held).reshape(-1)
+
+    return torch.func.jacfwd(flat)(params)
+
+
+class _JacobianProgram:
+    """:func:`_exact_jacobian` of one :class:`Cameras` over one row
+    selection, as a program over static buffers (:class:`graphs.Program`):
+    the parameters (n,) and the fit-start camera vectors (rows, 20), float64
+    on the model's device. A call copies ``x`` and ``base`` in, runs (on a
+    card: replays) and returns the (m, n) Jacobian as a NumPy array, bit for
+    bit the eager call's."""
+
+    def __init__(self, model: "Cameras", rows: Optional[np.ndarray]) -> None:
+        self.closures = model._build_autodiff_residual(rows)
+        self.fixed_cams = self.closures[3]
+        n_rows = len(model.cams) + len(self.fixed_cams)
+        device = model.device
+        self.params = torch.zeros(int(model.cam_breaks[-1]), dtype=torch.float64, device=device)
+        self.base = torch.zeros((n_rows, 20), dtype=torch.float64, device=device)
+        self.program = graphs.Program(
+            functools.partial(_exact_jacobian, *self.closures[:3], self.params, self.base), device,
+            "the exact Jacobian")
+
+    def __call__(self, x, base) -> np.ndarray:
+        self.params.copy_(torch.from_numpy(np.asarray(x, dtype=float)))
+        self.base.copy_(torch.from_numpy(np.asarray(base, dtype=float)))
+        return self.program().cpu().numpy()
 
 
 # ---- Observer stabilization ---- #
@@ -1602,7 +1658,10 @@ class ObserverCameras:
         ``memory_size`` (30), at most ``maxiter`` (2,000) iterations,
         stopping once ``|g|_2 < gtol`` (1e-7; in float32 the gradient of a
         sum over millions of matches floors far above it, so the budget is
-        the expected stop)."""
+        the expected stop). As the reference compiles its loop, the device
+        side runs as programs (:class:`LBFGSPrograms`): on a card each
+        evaluation and each direction is one replay of a captured graph,
+        bit for bit the eager :func:`lbfgs`."""
         max_iter = int(kwargs.pop("maxiter", 2000))
         gtol = float(kwargs.pop("gtol", 1e-7))
         memory = int(kwargs.pop("memory_size", 30))
@@ -1614,7 +1673,8 @@ class ObserverCameras:
             return v.detach(), g
 
         x0 = torch.as_tensor(np.asarray(x0, dtype=np.float32), device=self.device)
-        x, fval, grad, n_iter = lbfgs(value_and_grad, x0, max_iter=max_iter, gtol=gtol, memory=memory)
+        steps = LBFGSPrograms(value_and_grad, x0, memory)
+        x, fval, grad, n_iter = _lbfgs_loop(steps, max_iter=max_iter, gtol=gtol, memory=memory)
         gnorm = float(torch.linalg.vector_norm(grad))
         full = self.viewdirs.copy()
         full[free] = x.cpu().numpy().astype(float).reshape(-1, 3)
@@ -1661,25 +1721,22 @@ _INTERVAL_THRESHOLD = 1e-5
 _STALL = 20
 
 
-def _zoom_linesearch(value_and_grad, x, u, value0: float, grad0):
-    """optax's zoom line search on the line ``x + t u``: a stepsize meeting
-    the strong Wolfe conditions, with Hager and Zhang's approximate
-    sufficient decrease (which a float32 objective near its optimum needs),
-    found by doubling the step from 1 and then zooming by cubic, quadratic
-    or bisection steps. After 20 evaluations, or once the interval is
-    shorter than 1e-5, it falls back to the best step with sufficient
-    decrease, as optax does. Returns (stepsize, value, gradient, whether the
-    conditions were met) at the step.
+def _zoom_linesearch(steps, value0: float, slope0: float):
+    """optax's zoom line search on the line ``x + t u`` of ``steps`` (the
+    device side of :func:`lbfgs`: :class:`_TensorSteps` or
+    :class:`LBFGSPrograms`): a stepsize meeting the strong Wolfe conditions,
+    with Hager and Zhang's approximate sufficient decrease (which a float32
+    objective near its optimum needs), found by doubling the step from 1 and
+    then zooming by cubic, quadratic or bisection steps. After 20
+    evaluations, or once the interval is shorter than 1e-5, it falls back to
+    the best step with sufficient decrease, as optax does. Returns
+    (stepsize, value, the step's handle for ``steps.accept``, whether the
+    conditions were met); ``value0`` and ``slope0`` are the value and
+    directional derivative at ``t = 0``.
 
     Only the objective and its gradient run on the device; the scalars of
     the search are read once an evaluation and kept in float64.
     """
-    slope0 = float(torch.dot(u, grad0))
-
-    def evaluate(t):
-        value, grad = value_and_grad(x + t * u)
-        v, s = torch.stack([value, torch.dot(grad, u)]).tolist()
-        return v, grad, s
 
     def errors(t, v, s):
         """Sufficient-decrease and curvature errors, 0 where met; NaN is inf."""
@@ -1689,21 +1746,21 @@ def _zoom_linesearch(value_and_grad, x, u, value0: float, grad0):
         curvature = np.maximum(abs(s) - _CURV_RTOL * abs(slope0), 0.0)
         return tuple(math.inf if math.isnan(e) else float(e) for e in (decrease, curvature))
 
-    t, v, g, s = 0.0, value0, grad0, slope0
+    t, v, g, s = 0.0, value0, steps.here, slope0
     low, v_low, s_low = 0.0, value0, slope0
     high, v_high = 0.0, value0
     cubic_ref, v_cubic_ref = 0.0, value0
-    safe = (0.0, value0, grad0)
+    safe = (0.0, value0, g)
     decrease = math.inf
     found = False
     for count in range(_LS_STEPS):
         if not found:  # grow the step until an interval brackets a minimum
             prev_t, prev_v, prev_s = t, v, s
             t = 1.0 if count == 0 else 2.0 * prev_t
-            v, g, s = evaluate(t)
+            v, s, g = steps.evaluate(t)
             decrease, curvature = errors(t, v, s)
             if decrease <= 0.0:
-                safe = (t, v, g)
+                safe = (t, v, steps.keep(g))
             to_high = decrease > 0.0 or (v >= prev_v and count > 0)
             to_low = s >= 0.0 and not to_high
             if to_low:
@@ -1725,10 +1782,10 @@ def _zoom_linesearch(value_and_grad, x, u, value0: float, grad0):
                 if not left + 0.1 * delta < middle < right - 0.1 * delta:
                     middle = (low + high) / 2.0
             t = float(middle)
-            v, g, s = evaluate(t)
+            v, s, g = steps.evaluate(t)
             decrease, curvature = errors(t, v, s)
             if decrease <= 0.0 and v < safe[1]:
-                safe = (t, v, g)
+                safe = (t, v, steps.keep(g))
             if max(decrease, curvature) <= 0.0:
                 return t, v, g, True
             to_high = decrease > 0.0 or v >= v_low
@@ -1748,6 +1805,276 @@ def _zoom_linesearch(value_and_grad, x, u, value0: float, grad0):
     return t, v, g, False
 
 
+def _lbfgs_loop(steps, max_iter: int, gtol: float, memory: int):
+    """The host side of :func:`lbfgs`, shared by its eager device side
+    (:class:`_TensorSteps`) and its programs (:class:`LBFGSPrograms`): the
+    stopping rule, the history's scalars (``rho_i = 1 / s_i.y_i``, or 0 where
+    ``s_i.y_i`` is 0, and ``gamma``) and the line search, all in float64 on
+    the host. Returns (x, value, gradient, iterations)."""
+    value = steps.start()
+    rho: List[float] = []
+    n_iter = 0
+    failed = collections.deque(maxlen=2 * _STALL)
+    while n_iter == 0 or (n_iter < max_iter and sum(failed) < _STALL and steps.grad_norm() >= gtol):
+        if n_iter == 0:
+            gamma = min(1.0, 1.0 / steps.grad_norm())
+        else:
+            sy, yy = steps.push(memory)
+            rho.append(0.0 if sy == 0.0 else 1.0 / sy)
+            if len(rho) > memory:
+                del rho[0]
+            gamma = sy / yy if yy > 0.0 else 1.0
+        slope0 = steps.direction(gamma, rho)
+        t, value, handle, met = _zoom_linesearch(steps, value, slope0)
+        failed.append(not met)
+        steps.accept(t, handle)
+        n_iter += 1
+    x, grad = steps.result()
+    return x, value, grad, n_iter
+
+
+class _TensorSteps:
+    """The device side of :func:`lbfgs`, eagerly on tensors: the iterate,
+    its gradient and the history (lists of tensors, oldest first), one
+    launch an operation. It is the reference :class:`LBFGSPrograms` is held
+    to bit for bit. A step's handle is its gradient."""
+
+    def __init__(self, value_and_grad, x0) -> None:
+        self.value_and_grad = value_and_grad
+        self.x = x0.detach().clone()
+        self.S: List[torch.Tensor] = []
+        self.Y: List[torch.Tensor] = []
+
+    def start(self) -> float:
+        """The value at ``x0``; keeps its gradient."""
+        value, self.grad = self.value_and_grad(self.x)
+        return float(value)
+
+    @property
+    def here(self):
+        """The handle of the current iterate (its gradient)."""
+        return self.grad
+
+    def grad_norm(self) -> float:
+        return float(torch.linalg.vector_norm(self.grad))
+
+    def push(self, memory: int) -> Tuple[float, float]:
+        """The last step's (s, y) onto the history, the oldest dropped past
+        ``memory``; returns (s.y, y.y)."""
+        s, y = self.x - self.prev_x, self.grad - self.prev_g
+        sy, yy = torch.stack([torch.dot(y, s), torch.dot(y, y)]).tolist()
+        self.S.append(s)
+        self.Y.append(y)
+        if len(self.S) > memory:
+            del self.S[0], self.Y[0]
+        return sy, yy
+
+    def direction(self, gamma: float, rho: List[float]) -> float:
+        """The two-loop recursion: ``q = H g``, the direction ``u = -q``;
+        returns ``u.g``."""
+        q = self.grad.clone()
+        alphas = []
+        for s_i, y_i, r_i in zip(reversed(self.S), reversed(self.Y), reversed(rho)):
+            alpha = r_i * torch.dot(s_i, q)
+            q = q - alpha * y_i
+            alphas.append(alpha)
+        q = gamma * q
+        for s_i, y_i, r_i, alpha in zip(self.S, self.Y, rho, reversed(alphas)):
+            q = q + (alpha - r_i * torch.dot(y_i, q)) * s_i
+        self.q, self.u = q, -q
+        return float(torch.dot(self.u, self.grad))
+
+    def evaluate(self, t: float):
+        """(value, ``g.u``, handle) at ``x + t u``."""
+        value, grad = self.value_and_grad(self.x + t * self.u)
+        v, s = torch.stack([value, torch.dot(grad, self.u)]).tolist()
+        return v, s, grad
+
+    def keep(self, handle):
+        return handle
+
+    def accept(self, t: float, grad) -> None:
+        """Move to ``x - t q``, whose gradient ``grad`` is."""
+        self.prev_x, self.prev_g = self.x, self.grad
+        self.x = self.x - t * self.q
+        self.grad = grad
+
+    def result(self):
+        return self.x, self.grad
+
+
+def _lbfgs_evaluation(value_and_grad, x, t, u, grad) -> dict:
+    """:class:`LBFGSPrograms`' evaluation on its buffers: at ``x_t = x + t
+    u``, the value and gradient, ``s = x_t - x``, ``y = g_t - g`` and the
+    scalars ``[value, g_t.u, s.y, y.y, |g_t|]``."""
+    x_t = x + t[0] * u
+    value, grad_t = value_and_grad(x_t)
+    s, y = x_t - x, grad_t - grad
+    scalars = torch.stack([value, torch.dot(grad_t, u), torch.dot(y, s), torch.dot(y, y),
+                           torch.linalg.vector_norm(grad_t)])
+    return {"x": x_t, "g": grad_t, "s": s, "y": y, "scalars": scalars}
+
+
+def _lbfgs_direction(level: int, grad, u, S, Y, scalars) -> torch.Tensor:
+    """:class:`LBFGSPrograms`' direction on its buffers: the two-loop
+    recursion over the first ``level`` rows of the history ``S``, ``Y``
+    (``scalars``: gamma, then each row's rho), ``u = -q`` written into
+    ``u``; returns ``u.g``. The operations of :meth:`_TensorSteps.direction`."""
+    n, gamma, rho = grad.numel(), scalars[0], scalars[1:]
+    q = grad.clone()
+    alphas = []
+    for i in reversed(range(level)):
+        alpha = rho[i] * torch.dot(S[i, :n], q)
+        q = q - alpha * Y[i, :n]
+        alphas.append(alpha)
+    q = gamma * q
+    for i, alpha in zip(range(level), reversed(alphas)):
+        q = q + (alpha - rho[i] * torch.dot(Y[i, :n], q)) * S[i, :n]
+    torch.neg(q, out=u)
+    return torch.dot(u, grad)
+
+
+class LBFGSPrograms:
+    """The device side of :func:`lbfgs` as programs over static buffers
+    (:class:`graphs.Program`): the port's counterpart of the reference's
+    L-BFGS loop compiled as one ``lax.while_loop``
+    (``ObserverCameras._fit_lbfgs_device``). The host keeps the scalar
+    logic of :func:`_lbfgs_loop` and :func:`_zoom_linesearch`; on a card
+    each evaluation and each direction is one graph replay:
+
+    - an evaluation: ``x_t = x + t u``, the value and gradient at ``x_t``,
+      and, for the step's acceptance, ``s = x_t - x``, ``y = g_t - g``; it
+      writes ``[value, g_t.u, s.y, y.y, |g_t|]``, read once;
+    - a direction: the two-loop recursion over the history's first L rows,
+      one program a fill level L = 0..``memory``, writing ``u = -q`` and
+      ``u.g``, read once.
+
+    The iterate, its gradient, the direction and the history ((memory, n)
+    rows, oldest first, each row starting on a 512-byte line as a fresh
+    tensor does) live in buffers of their own; once the history is full, a
+    new pair shifts it by one row by copy. ``t``, ``gamma`` and each
+    ``rho_i`` enter as float32 device scalars, copied in before each
+    replay: torch rounds a Python float to float32 the same way in the
+    eager ``t * u``. Accepting a step copies the evaluation's ``x_t``,
+    ``g_t``, ``s`` and ``y`` into the buffers (an earlier evaluation's are
+    copied aside before a later one overwrites them). Results are bit for
+    bit those of :class:`_TensorSteps`. A step's handle is the number of
+    its evaluation, -1 for the current iterate.
+    """
+
+    def __init__(self, value_and_grad, x0, memory: int) -> None:
+        self.value_and_grad = value_and_grad
+        self.device = x0.device
+        self.memory = int(memory)
+        x0 = x0.detach()
+        n = x0.numel()
+        stride = -(-n // 128) * 128  # 512-byte rows, as fresh allocations
+
+        def zeros(*shape):
+            return torch.zeros(*shape, dtype=x0.dtype, device=self.device)
+
+        self.x = x0.clone()
+        self.grad = zeros(n)
+        self.u = zeros(n)
+        self.S, self.Y = zeros(self.memory, stride), zeros(self.memory, stride)
+        self.shifted = zeros(max(self.memory - 1, 0), stride)
+        self.saved = {k: zeros(n) for k in ("x", "g", "s", "y")}
+        self.t = zeros(1)
+        self.scalars = zeros(1 + self.memory)  # gamma, rho_0..rho_{memory-1}
+        self.n = n
+        self.fill = 0
+        self.evaluation = graphs.Program(
+            functools.partial(_lbfgs_evaluation, value_and_grad, self.x, self.t, self.u, self.grad), self.device,
+            "an L-BFGS evaluation")
+        self.directions: Dict[int, graphs.Program] = {}
+        self.evaluations = 0  # the handle of the last evaluation is evaluations - 1
+        self.latest = None  # its outputs and scalars
+        self.kept = None  # the evaluation that keep() marked
+        self.saved_at = None  # the evaluation whose outputs ``saved`` holds
+        self.saved_scalars = None
+        self.pair = None  # (s.y, y.y) of the accepted step
+        self.norm = None  # |g| of the current iterate
+
+    def _direction(self, level: int) -> graphs.Program:
+        """The direction program over the history's first ``level`` rows, built at first use."""
+        if level not in self.directions:
+            self.directions[level] = graphs.Program(
+                functools.partial(_lbfgs_direction, level, self.grad, self.u, self.S, self.Y, self.scalars),
+                self.device, f"an L-BFGS direction over {level} pairs")
+        return self.directions[level]
+
+    def _write(self, buffer: torch.Tensor, values) -> None:
+        """Host scalars into a device buffer: one copy, rounded to its type on the host."""
+        buffer.copy_(torch.tensor(values, dtype=buffer.dtype))
+
+    def start(self) -> float:
+        value, grad = self.value_and_grad(self.x)
+        self.grad.copy_(grad)
+        self.norm = float(torch.linalg.vector_norm(self.grad))
+        return float(value)
+
+    here = -1
+
+    def grad_norm(self) -> float:
+        return self.norm
+
+    def push(self, memory: int) -> Tuple[float, float]:
+        return self.pair
+
+    def direction(self, gamma: float, rho: List[float]) -> float:
+        level = len(rho)
+        self._write(self.scalars, [gamma] + rho + [0.0] * (self.memory - level))
+        return float(self._direction(level)())
+
+    def evaluate(self, t: float):
+        if self.kept is not None and self.kept == self.evaluations - 1 and self.saved_at != self.kept:
+            for k, buffer in self.saved.items():  # the kept step's outputs, before the replay overwrites them
+                buffer.copy_(self.latest[0][k])
+            self.saved_scalars, self.saved_at = self.latest[1], self.kept
+        self._write(self.t, [t])
+        out = self.evaluation()
+        self.latest = (out, out["scalars"].tolist())
+        self.evaluations += 1
+        v, s = self.latest[1][:2]
+        return v, s, self.evaluations - 1
+
+    def keep(self, handle: int) -> int:
+        self.kept = handle
+        return handle
+
+    def accept(self, t: float, handle: int) -> None:
+        if handle == self.here:  # no step: x + 0 u, the gradient kept
+            self._write(self.t, [t])
+            x = self.x + self.t[0] * self.u
+            s, y = x - self.x, self.grad - self.grad
+            step = {"x": x, "g": self.grad, "s": s, "y": y}
+            self.pair = tuple(torch.stack([torch.dot(y, s), torch.dot(y, y)]).tolist())
+        else:
+            if handle == self.evaluations - 1:
+                step, scalars = self.latest[0], self.latest[1]
+            elif handle == self.saved_at:
+                step, scalars = self.saved, self.saved_scalars
+            else:
+                raise AssertionError(f"evaluation {handle} was neither the last nor kept")
+            self.pair, self.norm = tuple(scalars[2:4]), scalars[4]
+        self.x.copy_(step["x"])
+        if step["g"] is not self.grad:
+            self.grad.copy_(step["g"])
+        if self.memory:
+            n, row = self.n, min(self.fill, self.memory - 1)
+            if self.fill == self.memory:  # drop the oldest pair
+                for ring in (self.S, self.Y):
+                    self.shifted.copy_(ring[1:])
+                    ring[:-1].copy_(self.shifted)
+            self.S[row, :n].copy_(step["s"])
+            self.Y[row, :n].copy_(step["y"])
+            self.fill = min(self.fill + 1, self.memory)
+        self.kept = None
+
+    def result(self):
+        return self.x.clone(), self.grad.clone()
+
+
 def lbfgs(value_and_grad, x0, max_iter: int = 2000, gtol: float = 1e-7, memory: int = 30):
     """Minimize with ``optax.lbfgs(memory_size=memory)`` semantics: the
     two-loop recursion over the last ``memory`` (step, gradient change)
@@ -1757,50 +2084,19 @@ def lbfgs(value_and_grad, x0, max_iter: int = 2000, gtol: float = 1e-7, memory: 
     fewer than 20 of the last 40 line searches have failed.
 
     ``value_and_grad(x) -> (value, gradient)`` as tensors on ``x0``'s device.
-    Returns (x, value, gradient, iterations). Where it differs from the
-    reference's jitted loop: it runs on the host, reading the card once per
-    line-search evaluation; the search's scalars are float64 on the host
-    (float32 on the device in optax); memory slots not yet written are
+    Returns (x, value, gradient, iterations). This is the eager form, one
+    launch an operation (:class:`_TensorSteps`); :meth:`ObserverCameras.fit`
+    runs the same host logic over :class:`LBFGSPrograms`. Where it differs
+    from the reference's jitted loop: it runs on the host, reading the card
+    once per line-search evaluation; the search's scalars are float64 on the
+    host (float32 on the device in optax); memory slots not yet written are
     skipped, which is exact (they carry zero weight); and the stop on failed
     line searches, which optax lacks: once the float32 objective is flat to its
     rounding, searches keep failing (every other one, say), each spending
     its 20 evaluations on a step of no measurable gain, and optax goes on
     doing so to ``max_iter``.
     """
-    x = x0.detach().clone()
-    value, grad = value_and_grad(x)
-    value = float(value)
-    S, Y, rho = [], [], []
-    prev_x = prev_g = None
-    n_iter = 0
-    failed = collections.deque(maxlen=2 * _STALL)
-    while n_iter == 0 or (n_iter < max_iter and sum(failed) < _STALL and float(torch.linalg.vector_norm(grad)) >= gtol):
-        if prev_x is None:
-            gamma = min(1.0, 1.0 / float(torch.linalg.vector_norm(grad)))
-        else:
-            s, y = x - prev_x, grad - prev_g
-            sy, yy = torch.stack([torch.dot(y, s), torch.dot(y, y)]).tolist()
-            S.append(s)
-            Y.append(y)
-            rho.append(0.0 if sy == 0.0 else 1.0 / sy)
-            if len(S) > memory:
-                del S[0], Y[0], rho[0]
-            gamma = sy / yy if yy > 0.0 else 1.0
-        q = grad.clone()
-        alphas = []
-        for s_i, y_i, r_i in zip(reversed(S), reversed(Y), reversed(rho)):
-            alpha = r_i * torch.dot(s_i, q)
-            q = q - alpha * y_i
-            alphas.append(alpha)
-        q = gamma * q
-        for s_i, y_i, r_i, alpha in zip(S, Y, rho, reversed(alphas)):
-            q = q + (alpha - r_i * torch.dot(y_i, q)) * s_i
-        prev_x, prev_g = x, grad
-        t, value, grad, met = _zoom_linesearch(value_and_grad, x, -q, value, grad)
-        failed.append(not met)
-        x = x - t * q
-        n_iter += 1
-    return x, value, grad, n_iter
+    return _lbfgs_loop(_TensorSteps(value_and_grad, x0), max_iter, gtol, memory)
 
 
 # ---- Keypoints ---- #

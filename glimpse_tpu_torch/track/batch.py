@@ -39,12 +39,12 @@ mesh entry's device.
 import contextlib
 import dataclasses
 import functools
-import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import graphs
 from ..kernels import highpass as highpass_kernel
 from ..kernels import resample as resample_kernel
 from ..kernels.highpass import highpass as routed_highpass
@@ -760,32 +760,6 @@ def _step_inputs(cfg: BatchConfig, images, dt, noise, camera_vectors, obs_mask) 
     return {name: pair for name, pair in given.items() if pair[0] is not None}
 
 
-#: Per thread, per card: the side stream every step program captures and
-#: replays on, and the first graph captured there, whose memory pool the
-#: later ones share (:func:`_capture_context`).
-_CAPTURE = threading.local()
-
-
-def _capture_context() -> list:
-    """[stream, anchor] of this thread on the current card. Every step
-    program of every tracker captures and replays on ``stream``, in the
-    memory pool of ``anchor`` (None until the first capture), so captures
-    reuse one pool's blocks, call after call, and replays never overlap
-    (each waits for the caller's stream, which then waits for it). The
-    anchor keeps the pool alive for the thread's life: a pool a program was
-    freed only when the allocator emptied its cache (2-18 % of a 10-step
-    call at 10,240 x 2,048 to empty it at each call's end, 5.4 GiB more
-    reserved a call not to), and a pool a tracker ran a process holding
-    many trackers out of memory (PERF.md PR 13)."""
-    contexts = getattr(_CAPTURE, "contexts", None)
-    if contexts is None:
-        contexts = _CAPTURE.contexts = {}
-    index = torch.cuda.current_device()
-    if index not in contexts:
-        contexts[index] = [torch.cuda.Stream(index), None]
-    return contexts[index]
-
-
 class StepProgram:
     """One :meth:`BatchTracker.step` as a program over static buffers: the
     port's counterpart of the reference's compiled tracking programs
@@ -797,7 +771,7 @@ class StepProgram:
     ``valid``, templates, template table, ``template_duv``), and holds the
     state's generator. On a card it captures the eager ``step`` on those
     buffers into one ``torch.cuda.CUDAGraph``, on the thread's side stream
-    and in its memory pool (:func:`_capture_context`), with the generator
+    and in its memory pool (:func:`graphs.capture_context`), with the generator
     registered so that a replay draws what an eager step would and leaves
     the generator where it would; the new state is copied back into the
     state's buffers at the end of the captured region (at 10,240 x 2,048
@@ -830,28 +804,9 @@ class StepProgram:
             for name, (x, dtype) in inputs.items()
         }
         self.graph = None
-        self.launches = (0,) * len(self.KERNELS)
-        if self.device.type != "cuda":
-            return
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(self.generator)
-        before = [kernel.captured for kernel in self.KERNELS]
-        # What torch.cuda.graph does, without its synchronize and
-        # empty_cache: capture records and runs nothing, so the host
-        # captures while the card still runs the steps before.
-        with torch.cuda.device(self.device):
-            context = _capture_context()
-            self.stream = context[0]
-            pool = () if context[1] is None else (context[1].pool(),)
-            with torch.cuda.stream(self.stream):
-                self.graph.capture_begin(*pool, capture_error_mode="thread_local")
-                try:
-                    self.outputs = self._body()
-                finally:
-                    self.graph.capture_end()
-            if context[1] is None:
-                context[1] = self.graph
-        self.launches = tuple(kernel.captured - n for kernel, n in zip(self.KERNELS, before))
+        if self.device.type == "cuda":
+            self.graph = graphs.Graph(self._body, self.device, "the tracking step", kernels=self.KERNELS,
+                                      generators=(self.generator,))
 
     def _body(self) -> dict:
         """The eager step on the buffers, its new state copied back into them."""
@@ -879,17 +834,7 @@ class StepProgram:
                     buffer.copy_(field)
             for name, (x, dtype) in inputs.items():
                 self.buffers[name].copy_(_as_tensor(x, self.device, dtype))
-            if self.graph is None:
-                outputs = self._body()
-            else:
-                current = torch.cuda.current_stream()
-                self.stream.wait_stream(current)
-                with torch.cuda.stream(self.stream):
-                    self.graph.replay()
-                current.wait_stream(self.stream)
-                outputs = self.outputs
-                for kernel, n in zip(self.KERNELS, self.launches):
-                    kernel.launches += n
+            outputs = self._body() if self.graph is None else self.graph.replay()
             outputs = {k: v.clone() for k, v in outputs.items()}
         return dataclasses.replace(self.state, step=state.step + 1), outputs
 
@@ -1195,7 +1140,7 @@ class BatchTracker:
         :meth:`track_stream` call: a new call comes with its own generator,
         and so with programs of its own. The state the call returned keeps
         the programs' buffers as its tensors; their graphs' memory goes back
-        to the thread's capture pool (:func:`_capture_context`)."""
+        to the thread's capture pool (:func:`graphs.capture_context`)."""
         self._programs = {}
 
     def _join(self, out) -> dict:

@@ -683,7 +683,7 @@ def test_graphed_run_equals_the_step_loop_on_card(cuda, monkeypatch, entry, name
         out = {k: torch.cat([o[k] for o in outputs]) for k in outputs[0]}
     assert (median_highpass.launches - before[0], systematic_resample.launches - before[1]) == want_launches
     assert len(seen["built"]) == 1 and seen["built"][0].graph is not None and seen["calls"] == T - 3
-    assert seen["built"][0].launches == (1, 1)
+    assert seen["built"][0].graph.launches == (1, 1)
     for k in want:
         assert torch.equal(out[k], want[k]), k
     for field in batch.STATE_FIELDS:
@@ -724,7 +724,7 @@ def test_graphed_calls_share_one_pool_on_card(cuda) -> None:
     thread's capture context and give its blocks back at the call's end: the
     next call reuses them, so later calls reserve no more device memory, and
     every graph-pool segment belongs to that pool."""
-    from glimpse_tpu_torch.track import batch
+    from glimpse_tpu_torch import graphs
 
     tracker, frames, masks, mask0, _ = _graph_scene(cuda)
 
@@ -738,11 +738,11 @@ def test_graphed_calls_share_one_pool_on_card(cuda) -> None:
         return torch.cuda.memory_reserved(), pools
 
     first, pools = run(0)
-    anchor = batch._capture_context()[1]
+    anchor = graphs.capture_context()[1]
     assert anchor is not None and pools == {tuple(anchor.pool())}
     for seed in (1, 2, 3):
         assert run(seed) == (first, pools)
-    assert batch._capture_context()[1] is anchor
+    assert graphs.capture_context()[1] is anchor
 
 
 @pytest.mark.cuda
@@ -810,12 +810,134 @@ def test_graphed_mesh_on_one_card_equals_its_step_loop(cuda) -> None:
         assert torch.equal(mine.generator.get_state(), theirs.generator.get_state())
 
 
+def _value_and_grad_of(f):
+    def value_and_grad(x):
+        x = x.detach().requires_grad_(True)
+        v = f(x)
+        return v.detach(), torch.autograd.grad(v, x)[0]
+
+    return value_and_grad
+
+
+def _rosenbrock(x):
+    return (100.0 * (x[1:] - x[:-1] ** 2) ** 2 + (1 - x[:-1]) ** 2).sum()
+
+
+@pytest.mark.cuda
+def test_lbfgs_programs_equal_eager_on_card(cuda, monkeypatch) -> None:
+    """``ObserverCameras.fit`` on 20 frames through ``LBFGSPrograms`` (each
+    evaluation and each direction past its first a graph replay) and
+    through the eager tensor steps, memory 4 so that the history fills and
+    shifts by copy for many iterations: bit for bit the same view
+    directions, value, gradient norm, iterations and message. A second
+    object with another objective and shape (a 40-dimensional Rosenbrock
+    function) captures its own graphs and equals ``optimize.lbfgs``; the
+    first fit, run again after it, still does."""
+    from test_torch_stab_programs import observer_scene
+
+    from glimpse_tpu_torch import optimize
+
+    observer, matches = observer_scene()
+    model = optimize.ObserverCameras(observer, matches=matches, anchors=[0], device=cuda)
+    built = []
+    programs = optimize.LBFGSPrograms
+
+    def recorded(*args):
+        built.append(programs(*args))
+        return built[-1]
+
+    monkeypatch.setattr(optimize, "LBFGSPrograms", recorded)
+    got = model.fit(maxiter=300, memory_size=4)
+    steps = built[-1]
+    assert steps.evaluation.graph is not None and steps.directions[4].graph is not None
+    assert all(steps.directions[level].graph is None for level in range(4))  # each ran once, eagerly
+    x0 = torch.from_numpy(np.random.default_rng(0).normal(size=40).astype(np.float32)).to(cuda)
+    rosenbrock = optimize._lbfgs_loop(programs(_value_and_grad_of(_rosenbrock), x0, 5), 80, 1e-7, 5)
+    again = model.fit(maxiter=300, memory_size=4)
+    monkeypatch.setattr(optimize, "LBFGSPrograms", lambda value_and_grad, x0, memory: optimize._TensorSteps(
+        value_and_grad, x0))
+    want = model.fit(maxiter=300, memory_size=4)
+    for fit in (got, again):
+        assert np.array_equal(fit.x, want.x) and fit.fun == want.fun and fit.grad_norm == want.grad_norm
+        assert fit.nit == want.nit and fit.message == want.message
+    eager = optimize.lbfgs(_value_and_grad_of(_rosenbrock), x0, max_iter=80, memory=5)
+    assert rosenbrock[1] == eager[1] and rosenbrock[3] == eager[3]
+    assert torch.equal(rosenbrock[0], eager[0]) and torch.equal(rosenbrock[2], eager[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", ["points", "matches", "lines"])
+def test_jacobian_program_equals_jacfwd_on_card(cuda, problem) -> None:
+    """The exact Jacobian's program (eager first call, then a captured
+    graph) against the eager ``jacfwd`` at four points, bit for bit; a row
+    subset gets a program and a graph of its own."""
+    from chip_smoke import BA_PROBLEMS
+    from glimpse_tpu_torch import Camera, optimize
+
+    sizes = {"points": dict(n_cams=3, n_points=200), "matches": dict(n_cams=3, n_pts=200), "lines": dict(n_cams=2, n_ridge=100, n_obs=150)}
+    model, _ = BA_PROBLEMS[problem](Camera, optimize, device=cuda, **sizes[problem])
+    x0 = model.values.copy()
+    subset = np.arange(0, model.size, 3)
+    for index in (slice(None), subset):
+        rows = None if isinstance(index, slice) else subset
+        closures = model._build_autodiff_residual(rows)
+        base = torch.as_tensor(np.stack([c.to_array() for c in model.cams + closures[3]]), device=cuda)
+        jac = model._autodiff_jac(index)
+        for k in range(4):
+            x = x0 + 1e-3 * k
+            want = optimize._exact_jacobian(*closures[:3], torch.as_tensor(x, device=cuda), base).cpu().numpy()
+            assert np.array_equal(jac(x), want)
+    assert [p.program.graph is not None for p in model._jac_cache["programs"].values()] == [True, True]
+
+
+@pytest.mark.cuda
+def test_chunk_programs_equal_eager_on_card(cuda) -> None:
+    """Refinement, detection and matching programs: three calls each (the
+    eager first, the capture, a replay) on changing inputs, each bit for
+    bit the eager function's."""
+    import scipy.ndimage
+
+    from glimpse_tpu_torch.ops import features, matching, refine
+
+    rng = np.random.default_rng(7)
+    texture = scipy.ndimage.gaussian_filter(rng.normal(size=(4, 160, 160)), (0, 1.5, 1.5))
+    images = np.clip(128 + 600 * texture, 0, 255).astype(np.uint8)
+    masks = (rng.random(images.shape) > 0.1).astype(np.uint8)
+    tiles = torch.from_numpy(images.astype(np.float32)).to(cuda)
+    ca = rng.integers(0, 140, size=(2, 64, 2))
+    cb = np.clip(ca - 7 + rng.integers(-3, 4, size=ca.shape), 0, 160 - 25)
+    programs = []
+    for C, N, B, K, n_pad in ((2, 64, 2, 256, 256), (1, 32, 1, 128, 128)):  # a second shape: programs of its own
+        chunk = refine.ChunkProgram(C, N, 160, 160, 11, 25, 4, cuda)
+        detect = features.BatchProgram((B, 160, 160), True, cuda, nfeatures=K, n_octaves=3)
+        match = matching.BatchProgram(B, n_pad, n_pad, 128, True, cuda)
+        programs.append((chunk, detect, match))
+        for k in range(3):
+            a, b = tiles.roll(k, 0)[:C], tiles[2:2 + C]
+            got = chunk(list(a), list(b), ca[:C, :N], cb[:C, :N])
+            want = refine.refine_chunk(a, b, torch.from_numpy(ca[:C, :N]).to(cuda), torch.from_numpy(cb[:C, :N]).to(cuda),
+                                       11, 25, 4)
+            assert all(np.array_equal(g, w.cpu().numpy()) for g, w in zip(got, want))
+            batch = np.roll(images, k, 0)[:B]
+            got = [t.cpu() for t in detect(batch, masks[:B])]
+            want = features.detect_batch(torch.from_numpy(batch).to(cuda), torch.from_numpy(masks[:B]).to(cuda),
+                                         nfeatures=K, n_octaves=3)
+            assert all(torch.equal(g, w.cpu()) for g, w in zip(got, want))
+            da, db = (torch.from_numpy(rng.normal(size=(B, n_pad, 128)).astype(np.float32)).to(cuda) for _ in range(2))
+            na, nb = [n_pad, n_pad - 56][:B], [n_pad - 76, n_pad][:B]
+            got = match(list(da), list(db), na, nb, 0.8)
+            want = matching.match_batch(da, db, torch.tensor(na, device=cuda), torch.tensor(nb, device=cuda),
+                                        float(np.float32(0.8)), True)
+            assert all(np.array_equal(g, w.cpu().numpy()) for g, w in zip(got, want))
+    captured = {p.program.graph for triple in programs for p in triple}
+    assert None not in captured and len(captured) == 6
+
+
 @pytest.mark.cuda
 def test_uncapturable_step_raises_on_card(cuda, monkeypatch) -> None:
     """A step that reads the card on the host (an ``.item()``) cannot be
     captured: ``track`` raises with CUDA's reason and does not fall back
-    to the eager loop. (Last in the file: it leaves a failed capture
-    behind.)"""
+    to the eager loop."""
     from glimpse_tpu_torch.track import batch
 
     tracker, frames, masks, mask0, _ = _graph_scene(cuda, T=5)
@@ -842,3 +964,80 @@ def test_uncapturable_step_raises_on_card(cuda, monkeypatch) -> None:
     assert calls == [False, True]
     assert tracker._programs == {}
     assert float(torch.ones(3, device=cuda).sum()) == 3.0
+
+
+def _host_read(fn):
+    """``fn`` with a read of the card on the host before it runs."""
+
+    def reads(*args, **kwargs):
+        if float(torch.ones(1, device="cuda").sum()) != 1.0:
+            raise AssertionError("unreachable")
+        return fn(*args, **kwargs)
+
+    return reads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["jacobian", "refine", "detect", "match"])
+def test_uncapturable_chunk_programs_raise_on_card(cuda, monkeypatch, kind) -> None:
+    """Each of the Jacobian, refinement, detection and matching programs,
+    its body made to read on the host: the first call runs eagerly, the
+    second raises at the capture, naming the program."""
+    from chip_smoke import BA_PROBLEMS
+    from glimpse_tpu_torch import Camera, optimize
+    from glimpse_tpu_torch.ops import features, matching, refine
+
+    images = np.random.default_rng(8).integers(0, 256, size=(1, 64, 64), dtype=np.uint8)
+    if kind == "jacobian":
+        monkeypatch.setattr(optimize, "_exact_jacobian", _host_read(optimize._exact_jacobian))
+        model, _ = BA_PROBLEMS["points"](Camera, optimize, device=cuda, n_cams=2, n_points=50)
+        jac = model._autodiff_jac()
+        call, name = (lambda: jac(model.values)), "the exact Jacobian"
+    elif kind == "refine":
+        monkeypatch.setattr(refine, "refine_chunk", _host_read(refine.refine_chunk))
+        tiles = [torch.from_numpy(images[0].astype(np.float32)).to(cuda)]
+        corners = np.zeros((1, 4, 2), np.int64)
+        program = refine.ChunkProgram(1, 4, 64, 64, 11, 25, 4, cuda)
+        call, name = (lambda: program(tiles, tiles, corners, corners)), "match refinement"
+    elif kind == "detect":
+        monkeypatch.setattr(features, "detect_batch", _host_read(features.detect_batch))
+        program = features.BatchProgram(images.shape, False, cuda, nfeatures=16, n_octaves=2)
+        call, name = (lambda: program(images)), "keypoint detection"
+    else:
+        monkeypatch.setattr(matching, "match_batch", _host_read(matching.match_batch))
+        stacks = [torch.ones((8, 128), device=cuda)]
+        program = matching.BatchProgram(1, 8, 8, 128, False, cuda)
+        call, name = (lambda: program(stacks, stacks, [8], [8], 0.8)), "descriptor matching"
+    call()
+    with pytest.raises(RuntimeError, match=f"{name}.* cannot be captured"):
+        call()
+
+
+@pytest.mark.cuda
+def test_uncapturable_programs_raise_on_card(cuda) -> None:
+    """A program body that reads the card on the host runs eagerly at its
+    first call and raises at its capture, naming the program; an L-BFGS
+    objective that does so raises from the fit at its second evaluation,
+    with no eager fallback. A failed capture leaves the thread's pool as it
+    was: a later program captures into it."""
+    from glimpse_tpu_torch import graphs, optimize
+
+    x = torch.ones(4, device=cuda)
+    program = graphs.Program(lambda: x * float(x.sum()), cuda, "a test program")
+    assert torch.equal(program(), x * 4)
+    with pytest.raises(RuntimeError, match="a test program cannot be captured"):
+        program()
+
+    def reads(flat):
+        if float(flat.sum()) > 1e9:
+            raise AssertionError("unreachable")
+        return _rosenbrock(flat)
+
+    steps = optimize.LBFGSPrograms(_value_and_grad_of(reads), torch.zeros(6, device=cuda), 5)
+    with pytest.raises(RuntimeError, match="an L-BFGS evaluation cannot be captured"):
+        optimize._lbfgs_loop(steps, 10, 1e-7, 5)
+    assert steps.evaluations == 1
+    later = graphs.Program(lambda: x * 2, cuda, "a later program")
+    for _ in range(3):
+        assert torch.equal(later(), x * 2)
+    assert later.graph is not None
