@@ -163,8 +163,11 @@ each:
     2,048), timed (CUDA events, the mean of 20 after 3 warm-ups) beside
     their plain versions and their byte bounds, then phase 3's held cases
     (ties, NaN, +-inf, every window, the smallest tiles, a stack one element
-    past a 16-byte line) and the resample at N = 37 with thresholds tied to
-    slots, and phase 3's large tiles held and timed; (b) phase 6's tracker
+    past a 16-byte line), stacks that leave a packed lane of the 16-bit
+    kernel without its partner tile (``LANE_CASES``: one tile, odd counts, a
+    partial last group, stacks 2 bytes past a 4-byte boundary in 16 bits)
+    in every separable window, the resample at N = 37 with thresholds tied
+    to slots, and phase 3's large tiles held and timed; (b) phase 6's tracker
     in float32, bfloat16, float16 and float64 from the same generator
     draws: point-steps/s, peak memory, launches of each kernel a step, the
     median and worst point's distance from the float32 run; (c) phase 8's Columbia recipe in bfloat16 beside its
@@ -2774,6 +2777,18 @@ PRECISIONS = ("float32", "bfloat16", "float16", "float64")
 PRECISION_TILES = ((20480, 31, 31), (10240, 41, 41), (10240, 15, 15))
 
 
+# Stacks whose tiles the staged 16-bit kernel cannot all pair (it packs
+# two tiles of a block's group into one register, lane by lane): one tile,
+# odd counts, N = 37 (a partial last group at every width), and stacks that
+# start one element into their storage (2 bytes past a 4-byte boundary in
+# 16 bits); (shape, misaligned), each held in every separable window in
+# bfloat16, float16 and float64 (phase 23 (a), tests/test_torch_cuda.py).
+LANE_CASES = (
+    ((1, 31, 31), False), ((1, 15, 15), False), ((3, 41, 41), False), ((37, 31, 31), False),
+    ((37, 15, 15), True), ((37, 41, 41), True), ((131, 31, 31), True),
+)
+
+
 def dtype_ulp(dtype, magnitude: float) -> float:
     """The spacing of ``dtype`` at ``magnitude``."""
     import torch
@@ -2798,13 +2813,14 @@ def precision_kernels(cuda, hbm_bytes_per_s: float):
     """Phase 23 (a): both kernels in bfloat16, float16 and float64 against
     their plain versions on the card, bit for bit, at the main path's
     shapes, then on phase 3's held cases (ties, NaN, +-inf, every window,
-    the smallest tiles, one stack one element past a 16-byte line), phase
-    3's large tiles, held and timed, and the resample at N = 37 with
+    the smallest tiles, one stack one element past a 16-byte line), on
+    LANE_CASES in every separable window, phase 3's large tiles, held and
+    timed, and the resample at N = 37 with
     thresholds tied to slots. Returns (the line, {kernel: [one record a
     dtype and shape], "large_tiles": [...]}, the largest mismatch)."""
     import torch
 
-    from glimpse_tpu_torch.kernels.highpass import kernel_variant, median_highpass, median_highpass_plain
+    from glimpse_tpu_torch.kernels.highpass import SEPARABLE, kernel_variant, median_highpass, median_highpass_plain
     from glimpse_tpu_torch.kernels.resample import systematic_resample, systematic_resample_plain
     from glimpse_tpu_torch.ops.resampling import systematic_thresholds
 
@@ -2822,7 +2838,8 @@ def precision_kernels(cuda, hbm_bytes_per_s: float):
             plain_ms = _cuda_ms(lambda: median_highpass_plain(tiles, (5, 5)))
             bound = 2 * int(np.prod(shape)) * size / hbm_bytes_per_s * 1e3
             records["median_highpass"].append({"dtype": name, "shape": list(shape), "ms": ms, "plain_ms": plain_ms,
-                                               "bound_ms": bound, "bound_share": bound / ms})
+                                               "bound_ms": bound, "bound_share": bound / ms,
+                                               "variant": kernel_variant((5, 5), dtype, shape)})
             del tiles, got, want
         held = 0
         for label, shape, window, specials, misaligned in highpass_check_cases():
@@ -2834,6 +2851,16 @@ def precision_kernels(cuda, hbm_bytes_per_s: float):
             )
             err = max(err, highpass_mismatch(got, want))
             held += 1
+        for shape, misaligned in LANE_CASES:
+            for window in sorted(SEPARABLE):
+                tiles = highpass_case_tiles(shape, True, misaligned, cuda, seed=shape[0], dtype=dtype)
+                got, want = median_highpass(tiles, window), median_highpass_plain(tiles, window)
+                torch.testing.assert_close(
+                    got, want, rtol=0, atol=0, equal_nan=True,
+                    msg=lambda m: f"phase 23 median_highpass ({kernel_variant(window, dtype, shape)}) on lanes {shape}: {m}",
+                )
+                err = max(err, highpass_mismatch(got, want))
+                held += 1
         rng = np.random.default_rng(231)
         for n, p in ((10240, 2048), (37, 1024)):
             weights = torch.from_numpy(np.exp(3 * rng.normal(size=(n, p))).astype(np.float32)).to(cuda, dtype)
@@ -2861,7 +2888,7 @@ def precision_kernels(cuda, hbm_bytes_per_s: float):
             f"{name}: high-pass 5x5 ({kernel_variant((5, 5), dtype, PRECISION_TILES[0])}) "
             + ", ".join(f"{r['shape'][1]}x{r['shape'][2]}x{r['shape'][0]} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
                         f" bound {r['bound_ms']:.4f}, {100 * r['bound_share']:.1f} %)" for r in hp)
-            + f", {held} held cases, large tiles {describe_large_tiles(large)}; resample 10240x2048 {rs['ms']:.4f} ms"
+            + f", {held} held cases (lanes without a partner among them), large tiles {describe_large_tiles(large)}; resample 10240x2048 {rs['ms']:.4f} ms"
             f" (plain {rs['plain_ms']:.4f}, bound {rs['bound_ms']:.4f}, {100 * rs['bound_share']:.1f} %), N = 37 with"
             " tied thresholds bit-equal"
         )

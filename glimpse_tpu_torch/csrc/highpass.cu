@@ -60,15 +60,37 @@
 //    each thread reflects its strip's row and column indices once. TMA does
 //    not fit: a 31-float row (124 bytes) is not the multiple of 16 bytes a
 //    tensor map's stride needs.
-// 5. Element types. Every kernel is a template on the tile's type T. A
-//    float16 or bfloat16 tile widens to float at the load (exact, and order
-//    and NaN are kept), runs the float32 network and rounds once at the
-//    store, so its bytes halve but its min/max issue does not. A float64
-//    tile runs the network on double (compare and select: PTX has no
-//    min.NaN.f64) with half the float32 strip height, for registers. The
-//    staging counts in elements of T, so 16-byte lines hold 8, 4 or 2 of
-//    them; the elements before the first line and after the last go by
-//    cp.async for 4 and 8 bytes and by a plain copy for 2.
+// 5. Element types. Every kernel is a template on the tile's type T, and
+//    the staged separable kernel has a design for each width:
+//    - 16 bits (packed_strip): a work item takes two tiles of its block's
+//      group at once, and each tap packs their pixels at one (y, x) into one
+//      32-bit register, lane 0 and lane 1. The network runs on the packed
+//      value with min.NaN.bf16x2 / min.NaN.f16x2 (HMNMX2, which Hopper issues
+//      at 119 a clock per SM, twice FMNMX's rate), so one instruction selects
+//      in both tiles: both share every index and branch, selection in 16
+//      bits is exact, and NaN stays in its lane. Each lane's difference is
+//      taken in float and rounded once, as the plain version's
+//      (x.float() - median.float()).to(T). A group of odd size leaves one
+//      tile without a partner: its lane b repeats lane a and is not stored.
+//      For 5x5 it does 28.4 HMNMX2 and 70.8 instructions a pixel at 128-134
+//      registers (float32's network: 63.8 FMNMX, 110.5 instructions); the
+//      packing, two 16-bit shared loads and a PRMT a tap, and the index work
+//      are most of the rest, and latency, not issue, bounds it.
+//    - float64 (strip_medians_flagged): Hopper has no 64-bit min/max
+//      instruction (min.f64 is a DSETP-and-FSEL sequence at 13.6 a clock per
+//      SM), and a NaN-propagating compare and select costs about three DSETP
+//      and eight FSEL a compare-exchange, bound by DSETP at about 16 a clock
+//      per SM. The network runs without NaN tests (one DSETP and four FSEL a
+//      compare-exchange, F64 above; 28.2 min/max a clock) and NaN goes
+//      beside it: a flag a tap, OR-ed over each window separably, sets the
+//      outputs whose window holds a NaN. Strip heights R64 keep every
+//      instance from spilling (5x5: R = 4, 210 registers).
+//    The global and generic routes and the thin tiles' fold widen 16-bit
+//    taps to float and run the float32 network, and run float64 on double by
+//    the NaN-propagating compare and select with half the float32 strip
+//    height. The staging counts in elements of T, so 16-byte lines hold 8, 4
+//    or 2 of them; the elements before the first line and after the last go
+//    by cp.async too, a 2-byte one in the 4-byte word that holds it.
 // 6. Tiles of any size. A tile that one block's shared memory cannot hold
 //    (in float32 about 170 x 170 pixels for a separable window, 240 x 240
 //    for the others) takes the global route: separable_global_kernel and
@@ -93,12 +115,27 @@
 //    one-fold reflect() and compiles to the code it had before.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
 
 namespace {
 
 // ---- Selection networks (host and device, so they can be tested anywhere) --
+//
+// The networks are templates on the value type V, whose vmin and vmax they
+// call. Each V has its own:
+// - float: min.NaN.f32 / max.NaN.f32, NaN if either input is NaN;
+// - double: compare and select, NaN if either input is NaN (the generic,
+//   global and thin routes' float64 kernels);
+// - F64: a double ordered by one comparison a compare-exchange and no NaN
+//   test (the staged float64 kernel, which carries NaN in a flag beside the
+//   network: strip_medians_flagged);
+// - Bf16x2, F16x2: two bfloat16 or float16 values, one of each of two
+//   tiles, in one 32-bit register, ordered lane by lane by
+//   min.NaN.bf16x2 / min.NaN.f16x2 (the staged 16-bit kernel).
+// On the host each is the same order written out, so a host compiler runs
+// the code the card runs.
 
-__host__ __device__ __forceinline__ float min_nan(float a, float b) {
+__host__ __device__ __forceinline__ float vmin(float a, float b) {
 #ifdef __CUDA_ARCH__
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
@@ -108,7 +145,7 @@ __host__ __device__ __forceinline__ float min_nan(float a, float b) {
 #endif
 }
 
-__host__ __device__ __forceinline__ float max_nan(float a, float b) {
+__host__ __device__ __forceinline__ float vmax(float a, float b) {
 #ifdef __CUDA_ARCH__
   float r;
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
@@ -118,19 +155,109 @@ __host__ __device__ __forceinline__ float max_nan(float a, float b) {
 #endif
 }
 
-// PTX has no min.NaN.f64: the float64 kernels compare and select, NaN if
-// either input is NaN, on the card as on the host.
-__host__ __device__ __forceinline__ double min_nan(double a, double b) {
+// PTX has no min.NaN.f64: compare and select, on the card as on the host.
+__host__ __device__ __forceinline__ double vmin(double a, double b) {
   return (a != a || b != b) ? static_cast<double>(NAN) : (b < a ? b : a);
 }
 
-__host__ __device__ __forceinline__ double max_nan(double a, double b) {
+__host__ __device__ __forceinline__ double vmax(double a, double b) {
   return (a != a || b != b) ? static_cast<double>(NAN) : (a < b ? b : a);
 }
 
+// vmin and vmax of one pair test the same b < a, so a compare-exchange is
+// one DSETP and four FSEL. Hopper has no 64-bit min/max instruction:
+// min.f64 lowers to a longer compare-and-select that also tests for NaN.
+// Where an input is NaN the comparison is false and the pair passes
+// unchanged; strip_medians_flagged overrides every window that holds it.
+struct F64 {
+  double v;
+};
+
+__host__ __device__ __forceinline__ F64 vmin(F64 a, F64 b) { return {b.v < a.v ? b.v : a.v}; }
+
+__host__ __device__ __forceinline__ F64 vmax(F64 a, F64 b) { return {b.v < a.v ? a.v : b.v}; }
+
+// Lane 0 in the low 16 bits, lane 1 in the high 16.
+struct Bf16x2 {
+  unsigned bits;
+};
+struct F16x2 {
+  unsigned bits;
+};
+
+#ifndef __CUDA_ARCH__
+// One lane's 16 bits as a float, on the host.
+inline float lane_float(Bf16x2, unsigned h) {
+  const unsigned u = h << 16;
+  float f;
+  memcpy(&f, &u, sizeof(f));
+  return f;
+}
+
+inline float lane_float(F16x2, unsigned h) {
+  const unsigned e = (h >> 10) & 31, m = h & 1023;
+  const float magnitude = e == 0 ? ldexpf(static_cast<float>(m), -24)
+                                 : (e == 31 ? (m ? NAN : INFINITY) : ldexpf(static_cast<float>(m | 1024), static_cast<int>(e) - 25));
+  return h & 0x8000 ? -magnitude : magnitude;
+}
+
+// Lane by lane: the canonical NaN (0x7fff) if either lane is NaN, else the
+// smaller (kMin) or the larger one, as min.NaN / max.NaN on the card.
+template <bool kMin, typename P>
+P lanewise(P a, P b) {
+  P r{0};
+  for (int k = 0; k < 2; ++k) {
+    const unsigned x = (a.bits >> (16 * k)) & 0xffff, y = (b.bits >> (16 * k)) & 0xffff;
+    const float fx = lane_float(a, x), fy = lane_float(b, y);
+    const unsigned pick = (fx != fx || fy != fy) ? 0x7fff : ((kMin ? fy < fx : fx < fy) ? y : x);
+    r.bits |= pick << (16 * k);
+  }
+  return r;
+}
+#endif
+
+__host__ __device__ __forceinline__ Bf16x2 vmin(Bf16x2 a, Bf16x2 b) {
+#ifdef __CUDA_ARCH__
+  Bf16x2 r;
+  asm("min.NaN.bf16x2 %0, %1, %2;" : "=r"(r.bits) : "r"(a.bits), "r"(b.bits));
+  return r;
+#else
+  return lanewise<true>(a, b);
+#endif
+}
+
+__host__ __device__ __forceinline__ Bf16x2 vmax(Bf16x2 a, Bf16x2 b) {
+#ifdef __CUDA_ARCH__
+  Bf16x2 r;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(r.bits) : "r"(a.bits), "r"(b.bits));
+  return r;
+#else
+  return lanewise<false>(a, b);
+#endif
+}
+
+__host__ __device__ __forceinline__ F16x2 vmin(F16x2 a, F16x2 b) {
+#ifdef __CUDA_ARCH__
+  F16x2 r;
+  asm("min.NaN.f16x2 %0, %1, %2;" : "=r"(r.bits) : "r"(a.bits), "r"(b.bits));
+  return r;
+#else
+  return lanewise<true>(a, b);
+#endif
+}
+
+__host__ __device__ __forceinline__ F16x2 vmax(F16x2 a, F16x2 b) {
+#ifdef __CUDA_ARCH__
+  F16x2 r;
+  asm("max.NaN.f16x2 %0, %1, %2;" : "=r"(r.bits) : "r"(a.bits), "r"(b.bits));
+  return r;
+#else
+  return lanewise<false>(a, b);
+#endif
+}
+
 // A list of N values of type V held in registers (every index is a
-// compile-time constant once the networks below are unrolled). V is float
-// for the float32 and 16-bit kernels, double for the float64 ones.
+// compile-time constant once the networks below are unrolled).
 template <int N, typename V = float>
 struct Vec {
   V v[N > 0 ? N : 1];
@@ -157,8 +284,8 @@ __host__ __device__ __forceinline__ Vec<M + N, V> merge(const Vec<M, V>& a, cons
 #pragma unroll
     for (int i = 0; i < M; ++i) out[i] = a[i];
   } else if constexpr (M == 1 && N == 1) {
-    out[0] = min_nan(a[0], b[0]);
-    out[1] = max_nan(a[0], b[0]);
+    out[0] = vmin(a[0], b[0]);
+    out[1] = vmax(a[0], b[0]);
   } else {
     Vec<(M + 1) / 2, V> a_even;
     Vec<M / 2, V> a_odd;
@@ -180,8 +307,8 @@ __host__ __device__ __forceinline__ Vec<M + N, V> merge(const Vec<M, V>& a, cons
     out[0] = v[0];
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      out[1 + 2 * i] = min_nan(w[i], v[i + 1]);
-      out[2 + 2 * i] = max_nan(w[i], v[i + 1]);
+      out[1 + 2 * i] = vmin(w[i], v[i + 1]);
+      out[2 + 2 * i] = vmax(w[i], v[i + 1]);
     }
 #pragma unroll
     for (int i = P; i < NW; ++i) out[1 + P + i] = w[i];
@@ -206,14 +333,14 @@ __host__ __device__ __forceinline__ Vec<N, V> sort(const Vec<N, V>& a) {
 // min over i + j = T + 1 of max(a[i - 1], b[j - 1]), an absent side left out.
 template <int M, int N, int T, typename V>
 __host__ __device__ __forceinline__ V select(const Vec<M, V>& a, const Vec<N, V>& b) {
-  V r = V(0);
+  V r{};
   bool first = true;
 #pragma unroll
   for (int i = 0; i <= T + 1; ++i) {
     const int j = T + 1 - i;
     if (i > M || j > N) continue;
-    const V term = i == 0 ? b[j - 1] : (j == 0 ? a[i - 1] : max_nan(a[i - 1], b[j - 1]));
-    r = first ? term : min_nan(r, term);
+    const V term = i == 0 ? b[j - 1] : (j == 0 ? a[i - 1] : vmax(a[i - 1], b[j - 1]));
+    r = first ? term : vmin(r, term);
     first = false;
   }
   return r;
@@ -316,6 +443,44 @@ __host__ __device__ __forceinline__ void strip_medians(const V (&x)[R + KH - 1][
   }
 }
 
+// strip_medians of float64 taps by the F64 network, with NaN carried beside
+// it: an output whose window holds a NaN is NaN. The network's comparisons
+// are false on NaN, so a node that holds one may hold it out of order, lose
+// it or hold another value twice; but every node of the network holds only
+// taps that every window reading it holds (the row segments and the tree's
+// shared nodes), so only windows that hold the NaN read such a node, and the
+// flag overrides exactly those. The flag is taken separably, as the network
+// shares its segments: bit i of row_nan[c] is the OR over row i's taps of
+// column c's windows, and output r tests the KH bits from bit r. (A bit
+// mask, not an array of bools, keeps the 5x5 kernel at 210 registers
+// without a spill.)
+template <int KH, int KW, int R>
+__host__ __device__ __forceinline__ void strip_medians_flagged(const double (&x)[R + KH - 1][KW + 1],
+                                                               double (&med)[2][R]) {
+  static_assert(R + KH - 1 <= 32, "a row's flag is one bit of a 32-bit mask");
+  F64 y[R + KH - 1][KW + 1];
+  unsigned row_nan[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < R + KH - 1; ++i) {
+    bool shared = false;
+#pragma unroll
+    for (int j = 1; j < KW; ++j) shared |= x[i][j] != x[i][j];
+    row_nan[0] |= static_cast<unsigned>(shared || x[i][0] != x[i][0]) << i;
+    row_nan[1] |= static_cast<unsigned>(shared || x[i][KW] != x[i][KW]) << i;
+#pragma unroll
+    for (int j = 0; j < KW + 1; ++j) y[i][j].v = x[i][j];
+  }
+  F64 m[2][R];
+  strip_medians<KH, KW, R>(y, m);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      med[c][r] = (row_nan[c] >> r) & ((1u << KH) - 1) ? static_cast<double>(NAN) : m[c][r].v;
+    }
+  }
+}
+
 // ---- Kernels ---------------------------------------------------------------
 
 }  // namespace
@@ -356,11 +521,38 @@ __device__ __forceinline__ void store(double* dst, double x) { *dst = x; }
 __device__ __forceinline__ void store(__half* dst, float x) { *dst = __float2half_rn(x); }
 __device__ __forceinline__ void store(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16_rn(x); }
 
-// Strip height of separable_kernel<KH, KW, R> for T: half the float32 one
-// for float64, whose window and network take twice the registers.
+// The staged 16-bit kernel's packed value (two tiles' pixels a register),
+// and the tiles one work item of separable_kernel<..., T> takes: two for
+// 16-bit tiles, one for the others.
 template <typename T>
-constexpr int strip_rows(int r) {
-  return sizeof(T) == 8 ? (r / 2 > 1 ? r / 2 : 1) : r;
+struct Packed;
+template <>
+struct Packed<__half> {
+  using type = F16x2;
+};
+template <>
+struct Packed<__nv_bfloat16> {
+  using type = Bf16x2;
+};
+
+template <typename T>
+__host__ __device__ constexpr int lanes() {
+  return sizeof(T) == 2 ? 2 : 1;
+}
+
+// Lane k of a packed value, widened to float (exact).
+__device__ __forceinline__ float lane(Bf16x2 p, int k) { return __uint_as_float(k ? p.bits & 0xffff0000u : p.bits << 16); }
+__device__ __forceinline__ float lane(F16x2 p, int k) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(k ? p.bits >> 16 : p.bits)));
+}
+
+// Strip height of the separable kernels for T, from a window's float32 one
+// r and staged float64 one r64 (GLIMPSE_SEPARABLE_WINDOWS): r for float32
+// and 16 bits; r64 for the staged float64 kernel; half of r for the global
+// float64 kernel, whose compare-and-select network takes more registers.
+template <typename T>
+constexpr int strip_rows(int r, int r64, bool global) {
+  return sizeof(T) != 8 ? r : (global ? (r / 2 > 1 ? r / 2 : 1) : r64);
 }
 
 // Symmetric reflection into [0, n): -i - 1 below 0, 2n - 1 - i from n on;
@@ -384,15 +576,22 @@ __device__ __forceinline__ int reflect_index(int i, int n) {
   }
 }
 
-// One element into shared memory: cp.async for 4 and 8 bytes, a plain copy
-// for 2 (cp.async copies 4, 8 or 16 bytes).
+// One element into shared memory by cp.async, which copies 4, 8 or 16
+// bytes: a 2-byte element goes in the 4-byte word that holds it (dst and src
+// lie at the same offset modulo 16 bytes), so the element beside it comes
+// along, into the buffer's slack where it lies outside the range staged. A
+// plain copy would stall its warp on the load, and the block at the next
+// barrier.
 template <typename T>
 __device__ __forceinline__ void copy_element(T* dst, const T* src) {
   if constexpr (sizeof(T) >= 4) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(s), "l"(src), "n"(sizeof(T)) : "memory");
   } else {
-    *reinterpret_cast<unsigned short*>(dst) = *reinterpret_cast<const unsigned short*>(src);
+    const unsigned low = static_cast<unsigned>(reinterpret_cast<unsigned long long>(src) & 3);
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst)) - low;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(reinterpret_cast<const char*>(src) - low)
+                 : "memory");
   }
 }
 
@@ -413,7 +612,8 @@ __host__ __device__ __forceinline__ int buffer_elements(int elems) {
 // Copy `count` elements from src + start into the buffer at dst_base, shifted
 // by their address's offset modulo 16 bytes; returns that shift in elements.
 // The 16-byte lines between go by cp.async; the elements before the first
-// and after the last by copy_element.
+// and after the last by copy_element, which for 2-byte elements may also
+// write the element just before the range or just after it, in the slack.
 template <typename T>
 __device__ __forceinline__ int stage(T* dst_base, const T* src, long long start, int count) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
@@ -456,7 +656,11 @@ __device__ __forceinline__ void separable_strip(const T* src, T* dst, int h, int
     for (int j = 0; j < KW + 1; ++j) x[i][j] = widen(load<kGlobal>(row + cols[j]));
   }
   C med[2][R];
-  strip_medians<KH, KW, R>(x, med);
+  if constexpr (sizeof(T) == 8 && !kGlobal) {
+    strip_medians_flagged<KH, KW, R>(x, med);
+  } else {
+    strip_medians<KH, KW, R>(x, med);
+  }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int y = y0 + r;
@@ -464,6 +668,48 @@ __device__ __forceinline__ void separable_strip(const T* src, T* dst, int h, int
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       if (x0 + c < w) store(dst + y * w + x0 + c, x[r + KH / 2][c + KW / 2] - med[c][r]);
+    }
+  }
+}
+
+// separable_strip of two 16-bit tiles at once, on the staged route: each
+// tap packs the pixel at one (y, x) of tile a and of tile b into one
+// register, so the two share every index and branch, and each min or max of
+// the network selects in both. Selection in 16 bits is exact; each lane's
+// difference is taken in float and rounded once, as separable_strip's. A
+// tile with no partner passes b = a and dst_b = nullptr: lane b repeats
+// lane a and is not stored.
+template <int KH, int KW, int R, typename T>
+__device__ __forceinline__ void packed_strip(const T* a, const T* b, T* dst_a, T* dst_b, int h, int w, int y0,
+                                             int x0) {
+  using P = typename Packed<T>::type;
+  int cols[KW + 1];
+#pragma unroll
+  for (int j = 0; j < KW + 1; ++j) cols[j] = reflect(x0 - KW / 2 + j, w);
+  P x[R + KH - 1][KW + 1];
+#pragma unroll
+  for (int i = 0; i < R + KH - 1; ++i) {
+    const int row = reflect(y0 - KH / 2 + i, h) * w;
+#pragma unroll
+    for (int j = 0; j < KW + 1; ++j) {
+      const unsigned lo = *reinterpret_cast<const unsigned short*>(a + row + cols[j]);
+      const unsigned hi = *reinterpret_cast<const unsigned short*>(b + row + cols[j]);
+      x[i][j].bits = __byte_perm(lo, hi, 0x5410);
+    }
+  }
+  P med[2][R];
+  strip_medians<KH, KW, R>(x, med);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int y = y0 + r;
+    if (y >= h) break;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (x0 + c < w) {
+        const P centre = x[r + KH / 2][c + KW / 2];
+        store(dst_a + y * w + x0 + c, lane(centre, 0) - lane(med[c][r], 0));
+        if (dst_b != nullptr) store(dst_b + y * w + x0 + c, lane(centre, 1) - lane(med[c][r], 1));
+      }
     }
   }
 }
@@ -479,6 +725,8 @@ __global__ void __launch_bounds__(kThreads) separable_kernel(const T* __restrict
   const int per_tile = strips * pairs;
   const long long total = static_cast<long long>(n) * tile;
   const int stride = buffer_elements<T>(per_block * tile);
+  constexpr int L = lanes<T>();
+  const int slots = (per_block + L - 1) / L;  // work items' tiles: L a slot
   auto count_of = [&](int g) {
     const long long start = static_cast<long long>(g) * per_block * tile;
     return static_cast<int>(min(static_cast<long long>(per_block) * tile, total - start));
@@ -499,15 +747,22 @@ __global__ void __launch_bounds__(kThreads) separable_kernel(const T* __restrict
     __syncthreads();
 
     const T* group = smem + buf * stride + shift[buf];
-    for (int item = threadIdx.x; item < per_block * per_tile; item += blockDim.x) {
-      const int local = item / per_tile;
-      const long long t = static_cast<long long>(g) * per_block + local;
+    for (int item = threadIdx.x; item < slots * per_tile; item += blockDim.x) {
+      const int slot = item / per_tile;
+      const long long t = static_cast<long long>(g) * per_block + L * slot;
       if (t >= n) break;
-      const int rest = item - local * per_tile;
+      const int rest = item - slot * per_tile;
       const int s = rest / pairs;
       const int y0 = s * R;
       const int x0 = 2 * (rest - s * pairs);
-      separable_strip<KH, KW, R, false>(group + local * tile, out + t * tile, h, w, y0, x0);
+      const T* a = group + L * slot * tile;
+      if constexpr (L == 1) {
+        separable_strip<KH, KW, R, false>(a, out + t * tile, h, w, y0, x0);
+      } else {
+        const bool pair = L * slot + 1 < per_block && t + 1 < n;
+        packed_strip<KH, KW, R>(a, pair ? a + tile : a, out + t * tile, pair ? out + (t + 1) * tile : nullptr, h, w,
+                                y0, x0);
+      }
     }
     __syncthreads();  // the next pass copies into the buffer just read
   }
@@ -651,19 +906,22 @@ cudaError_t launch_global(Kernel kernel, long long items, cudaStream_t stream, A
   return cudaGetLastError();
 }
 
-// The windows separable_kernel is compiled for, each with its float32 strip
-// height R (8 rows where the registers allow, 4 for the larger windows;
-// strip_rows halves it for float64).
-#define GLIMPSE_SEPARABLE_WINDOWS(X) X(3, 3, 8) X(5, 5, 8) X(7, 7, 4) X(3, 7, 8) X(9, 5, 4)
+// The windows the separable kernels are compiled for, each with its strip
+// height R for float32 and 16 bits (8 rows where the registers allow, 4 for
+// the larger windows) and R64 for the staged float64 kernel (strip_rows).
+#define GLIMPSE_SEPARABLE_WINDOWS(X) X(3, 3, 8, 4) X(5, 5, 8, 4) X(7, 7, 4, 2) X(3, 7, 8, 4) X(9, 5, 4, 2)
 
 template <int KH, int KW, int R, typename T>
-cudaError_t launch_separable(const T* in, T* out, int n, int h, int w, bool global, cudaStream_t stream) {
+cudaError_t launch_separable_global(const T* in, T* out, int n, int h, int w, cudaStream_t stream) {
+  const long long per_tile = static_cast<long long>((h + R - 1) / R) * ((w + 1) / 2);
+  return launch_global(separable_global_kernel<KH, KW, R, T>, n * per_tile, stream, in, out, n, h, w);
+}
+
+template <int KH, int KW, int R, typename T>
+cudaError_t launch_separable(const T* in, T* out, int n, int h, int w, cudaStream_t stream) {
+  constexpr int L = lanes<T>();
   const int per_tile = ((h + R - 1) / R) * ((w + 1) / 2);
-  if (global) {
-    return launch_global(separable_global_kernel<KH, KW, R, T>, static_cast<long long>(n) * per_tile, stream, in,
-                         out, n, h, w);
-  }
-  int per_block = per_tile >= kThreads ? 1 : kThreads / per_tile;
+  int per_block = L * (per_tile >= kThreads ? 1 : kThreads / per_tile);
   auto smem_of = [&](int g) { return 2 * buffer_elements<T>(g * h * w) * static_cast<int>(sizeof(T)); };
   while (per_block > 1 && smem_of(per_block) > kSmemLimit) --per_block;
   const int smem = smem_of(per_block);
@@ -672,7 +930,8 @@ cudaError_t launch_separable(const T* in, T* out, int n, int h, int w, bool glob
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const int threads = per_block * per_tile < kThreads ? per_block * per_tile : kThreads;
+  const int items = (per_block + L - 1) / L * per_tile;
+  const int threads = items < kThreads ? items : kThreads;
   const int groups = (n + per_block - 1) / per_block;
   const int card = blocks_per_card(reinterpret_cast<const void*>(kernel), threads, smem);
   kernel<<<groups < card ? groups : card, threads, smem, stream>>>(in, out, n, h, w, per_block, groups);
@@ -712,7 +971,7 @@ cudaError_t launch_thin(const T* in, T* out, int n, int h, int w, int kh, int kw
 bool thin(int h, int w, int kh, int kw) { return h < kh / 2 + 1 || w < kw / 2 + 1; }
 
 bool separable_window(int kh, int kw) {
-#define GLIMPSE_IS(KH, KW, R) \
+#define GLIMPSE_IS(KH, KW, R, R64) \
   if (kh == KH && kw == KW) return true;
   GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_IS)
 #undef GLIMPSE_IS
@@ -734,8 +993,10 @@ bool stages(int h, int w, int kh, int kw) {
 // pixels. A staged block has kThreads threads.
 template <typename T>
 long long tile_items(int h, int w, int kh, int kw) {
-#define GLIMPSE_ITEMS(KH, KW, R) \
-  if (kh == KH && kw == KW) return static_cast<long long>((h + strip_rows<T>(R) - 1) / strip_rows<T>(R)) * ((w + 1) / 2);
+#define GLIMPSE_ITEMS(KH, KW, R, R64)                                                          \
+  if (kh == KH && kw == KW)                                                                   \
+    return static_cast<long long>((h + strip_rows<T>(R, R64, false) - 1) / strip_rows<T>(R, R64, false)) * \
+           ((w + 1) / 2);
   GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_ITEMS)
 #undef GLIMPSE_ITEMS
   return static_cast<long long>(h) * w;
@@ -768,9 +1029,10 @@ int launch(const void* in_ptr, void* out_ptr, int n, int h, int w, int kh, int k
   }
   if (route == kStaged && !stages<T>(h, w, kh, kw)) return static_cast<int>(cudaErrorInvalidValue);
   const bool global = route == kGlobal || (route == kAuto && takes_global<T>(n, h, w, kh, kw));
-#define GLIMPSE_LAUNCH(KH, KW, R)                                                                 \
-  if (kh == KH && kw == KW)                                                                       \
-    return static_cast<int>(launch_separable<KH, KW, strip_rows<T>(R), T>(in, out, n, h, w, global, s));
+#define GLIMPSE_LAUNCH(KH, KW, R, R64)                                                                      \
+  if (kh == KH && kw == KW)                                                                                 \
+    return static_cast<int>(global ? launch_separable_global<KH, KW, strip_rows<T>(R, R64, true), T>(in, out, n, h, w, s) \
+                                   : launch_separable<KH, KW, strip_rows<T>(R, R64, false), T>(in, out, n, h, w, s));
   GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_LAUNCH)
 #undef GLIMPSE_LAUNCH
   switch (generic_size(kh, kw)) {
@@ -787,11 +1049,14 @@ void name_variant(char* name, int size, int n, int h, int w, int kh, int kw, con
     snprintf(name, size, "generic_folded<%d>[%s]", generic_size(kh, kw), type);
     return;
   }
-  const char* route = takes_global<T>(n, h, w, kh, kw) ? "_global" : "";
-#define GLIMPSE_NAME(KH, KW, R)                                                                    \
-  if (kh == KH && kw == KW) {                                                                      \
-    snprintf(name, size, "separable%s<%d,%d,%d>[%s]", route, KH, KW, strip_rows<T>(R), type);      \
-    return;                                                                                        \
+  const bool global = takes_global<T>(n, h, w, kh, kw);
+  const char* route = global ? "_global" : "";
+  // The staged 16- and 64-bit kernels by their designs' names.
+  const char* family = global ? "_global" : (sizeof(T) == 2 ? "_packed" : (sizeof(T) == 8 ? "_nanflag" : ""));
+#define GLIMPSE_NAME(KH, KW, R, R64)                                                                            \
+  if (kh == KH && kw == KW) {                                                                                  \
+    snprintf(name, size, "separable%s<%d,%d,%d>[%s]", family, KH, KW, strip_rows<T>(R, R64, global), type);    \
+    return;                                                                                                    \
   }
   GLIMPSE_SEPARABLE_WINDOWS(GLIMPSE_NAME)
 #undef GLIMPSE_NAME
@@ -812,8 +1077,9 @@ const char* dtype_name(int dtype) {
 
 // The kernel glimpse_median_highpass_typed runs for a stack (n, h, w), a
 // kh x kw window and an element type, as "separable<KH,KW,R>[type]" or
-// "generic<S>[type]", with "_global" after the family on the global route,
-// or "generic_folded<S>[type]" for a thin tile.
+// "generic<S>[type]", with "_global" after the family on the global route
+// and "_packed" (16 bits) or "_nanflag" (float64) after a staged separable
+// kernel's, or "generic_folded<S>[type]" for a thin tile.
 extern "C" const char* glimpse_median_highpass_variant_typed(int n, int h, int w, int kh, int kw, int dtype) {
   static thread_local char name[64];
   const char* type = dtype_name(dtype);
@@ -848,8 +1114,8 @@ extern "C" int glimpse_median_highpass_typed(const void* in, void* out, int n, i
   return glimpse_median_highpass_route(in, out, n, h, w, kh, kw, dtype, kAuto, stream);
 }
 
-// The float32 entry, with the signature every earlier build exported
-// (kernels/bench_highpass.py times sources through it).
+// The float32 entry, with the signature every build before the typed entry
+// exported (kernels/bench_highpass.py times sources through the typed one).
 extern "C" int glimpse_median_highpass(const float* in, float* out, int n, int h, int w, int kh, int kw,
                                        void* stream) {
   return glimpse_median_highpass_typed(in, out, n, h, w, kh, kw, kFloat32, stream);

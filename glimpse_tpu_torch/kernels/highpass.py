@@ -19,9 +19,13 @@ device memory by kernels whose grid spreads it over many SMs, and so is a
 stack of fewer tiles than the card has SMs whose tiles each hold more work
 than one block's threads, which the staged route would leave to one block
 a tile.
-:func:`kernel_variant` names the kernel a stack takes. Both routes run the
-same networks and are bit-equal to the plain version. Tiles are float32,
-float64, float16 or bfloat16, and the output has the input's type.
+:func:`kernel_variant` names the kernel a stack takes. Both routes are
+bit-equal to the plain version. The staged route runs a network designed
+for each width: 16-bit tiles two to a register by packed min/max
+(``separable_packed``), float64 tiles without NaN tests and with NaN carried
+in a flag (``separable_nanflag``); the global route widens 16-bit tiles to
+float. Tiles are float32, float64, float16 or bfloat16, and the output has
+the input's type.
 
 ``median_highpass.launches`` counts the kernel's launches. A call made while
 its stream is being captured into a CUDA graph launches nothing: it adds to
@@ -63,8 +67,9 @@ def kernel_variant(size: Tuple[int, int], dtype: torch.dtype, shape: Tuple[int, 
     """The name of the compiled kernel a CUDA call on a stack of this
     (N, h, w) shape, element type and window runs, as
     ``separable<KH,KW,R>[type]`` or ``generic<S>[type]``, with ``_global``
-    after the family on the route that reads from device memory (builds the
-    library on first use)."""
+    after the family on the route that reads from device memory, and
+    ``_packed`` (16 bits) or ``_nanflag`` (float64) after a staged separable
+    kernel's family (builds the library on first use)."""
     lib, _ = _entry()
     return lib.glimpse_median_highpass_variant_typed(*shape, *size, DTYPE_CODES[dtype]).decode()
 

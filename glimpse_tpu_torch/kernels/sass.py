@@ -6,12 +6,15 @@ compiled to a cubin for ``sm_90a`` with the flags the library is built with
 (with no argument: the high-pass library itself, built as on first use) and
 disassembled with ``cuobjdump -sass``. For every kernel in it the script
 prints one line: its static instruction count, its min/max instructions
-(``FMNMX``), ptxas's registers and spills, both counts divided by the output
+(``FMNMX`` on float, ``HMNMX2`` on two packed 16-bit values, ``DMNMX`` on
+double), ptxas's registers and spills, the counts divided by the output
 pixels one pass of its loop computes (2 R for ``separable_kernel<KH, KW,
-R, type>`` and ``separable_global_kernel``, 1 for a kernel that computes
-one pixel a pass), and its twelve
-most frequent opcodes. The float64 kernels compare and select (``DSETP``,
-``FSEL``) where the others run ``FMNMX``. Static counts of straight-line network code are what one
+R, type>`` and ``separable_global_kernel``, 4 R for the staged 16-bit
+``separable_kernel``, whose packed lanes hold two tiles, 1 for a kernel
+that computes one pixel a pass), and its twelve most frequent opcodes.
+sm_90a has no ``DMNMX``: the float64 kernels compare and select (``DSETP``,
+``FSEL``), so their ``DMNMX`` count shows that ``min.f64`` did not lower to
+one instruction. Static counts of straight-line network code are what one
 pass executes; the staging loops are counted once.
 """
 import collections
@@ -25,12 +28,14 @@ from pathlib import Path
 from . import _build
 
 # Per-pass outputs from a kernel's mangled name: separable_kernel<KH, KW, R>
-# and separable_global_kernel<KH, KW, R> compute an R x 2 strip; every other
-# kernel one pixel. A template on the element type (since the 16- and 64-bit
-# kernels) carries it after the sizes.
+# and separable_global_kernel<KH, KW, R> compute an R x 2 strip, of two tiles
+# in the staged 16-bit kernel; every other kernel one pixel. A template on the
+# element type (since the 16- and 64-bit kernels) carries it after the sizes.
 _SEPARABLE = re.compile(r"(separable(?:_global)?_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E(f|d|6__half|13__nv_bfloat16)?")
 _TEMPLATE = re.compile(r"(generic(?:_global)?_kernel|median_highpass_kernel)ILi(\d+)E(f|d|6__half|13__nv_bfloat16)?")
 _TYPES = {"f": "float32", "d": "float64", "6__half": "float16", "13__nv_bfloat16": "bfloat16"}
+# The min/max opcodes each row counts.
+MINMAX = ("FMNMX", "HMNMX2", "DMNMX")
 
 
 def _typed(sizes: str, code) -> str:
@@ -48,7 +53,8 @@ def _describe(mangled: str):
     m = _SEPARABLE.search(mangled)
     if m:
         kh, kw, r = map(int, m.groups()[1:4])
-        return f"{m.group(1)}<{_typed(f'{kh},{kw},{r}', m.group(5))}>", 2 * r
+        packed = m.group(1) == "separable_kernel" and m.group(5) in ("6__half", "13__nv_bfloat16")
+        return f"{m.group(1)}<{_typed(f'{kh},{kw},{r}', m.group(5))}>", (4 if packed else 2) * r
     m = _TEMPLATE.search(mangled)
     if m:
         return f"{m.group(1)}<{_typed(m.group(2), m.group(3))}>", 1
@@ -56,9 +62,10 @@ def _describe(mangled: str):
 
 
 def count_binary(binary: Path, ptxas_report: str) -> list:
-    """[(kernel, outputs per pass, instructions, FMNMX, registers, spill
-    bytes, opcode counts)] for each kernel in a cubin or a shared library,
-    with registers and spills read from ptxas's ``-v`` report of its build."""
+    """[(kernel, outputs per pass, instructions, {opcode: count} of MINMAX,
+    registers, spill bytes, opcode counts)] for each kernel in a cubin or a
+    shared library, with registers and spills read from ptxas's ``-v``
+    report of its build."""
     registers = {}
     for block in re.split(r"ptxas info\s*: Compiling entry function ", ptxas_report)[1:]:
         name = re.match(r"'(\w+)'", block).group(1)
@@ -74,7 +81,7 @@ def count_binary(binary: Path, ptxas_report: str) -> list:
                                       for b in instructions)
         kernel, per_pass = _describe(mangled)
         regs, spill = registers.get(mangled, (None, 0))
-        rows.append((kernel, per_pass, len(instructions), opcodes["FMNMX"], regs, spill, opcodes))
+        rows.append((kernel, per_pass, len(instructions), {op: opcodes[op] for op in MINMAX}, regs, spill, opcodes))
     return rows
 
 
@@ -102,10 +109,11 @@ def count_built(name: str) -> list:
 def describe(row, opcodes: int = 0) -> str:
     """One line for a row of :func:`count_binary`; with ``opcodes``, the
     most frequent that many opcodes too."""
-    kernel, per_pass, total, fmnmx, regs, spill, counts = row
+    kernel, per_pass, total, minmax, regs, spill, counts = row
     line = (
-        f"{kernel}: {total} instructions, {fmnmx} FMNMX, {regs} registers, {spill} bytes spilled;"
-        f" per output pixel {total / per_pass:.1f} instructions, {fmnmx / per_pass:.1f} FMNMX"
+        f"{kernel}: {total} instructions, {', '.join(f'{n} {op}' for op, n in minmax.items())}, {regs} registers,"
+        f" {spill} bytes spilled; per output pixel {total / per_pass:.1f} instructions, "
+        + ", ".join(f"{n / per_pass:.1f} {op}" for op, n in minmax.items())
     )
     if opcodes:
         line += "; " + ", ".join(f"{op} {n}" for op, n in counts.most_common(opcodes))

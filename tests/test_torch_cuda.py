@@ -9,7 +9,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import HIGHPASS_LARGE_TILES, THIN_TILES, highpass_case_tiles, highpass_check_cases
+from chip_smoke import (
+    HIGHPASS_LARGE_TILES,
+    LANE_CASES,
+    PRECISION_TILES,
+    THIN_TILES,
+    highpass_case_tiles,
+    highpass_check_cases,
+)
 from glimpse_tpu_torch.kernels.highpass import SEPARABLE, covers, kernel_variant, median_highpass, median_highpass_plain
 from glimpse_tpu_torch.kernels.resample import systematic_resample, systematic_resample_plain
 from glimpse_tpu_torch.ops.resampling import systematic_thresholds
@@ -425,6 +432,39 @@ def test_highpass_kernel_in_16_and_64_bits(cuda, label, shape, size, specials, m
     assert median_highpass.launches == before + 1 and got.dtype == dtype
     torch.testing.assert_close(got, median_highpass_plain(tiles, size), rtol=0, atol=0, equal_nan=True,
                                msg=lambda m: f"{kernel_variant(size, dtype, shape)}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WIDE_AND_NARROW)
+@pytest.mark.parametrize("size", sorted(SEPARABLE), ids=[f"{k[0]}x{k[1]}" for k in sorted(SEPARABLE)])
+@pytest.mark.parametrize("shape, misaligned", LANE_CASES,
+                         ids=[f"{'x'.join(map(str, c[0]))}{'-misaligned' if c[1] else ''}" for c in LANE_CASES])
+def test_highpass_kernel_lanes_without_a_partner(cuda, shape, misaligned, size, name) -> None:
+    """Stacks the staged 16-bit kernel cannot pair whole (it packs two tiles
+    into one register, lane by lane): one tile, odd counts, a partial last
+    group, stacks 2 bytes past a 4-byte boundary; ties, NaN in three tiles
+    at three places, +-inf. The kernel launches, returns the tile's dtype
+    and equals the plain version, NaN included; float64 runs the same
+    stacks through its NaN-flag kernel."""
+    dtype = getattr(torch, name)
+    tiles = highpass_case_tiles(shape, True, misaligned, cuda, seed=shape[0], dtype=dtype)
+    before = median_highpass.launches
+    got = median_highpass(tiles, size)
+    assert median_highpass.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got, median_highpass_plain(tiles, size), rtol=0, atol=0, equal_nan=True,
+                               msg=lambda m: f"{kernel_variant(size, dtype, shape)}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PRECISION_TILES, ids=["x".join(map(str, s)) for s in PRECISION_TILES])
+def test_highpass_variant_names_the_design(cuda, shape) -> None:
+    """The main paths' stacks take the staged kernel of each dtype's
+    design: the float32 network, the packed 16-bit one, the float64 one
+    with its NaN flag."""
+    assert kernel_variant((5, 5), torch.float32, shape) == "separable<5,5,8>[float32]"
+    assert kernel_variant((5, 5), torch.bfloat16, shape) == "separable_packed<5,5,8>[bfloat16]"
+    assert kernel_variant((5, 5), torch.float16, shape) == "separable_packed<5,5,8>[float16]"
+    assert kernel_variant((5, 5), torch.float64, shape).startswith("separable_nanflag<5,5,")
 
 
 @pytest.mark.cuda
