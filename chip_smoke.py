@@ -262,6 +262,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from portbench.metrics._reader import LAUNCH_CALLS, busy_s, kernel_label, load_chrome
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2406,22 +2408,6 @@ def conversion_phase(devices) -> str:
     )
 
 
-def kernel_label(name: str) -> str:
-    """A CUDA kernel's name cut to what tells kernels apart: PyTorch's
-    elementwise kernels by their operation and element type, others by the
-    function that launched them."""
-    found = re.search(r"binary_internal::(\w+)Functor<(\w+)>", name) or re.search(r"CUDAFunctor_(\w+)<(\w+)>", name)
-    if found:
-        return f"{found.group(1).lower()}<{found.group(2)}>"
-    found = re.search(r"(\w+?)_kernel<(\w+)>\(", name)
-    if found:
-        return f"{found.group(1)}<{found.group(2)}>"
-    found = re.search(r"(\w+?)_kernel_impl\(|_cuda_(\w+?)_internal_kernel", name)
-    if found:
-        return found.group(1) or found.group(2)
-    return name[:60]
-
-
 def mesh_phase(camera, frames, points_xy, cuda, trace_dir: str, n_slices: int = 4, n_particles: int = 2048,
                n_steps: int = 10):
     """Phase 20: phase 6's tracker with its points cut into ``n_slices``
@@ -2993,10 +2979,6 @@ def eager_steps(tracker):
             del part._advance
 
 
-#: The host calls that launch work on the card, as the profiler names them.
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
-
-
 def profile_graphed_step(tracker, first, frame, dt, init=None, **kwargs) -> dict:
     """One eager ``step`` and one replayed step (``_advance`` after its
     warm-up step and capture) from ``first``'s state under the profiler:
@@ -3180,10 +3162,12 @@ class OneIterationProfile:
 
 
 def profile_window(prof, window_ms: float) -> dict:
-    """A finished profile's window: ms, the device's busy ms and idle share
-    (busy None where the profiler saw no device time), the host's kernel
-    launch, ``cudaGraphLaunch`` and memory copy calls, all CUDA API calls,
-    and the kernels' count and names."""
+    """A finished profile's window: ms, the device's busy ms (the union of
+    its kernels', copies' and sets' intervals in the exported trace, so
+    overlapping kernels count once) and idle share (busy None where the
+    profiler saw no device time), the host's kernel launch,
+    ``cudaGraphLaunch`` and memory copy calls, all CUDA API calls, and the
+    kernels' count and names."""
     import torch
 
     def device_us(row):
@@ -3192,7 +3176,10 @@ def profile_window(prof, window_ms: float) -> dict:
     rows = prof.key_averages()
     kernels = [r for r in rows if r.device_type == torch.autograd.DeviceType.CUDA and device_us(r) > 0]
     api = {r.key: r.count for r in rows if r.device_type == torch.autograd.DeviceType.CPU and r.key.startswith("cu")}
-    busy_ms = sum(device_us(r) for r in kernels) / 1e3 or None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        busy_ms = busy_s(load_chrome(path, 1, {}, "").device_ops) * 1e3 or None
     return {
         "window_ms": window_ms, "busy_ms": busy_ms,
         "idle": None if busy_ms is None else max(0.0, 1 - busy_ms / window_ms),

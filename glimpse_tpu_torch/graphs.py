@@ -25,6 +25,8 @@ from typing import Callable, Iterable
 
 import torch
 
+from . import profiling
+
 #: Per thread, per card: the side stream every program captures and replays
 #: on, and the first graph captured there, whose memory pool the later ones
 #: share (:func:`capture_context`).
@@ -65,6 +67,13 @@ class Graph:
     ``kernels.resample.systematic_resample``): each counts the launches made
     under capture in its ``captured``, and each replay adds them to its
     ``launches``. ``name`` says in an error what failed to capture.
+
+    While :func:`profiling.enabled`, the capture is the span
+    ``graph.capture`` (``name`` its program) and counts in
+    ``graph.captures``; :attr:`spans` holds the event pairs of the device
+    spans captured in ``body``, which each replay records again
+    (:func:`profiling.read_device_spans`), and :attr:`replays` counts the
+    replays.
     """
 
     def __init__(self, body: Callable, device, name: str, kernels: Iterable = (), generators: Iterable = ()) -> None:
@@ -73,9 +82,12 @@ class Graph:
         self.graph = torch.cuda.CUDAGraph()
         for generator in generators:
             self.graph.register_generator_state(generator)
+        self.replays = 0
         before = [kernel.captured for kernel in self.kernels]
         collecting = gc.isenabled()
-        with torch.cuda.device(self.device):
+        profiling.count("graph.captures")
+        with profiling.span("graph.capture", program=name), profiling.capturing() as self.spans, \
+                torch.cuda.device(self.device):
             context = capture_context()
             self.stream, self.pool = context[0], context[2]
             # No garbage collection while capturing: a cycle it freed could
@@ -123,6 +135,7 @@ class Graph:
             with torch.cuda.stream(self.stream):
                 self.graph.replay()
             current.wait_stream(self.stream)
+        self.replays += 1
         for kernel, n in zip(self.kernels, self.launches):
             kernel.launches += n
         return self.outputs

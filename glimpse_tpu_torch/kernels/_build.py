@@ -14,6 +14,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from .. import profiling
+
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "glimpse_tpu_torch"
 # --split-compile=0 optimizes the device code in parallel on every core: the
@@ -51,20 +53,26 @@ def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` unless its library exists, then load it.
 
     The compiler's output, with ``ptxas``'s register and shared-memory
-    report, is kept beside the library as ``.log``.
+    report, is kept beside the library as ``.log``. While
+    :func:`profiling.enabled`, a load counts in ``kernels.loads``, and a
+    build is the span ``kernels.build`` (``name`` its program) and counts
+    in ``kernels.builds``.
     """
     lib = library_path(name)
+    profiling.count("kernels.loads")
     if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {name}.cu ({proc.returncode}):\n{proc.stderr}"
-            )
-        os.replace(tmp, lib)
+        profiling.count("kernels.builds")
+        with profiling.span("kernels.build", program=name):
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {name}.cu ({proc.returncode}):\n{proc.stderr}"
+                )
+            os.replace(tmp, lib)
     return ctypes.CDLL(str(lib))
 
 

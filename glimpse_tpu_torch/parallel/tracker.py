@@ -35,6 +35,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from .. import profiling
 from ..track.batch import BatchState, BatchTracker
 from .mesh import Mesh, points_sharding
 
@@ -132,8 +133,10 @@ class MeshTracker(BatchTracker):
         return {k: torch.cat([o[k].to(self.device) for o in out], dim=0) for k in out[0]}
 
     def _collect(self, outs: list) -> dict:
-        per_part = [{k: torch.stack([step[p][k] for step in outs]) for k in outs[0][p]} for p in range(len(self.parts))]
-        return {k: torch.cat([o[k].to(self.device) for o in per_part], dim=1) for k in per_part[0]}
+        with profiling.span("entry.collect"):
+            per_part = [{k: torch.stack([step[p][k] for step in outs]) for k in outs[0][p]}
+                        for p in range(len(self.parts))]
+            return {k: torch.cat([o[k].to(self.device) for o in per_part], dim=1) for k in per_part[0]}
 
     def step(self, state: MeshState, images, dt, noise=None, camera_vectors=None, obs_mask=None,
              init_template_for=()) -> Tuple[MeshState, dict]:

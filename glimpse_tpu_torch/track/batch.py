@@ -44,7 +44,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import graphs
+from .. import graphs, profiling
 from ..kernels import highpass as highpass_kernel
 from ..kernels import resample as resample_kernel
 from ..kernels.highpass import highpass as routed_highpass
@@ -536,12 +536,14 @@ def _prepare_search_tiles(tiles, table, highpass_size):
     N, h, w = tiles.shape
     n = h * w
     K = table.shape[-1]
-    t = imageproc.normalize(tiles, dim=(-2, -1), eps=1e-12)
-    order = torch.sort(t.reshape(N, n), dim=-1, stable=True).indices
-    i0, w0, w1 = _quantile_taps(n, K, table.device, table.dtype)
-    matched_sorted = (table[:, i0].to(w0.dtype) * w0 + table[:, i0 + 1].to(w0.dtype) * w1).to(table.dtype)
-    matched = torch.empty_like(matched_sorted).scatter_(1, order, matched_sorted)
-    return routed_highpass(matched.reshape(N, h, w), highpass_size)
+    with profiling.span("ops.histogram_match", tiles.device):
+        t = imageproc.normalize(tiles, dim=(-2, -1), eps=1e-12)
+        order = torch.sort(t.reshape(N, n), dim=-1, stable=True).indices
+        i0, w0, w1 = _quantile_taps(n, K, table.device, table.dtype)
+        matched_sorted = (table[:, i0].to(w0.dtype) * w0 + table[:, i0 + 1].to(w0.dtype) * w1).to(table.dtype)
+        matched = torch.empty_like(matched_sorted).scatter_(1, order, matched_sorted)
+    with profiling.span("ops.highpass", tiles.device):
+        return routed_highpass(matched.reshape(N, h, w), highpass_size)
 
 
 def _prepare_template_tiles(tiles, highpass_size, n_quantiles: int):
@@ -565,27 +567,28 @@ def _project_and_extract(image, camera_vector, correction, particles, template_d
     and rows (N, P)). A particle behind the camera projects far outside
     (-1e6) before the box corners are clamped into the image.
     """
-    th, tw = cfg.template_size
-    sh, sw = cfg.search_size
-    H, W = image.shape
-    u, v = projection.project_planes(
-        camera_vector, particles[..., 0], particles[..., 1], particles[..., 2],
-        correction=correction,
-    )
-    u = torch.nan_to_num(u, nan=-1e6)
-    v = torch.nan_to_num(v, nan=-1e6)
-    u_mean = torch.sum(u * w_norm, dim=1)
-    v_mean = torch.sum(v * w_norm, dim=1)
-    # torch.round rounds half to even, as the reference's jnp.round.
-    corner_col = torch.round(u_mean - sw * 0.5).long().clamp(0, W - sw)
-    corner_row = torch.round(v_mean - sh * 0.5).long().clamp(0, H - sh)
-    search = _extract_tiles(image, torch.stack([corner_row, corner_col], dim=-1), (sh, sw))
-    # SSE surface origin in image coordinates (cell centers at +0.5).
-    sse_left = corner_col.to(cfg.dtype) + (tw * 0.5 - 0.5) + template_duv[:, 0]
-    sse_top = corner_row.to(cfg.dtype) + (th * 0.5 - 0.5) + template_duv[:, 1]
-    cols = u - sse_left[:, None] - 0.5
-    rows = v - sse_top[:, None] - 0.5
-    return search, cols, rows
+    with profiling.span("ops.project_extract", particles.device):
+        th, tw = cfg.template_size
+        sh, sw = cfg.search_size
+        H, W = image.shape
+        u, v = projection.project_planes(
+            camera_vector, particles[..., 0], particles[..., 1], particles[..., 2],
+            correction=correction,
+        )
+        u = torch.nan_to_num(u, nan=-1e6)
+        v = torch.nan_to_num(v, nan=-1e6)
+        u_mean = torch.sum(u * w_norm, dim=1)
+        v_mean = torch.sum(v * w_norm, dim=1)
+        # torch.round rounds half to even, as the reference's jnp.round.
+        corner_col = torch.round(u_mean - sw * 0.5).long().clamp(0, W - sw)
+        corner_row = torch.round(v_mean - sh * 0.5).long().clamp(0, H - sh)
+        search = _extract_tiles(image, torch.stack([corner_row, corner_col], dim=-1), (sh, sw))
+        # SSE surface origin in image coordinates (cell centers at +0.5).
+        sse_left = corner_col.to(cfg.dtype) + (tw * 0.5 - 0.5) + template_duv[:, 0]
+        sse_top = corner_row.to(cfg.dtype) + (th * 0.5 - 0.5) + template_duv[:, 1]
+        cols = u - sse_left[:, None] - 0.5
+        rows = v - sse_top[:, None] - 0.5
+        return search, cols, rows
 
 
 def _sample_sse_surface(sse, rows_c, cols_c, cfg: BatchConfig):
@@ -593,8 +596,17 @@ def _sample_sse_surface(sse, rows_c, cols_c, cfg: BatchConfig):
     B-spline read as ``cfg.sse_sample_mode`` says (order 3), or bilinear
     interpolation of the surface (order 1)."""
     if cfg.interpolation_order == 1:
-        return torch.vmap(sampling.bilinear_sample)(sse, rows_c, cols_c)
-    coeffs = sampling.bspline_prefilter_2d(sse)
+        with profiling.span("ops.spline_read", sse.device):
+            return torch.vmap(sampling.bilinear_sample)(sse, rows_c, cols_c)
+    with profiling.span("ops.prefilter", sse.device):
+        coeffs = sampling.bspline_prefilter_2d(sse)
+    with profiling.span("ops.spline_read", sse.device):
+        return _read_spline(coeffs, rows_c, cols_c, cfg)
+
+
+def _read_spline(coeffs, rows_c, cols_c, cfg: BatchConfig):
+    """The cubic B-spline of coefficients (B, oh, ow) at clamped indices
+    (B, P), read as ``cfg.sse_sample_mode`` says."""
     if cfg.sse_sample_mode == "einsum":
         return sampling.bspline_sample(coeffs, rows_c, cols_c)
     if cfg.sse_upsample > 1:
@@ -653,7 +665,8 @@ def observer_log_likelihoods_multi(images, camera_vectors, corrections, sigmas, 
     ]
     search, cols, rows = (torch.cat(parts, dim=0) for parts in zip(*fronts))
     search = _prepare_search_tiles(search, template_table.reshape(O * N, -1), cfg.highpass_size)
-    sse = ncc.sse_map_batched(search, templates.reshape(O * N, th, tw)) * (1.0 / (th * tw))
+    with profiling.span("ops.sse", particles.device):
+        sse = ncc.sse_map_batched(search, templates.reshape(O * N, th, tw)) * (1.0 / (th * tw))
     cols_c = torch.clamp(cols, 0.0, ow - 1.0)
     rows_c = torch.clamp(rows, 0.0, oh - 1.0)
     oob_d2 = (cols - cols_c) ** 2 + (rows - rows_c) ** 2
@@ -786,7 +799,9 @@ class StepProgram:
     Capture needs a step that reads nothing on the host: a step that does
     raises here with the reason, and nothing falls back to the eager loop.
     Each kernel wrapper counts the launches it captured; each replay adds
-    them to the kernels' ``launches``.
+    them to the kernels' ``launches``. A call is the span ``entry.replay``
+    and counts in ``entry.replays`` (:mod:`..profiling`; on the CPU the
+    call runs the step's body).
     """
 
     #: The kernel wrappers whose launches a replay adds to their counts.
@@ -827,7 +842,9 @@ class StepProgram:
         gives them): (new state, the step's outputs)."""
         if state.generator is not self.generator:
             raise ValueError("this step program was captured with another generator")
-        with torch.cuda.device(self.device) if self.graph is not None else contextlib.nullcontext():
+        profiling.count("entry.replays")
+        with profiling.span("entry.replay"), (
+                torch.cuda.device(self.device) if self.graph is not None else contextlib.nullcontext()):
             for name in STATE_FIELDS:
                 field, buffer = getattr(state, name), getattr(self.state, name)
                 if field is not buffer:
@@ -840,6 +857,19 @@ class StepProgram:
 
 
 # ---- The tracker ---- #
+
+
+def _entry_call(method):
+    """A tracking call (:meth:`BatchTracker.track`, ``track_stream``): the
+    span ``entry.call``, counted in ``entry.calls``."""
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        profiling.count("entry.calls")
+        with profiling.span("entry.call"):
+            return method(self, *args, **kwargs)
+
+    return call
 
 
 class BatchTracker:
@@ -947,36 +977,37 @@ class BatchTracker:
         here; the others start late, with zero templates, tables and
         offsets until ``step(init_template_for=...)`` makes theirs.
         """
-        cfg = self.config
-        th, tw = cfg.template_size
-        cams = self._cameras(camera_vectors)
-        if isinstance(images0, torch.Tensor):
-            images0 = images0.to(self.device, cfg.dtype)
-        present = (True,) * self.n_observers if obs_mask0 is None else _host_flags(obs_mask0)
-        particles = self.motion.initialize(generator, cfg.n_particles, noise=noise)
-        N = particles.shape[0]
-        xyz_mean = torch.mean(particles[..., 0:3], dim=1)
-        templates, tables, duvs = [], [], []
-        for o in range(self.n_observers):
-            if present[o]:
-                hp, table, duv = self._make_template(images0[o], cams[o], self.corrections[o], xyz_mean)
-            else:
-                hp = torch.zeros((N, th, tw), dtype=cfg.dtype, device=self.device)
-                table = torch.zeros((N, cfg.n_quantiles), dtype=cfg.dtype, device=self.device)
-                duv = torch.zeros((N, 2), dtype=cfg.dtype, device=self.device)
-            templates.append(hp)
-            tables.append(table)
-            duvs.append(duv)
-        return BatchState(
-            particles=particles.to(cfg.dtype),
-            weights=torch.ones((N, cfg.n_particles), dtype=cfg.dtype, device=self.device),
-            generator=generator,
-            templates=torch.stack(templates),
-            template_table=torch.stack(tables),
-            template_duv=torch.stack(duvs),
-            step=0,
-            valid=_particle_validity(particles, self.viewshed).to(cfg.dtype),
-        )
+        with profiling.span("entry.initialize"):
+            cfg = self.config
+            th, tw = cfg.template_size
+            cams = self._cameras(camera_vectors)
+            if isinstance(images0, torch.Tensor):
+                images0 = images0.to(self.device, cfg.dtype)
+            present = (True,) * self.n_observers if obs_mask0 is None else _host_flags(obs_mask0)
+            particles = self.motion.initialize(generator, cfg.n_particles, noise=noise)
+            N = particles.shape[0]
+            xyz_mean = torch.mean(particles[..., 0:3], dim=1)
+            templates, tables, duvs = [], [], []
+            for o in range(self.n_observers):
+                if present[o]:
+                    hp, table, duv = self._make_template(images0[o], cams[o], self.corrections[o], xyz_mean)
+                else:
+                    hp = torch.zeros((N, th, tw), dtype=cfg.dtype, device=self.device)
+                    table = torch.zeros((N, cfg.n_quantiles), dtype=cfg.dtype, device=self.device)
+                    duv = torch.zeros((N, 2), dtype=cfg.dtype, device=self.device)
+                templates.append(hp)
+                tables.append(table)
+                duvs.append(duv)
+            return BatchState(
+                particles=particles.to(cfg.dtype),
+                weights=torch.ones((N, cfg.n_particles), dtype=cfg.dtype, device=self.device),
+                generator=generator,
+                templates=torch.stack(templates),
+                template_table=torch.stack(tables),
+                template_duv=torch.stack(duvs),
+                step=0,
+                valid=_particle_validity(particles, self.viewshed).to(cfg.dtype),
+            )
 
     def step(self, state: BatchState, images, dt, noise=None, camera_vectors=None, obs_mask=None,
              init_template_for: Sequence[int] = ()) -> Tuple[BatchState, dict]:
@@ -1000,7 +1031,17 @@ class BatchTracker:
         injected draws stay float32. Returns (new state, {"mean", "sigma",
         "valid"} and, with ``return_covariances``, "covariance"), in the
         configuration's dtype.
+
+        The step is the span ``step``, and its stages the spans
+        ``step.evolve``, ``step.validity``, ``step.template``,
+        ``step.weights``, ``step.resample`` and the ops' (``ops.*``), each
+        timed on the card (:mod:`..profiling`).
         """
+        with profiling.span("step", self.device):
+            return self._step(state, images, dt, noise, camera_vectors, obs_mask, init_template_for)
+
+    def _step(self, state, images, dt, noise, camera_vectors, obs_mask, init_template_for):
+        """:meth:`step`'s work, inside its span."""
         cfg = self.config
         noise = noise or {}
         generator = state.generator
@@ -1011,56 +1052,61 @@ class BatchTracker:
             dt = dt.to(self.device, cfg.dtype)
         # The motion's parameters and draws are float32: cast back to the
         # state's dtype, as the reference does.
-        particles = self.motion.evolve(generator, state.particles, dt, noise=noise).to(cfg.dtype)
-        valid = state.valid * _particle_validity(particles, self.viewshed).to(cfg.dtype)
+        with profiling.span("step.evolve", self.device):
+            particles = self.motion.evolve(generator, state.particles, dt, noise=noise).to(cfg.dtype)
+        with profiling.span("step.validity", self.device):
+            valid = state.valid * _particle_validity(particles, self.viewshed).to(cfg.dtype)
         templates, template_table, template_duv = state.templates, state.template_table, state.template_duv
         if init_template_for:
-            w_norm = state.weights / torch.sum(state.weights, dim=-1, keepdim=True)
-            xyz_mean = torch.sum(particles[..., 0:3] * w_norm[..., None], dim=1)
-            templates, template_table, template_duv = (
-                x.clone() for x in (templates, template_table, template_duv)
-            )
-            for o in init_template_for:
-                templates[o], template_table[o], template_duv[o] = self._make_template(
-                    images[o], cams[o], self.corrections[o], xyz_mean
+            with profiling.span("step.template", self.device):
+                w_norm = state.weights / torch.sum(state.weights, dim=-1, keepdim=True)
+                xyz_mean = torch.sum(particles[..., 0:3] * w_norm[..., None], dim=1)
+                templates, template_table, template_duv = (
+                    x.clone() for x in (templates, template_table, template_duv)
                 )
+                for o in init_template_for:
+                    templates[o], template_table[o], template_duv[o] = self._make_template(
+                        images[o], cams[o], self.corrections[o], xyz_mean
+                    )
         if obs_mask is not None:
             obs_mask = _as_tensor(obs_mask, self.device, cfg.dtype)
         ll = self.motion.log_likelihoods(particles).to(cfg.dtype) + observer_log_likelihoods_multi(
             images, cams, self.corrections, self.sigmas, particles, templates, template_table,
             template_duv, state.weights, cfg, obs_mask=obs_mask,
         )
-        # A per-point shift keeps exp() in range whatever the absolute scale.
-        ll = ll - torch.min(ll, dim=-1, keepdim=True).values
-        # ll is float32 or wider (the spline read widens); the weights take
-        # the state's dtype. In float16 the 1e-30 floor underflows to 0, as
-        # the reference's does.
-        if cfg.resample_threshold is None:
-            weights = (torch.exp(-ll) + 1e-30).to(cfg.dtype)
-        else:
-            weights = state.weights * torch.exp(-ll).to(cfg.dtype) + 1e-30
-            weights = weights / torch.mean(weights, dim=-1, keepdim=True)
-        if obs_mask is not None and not self.motion.informative:
-            # No observer and no motion prior informed this step: carry the
-            # weights (a select, so the host does not wait for the mask).
-            weights = torch.where(torch.sum(obs_mask) > 0, weights, state.weights)
-        # Moments come from the fresh weights, before resampling.
-        mean, sigma = particle_moments(particles, weights)
-        outputs = {"mean": mean, "sigma": sigma, "valid": valid}
-        if cfg.return_covariances:
-            outputs["covariance"] = particle_covariances(particles, weights)
-        new_particles, new_weights = self._resample(generator, particles, weights, noise.get("resample_u"))
-        if cfg.resample_threshold is None:
-            # The resampled weights are the gathered likelihood weights:
-            # they center the next step's search boxes.
-            particles, weights = new_particles, new_weights
-        else:
-            # Only points whose effective sample size degraded take the
-            # resampled rows, with uniform weights.
-            ess = torch.sum(weights, dim=-1) ** 2 / torch.sum(weights * weights, dim=-1)
-            degraded = ess < cfg.resample_threshold * particles.shape[1]
-            particles = torch.where(degraded[:, None, None], new_particles, particles)
-            weights = torch.where(degraded[:, None], torch.ones_like(weights), weights)
+        with profiling.span("step.weights", self.device):
+            # A per-point shift keeps exp() in range whatever the absolute scale.
+            ll = ll - torch.min(ll, dim=-1, keepdim=True).values
+            # ll is float32 or wider (the spline read widens); the weights take
+            # the state's dtype. In float16 the 1e-30 floor underflows to 0, as
+            # the reference's does.
+            if cfg.resample_threshold is None:
+                weights = (torch.exp(-ll) + 1e-30).to(cfg.dtype)
+            else:
+                weights = state.weights * torch.exp(-ll).to(cfg.dtype) + 1e-30
+                weights = weights / torch.mean(weights, dim=-1, keepdim=True)
+            if obs_mask is not None and not self.motion.informative:
+                # No observer and no motion prior informed this step: carry the
+                # weights (a select, so the host does not wait for the mask).
+                weights = torch.where(torch.sum(obs_mask) > 0, weights, state.weights)
+            # Moments come from the fresh weights, before resampling.
+            mean, sigma = particle_moments(particles, weights)
+            outputs = {"mean": mean, "sigma": sigma, "valid": valid}
+            if cfg.return_covariances:
+                outputs["covariance"] = particle_covariances(particles, weights)
+        with profiling.span("step.resample", self.device):
+            new_particles, new_weights = self._resample(generator, particles, weights, noise.get("resample_u"))
+            if cfg.resample_threshold is None:
+                # The resampled weights are the gathered likelihood weights:
+                # they center the next step's search boxes.
+                particles, weights = new_particles, new_weights
+            else:
+                # Only points whose effective sample size degraded take the
+                # resampled rows, with uniform weights.
+                ess = torch.sum(weights, dim=-1) ** 2 / torch.sum(weights * weights, dim=-1)
+                degraded = ess < cfg.resample_threshold * particles.shape[1]
+                particles = torch.where(degraded[:, None, None], new_particles, particles)
+                weights = torch.where(degraded[:, None], torch.ones_like(weights), weights)
         new_state = dataclasses.replace(
             state, particles=particles, weights=weights, templates=templates,
             template_table=template_table, template_duv=template_duv, step=state.step + 1, valid=valid,
@@ -1121,7 +1167,7 @@ class BatchTracker:
         the reference runs it between scan segments.
         """
         if kwargs.get("init_template_for"):
-            return self.step(state, images, dt, **kwargs)
+            return self._eager_step(state, images, dt, **kwargs)
         inputs = _step_inputs(self.config, images, dt, kwargs.get("noise") or {}, kwargs.get("camera_vectors"),
                               kwargs.get("obs_mask"))
         key = (
@@ -1130,18 +1176,33 @@ class BatchTracker:
         )
         if key not in self._programs:
             self._programs[key] = None
-            return self.step(state, images, dt, **kwargs)
+            return self._eager_step(state, images, dt, **kwargs)
         if self._programs[key] is None:
             self._programs[key] = StepProgram(self, state, inputs)
         return self._programs[key](state, inputs)
+
+    def _eager_step(self, state, images, dt, **kwargs):
+        """:meth:`step` run eagerly by :meth:`_advance`: the span
+        ``entry.eager_step``, counted in ``entry.eager_steps``."""
+        profiling.count("entry.eager_steps")
+        with profiling.span("entry.eager_step"):
+            return self.step(state, images, dt, **kwargs)
 
     def _release(self) -> None:
         """Drop the step programs at the end of a :meth:`track` or
         :meth:`track_stream` call: a new call comes with its own generator,
         and so with programs of its own. The state the call returned keeps
         the programs' buffers as its tensors; their graphs' memory goes back
-        to the thread's capture pool (:func:`graphs.capture_context`)."""
-        self._programs = {}
+        to the thread's capture pool (:func:`graphs.capture_context`).
+        While :func:`profiling.enabled`, each graph's device spans go to
+        the registry first, as one sample of its last replay, without
+        waiting for the card."""
+        with profiling.span("entry.release"):
+            if profiling.enabled():
+                profiling.read_device_spans(
+                    (p.graph for p in self._programs.values() if p is not None and p.graph is not None), wait=False
+                )
+            self._programs = {}
 
     def _join(self, out) -> dict:
         """One step's outputs from :meth:`_advance` as a dict on ``device``."""
@@ -1149,7 +1210,8 @@ class BatchTracker:
 
     def _collect(self, outs: list) -> dict:
         """Steps' outputs from :meth:`_advance`, stacked on a leading time axis."""
-        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        with profiling.span("entry.collect"):
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     def _empty_outputs(self, n_points: int) -> dict:
         """Outputs with a leading time axis of 0."""
@@ -1158,6 +1220,7 @@ class BatchTracker:
             shapes["covariance"] = (0, n_points, 6, 6)
         return {k: torch.zeros(s, dtype=self.config.dtype, device=self.device) for k, s in shapes.items()}
 
+    @_entry_call
     def track(self, generator: torch.Generator, images, dts, noise=None, obs_masks=None,
               obs_mask0=None) -> Tuple[BatchState, dict]:
         """Track through a sequence held in device memory.
@@ -1215,11 +1278,15 @@ class BatchTracker:
         rounded on the host."""
         dtype = self.config.dtype
         host_type = np.float64 if dtype == torch.float64 else np.float32
-        host = torch.from_numpy(np.stack([np.asarray(f, dtype=host_type) for f in frames]))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True).to(dtype)
+        with profiling.span("feeder.upload"):
+            host = torch.from_numpy(np.stack([np.asarray(f, dtype=host_type) for f in frames]))
+            profiling.count("feeder.uploads")
+            profiling.count("feeder.bytes", host.nbytes)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            return host.to(self.device, non_blocking=True).to(dtype)
 
+    @_entry_call
     def track_stream(self, generator: torch.Generator, first_frame, frame_iter, dts,
                      camera_vectors_seq=None, obs_masks=None, obs_mask0=None,
                      chunk: int = 1) -> Tuple[BatchState, list]:

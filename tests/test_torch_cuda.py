@@ -733,6 +733,48 @@ def test_graphed_run_equals_the_step_loop_on_card(cuda, monkeypatch, entry, name
     assert torch.isfinite(out["mean"]).all() and (out["valid"] == 1).all()
 
 
+#: The spans a replayed step times on the card, by event nodes of its graph.
+REPLAYED_SPANS = ("step", "step.evolve", "step.validity", "step.weights", "step.resample", "ops.project_extract",
+                  "ops.histogram_match", "ops.highpass", "ops.sse", "ops.prefilter", "ops.spline_read")
+
+
+@pytest.mark.cuda
+def test_span_events_leave_replays_bit_equal_and_time_each_span_on_card(cuda) -> None:
+    """``track`` with the program's spans recording (event-record nodes
+    captured in the step's graph) against the same run without: bit-equal
+    outputs and state; each span of the replayed step has one sample of
+    positive device time, and its stages together take no longer than the
+    step; the late observer's template step, eager only, has eager time."""
+    from glimpse_tpu_torch import profiling
+    from glimpse_tpu_torch.track import batch
+
+    tracker, frames, masks, mask0, _ = _graph_scene(cuda)
+    T = len(frames)
+    runs = {}
+    for on in (False, True):
+        profiling.reset()
+        with profiling.tracing(on):
+            state, out = tracker.track(torch.Generator(device=cuda).manual_seed(9), frames, np.ones(T - 1),
+                                       obs_masks=masks, obs_mask0=mask0)
+        runs[on] = (state, out, profiling.report())
+    profiling.reset()
+    for k in runs[False][1]:
+        assert torch.equal(runs[True][1][k], runs[False][1][k]), k
+    for field in batch.STATE_FIELDS:
+        assert torch.equal(getattr(runs[True][0], field), getattr(runs[False][0], field)), field
+    assert runs[False][2]["spans"] == {}
+    spans, counters = runs[True][2]["spans"], runs[True][2]["counters"]
+    for name in REPLAYED_SPANS:
+        assert spans[name]["replay_samples"] == 1 and spans[name]["replay_device_s"] > 0, name
+        assert spans[name]["eager_device_s"] > 0, name
+    assert spans["step.template"]["replay_samples"] == 0 and spans["step.template"]["eager_device_s"] > 0
+    stages = sum(spans[name]["replay_device_s"] for name in REPLAYED_SPANS[1:])
+    assert stages <= spans["step"]["replay_device_s"]
+    assert spans["graph.capture"]["programs"] == ["the tracking step"] and spans["graph.capture"]["parent"] == "entry.call"
+    assert counters["graph.captures"] == 1 and counters["entry.calls"] == 1
+    assert counters["entry.eager_steps"] == 2 and counters["entry.replays"] == T - 3
+
+
 @pytest.mark.cuda
 def test_graphed_outputs_survive_later_replays_on_card(cuda, monkeypatch) -> None:
     """Each output ``track`` stacks is a copy out of the graph's pool: the
