@@ -32,7 +32,7 @@ each:
    them);
 5. the tracker at ``bench.py``'s size (1,024 points x 1,024 particles x 50
    steps, 512x512 frames): a warm-up pass, then the best of two timed
-   passes, in each of which both kernels must launch; the means must be
+   passes, in each of which the three kernels must launch; the means must be
    finite and the recovered velocity right;
 6. the tracker at the north-star width, 10,240 points x 2,048 particles,
    for 10 steps (best of two passes after a warm-up);
@@ -148,7 +148,7 @@ each:
     tracking its ``local_points_slice`` from the same injected draws; the
     means stitched by ``parallel.gather_points`` held to the one-process
     run as phase 7 holds a free run, the ``all_reduce``'d sum equal on
-    every rank, both kernels launched in every process; aggregate
+    every rank, the three kernels launched in every process; aggregate
     point-steps/s (points x steps over the slowest rank's seconds) and each
     rank's peak memory;
 22. phase 6's tracker in ``sse_sample_mode`` ``'nearest'`` and
@@ -184,7 +184,7 @@ each:
     generator seed: with the cameras ``ObserverCameras.set_cameras`` gave
     phase 18's images as a (1,000, 1, 20) ``camera_vectors_seq``, with none
     (the nominal camera) and with the true cameras. Each final mean finite,
-    both kernels launched in the stabilized run, its RMSE against the truth
+    the three kernels launched in the stabilized run, its RMSE against the truth
     below the unstabilized one; the three RMSEs (beside the JAX package's
     22.78 on its own run), point-steps/s and peak memory of the stabilized
     run, each run's launches;
@@ -217,10 +217,10 @@ each:
     (every step through ``step``), graphed, graphed, eager in one process:
     point-steps/s, ms a step and peak memory of each run, every step's means
     and the final particles and weights bit-equal across the four runs
-    (eager against eager first: the path is deterministic), both kernels'
+    (eager against eager first: the path is deterministic), each kernel's
     launches equal; then one eager and one replayed step under the
     profiler: idle share, host ``cudaLaunchKernel`` and ``cudaGraphLaunch``
-    calls a step, and both kernels' names among the replay's kernels.
+    calls a step, and the three kernels' names among the replay's kernels.
 
 28. calibration and stabilization programs against eager: each runs eager,
     graphed, graphed, eager in one process: (a) phase 18's ``ObserverCameras``
@@ -236,6 +236,13 @@ each:
     of 16 of phase 24's decoded frames (phase 18's mask), one matching batch
     of 32 pairs of their 2,048-slot stacks and one refinement chunk of 8
     pairs x 3,072 matches: ms eager and graphed, bit-equal.
+29. the spline read kernel (``kernels/spline.py``) against its plain
+    version at the benchmark cells' shapes, (20,480, 17, 17) and (1,024, 27,
+    27) x 2,048 particles, in the four dtypes at the tracker's coordinates
+    (float32, float64 for float64): bit-equal with NaN where the plain
+    version has it (edges, NaN and +-inf coefficients and coordinates), then
+    both timed beside the byte bound by ``kernels/bench_spline.measure``
+    (:func:`spline_phase`).
 
 Every phase that runs ``track`` or ``track_stream`` runs it graphed; every
 phase that detects, matches, refines, fits an ``ObserverCameras`` or takes
@@ -367,6 +374,111 @@ def highpass_mismatch(got, want) -> float:
 
     same = (got == want) | (torch.isnan(got) & torch.isnan(want))
     return float(torch.where(same, 0.0, (got - want).abs().nan_to_num(float("inf"))).max())
+
+
+def kernel_wrappers() -> dict:
+    """The port's kernel wrappers by name, the order of the ``kernels``
+    JSON line; each counts its launches in ``launches``."""
+    from glimpse_tpu_torch.kernels import highpass, resample, spline
+
+    return {"median_highpass": highpass.median_highpass, "systematic_resample": resample.systematic_resample,
+            "bspline_sample": spline.bspline_sample}
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0, before a path's own run."""
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launches since :func:`reset_launches`."""
+    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+
+
+def spline_case(shape, dtype, coord_dtype, device, seed: int = 0, specials: bool = True):
+    """Coefficients (B, h, w) of ``dtype`` and rows and cols (B, P) of
+    ``coord_dtype`` on ``device``, for the spline read. Coordinates are
+    uniform over [0, n - 1], where the tracker clamps them; the first 18 of
+    each surface's rows and cols sit at 0 and n - 1, one step of the type
+    inside each, at 1 and one step below, at n - 2 and one step above, half a
+    cell and three cells outside, at NaN and +-inf, and on a whole cell and
+    half a cell inside (cols in the reverse order, so that rows and cols pair
+    differently). With ``specials``, NaN at a corner of surface 0, +inf on an
+    edge of surface 1, -inf inside surface 2 and +-inf in 0.1 % of the other
+    cells."""
+    import torch
+
+    B, h, w, p = shape
+    rng = np.random.default_rng(seed)
+    coeffs = rng.normal(size=(B, h, w)) * 10.0
+    if specials:
+        for b, (r, c), value in zip(range(B), [(0, 0), (0, w // 2), (h // 2, w // 2)], [np.nan, np.inf, -np.inf]):
+            coeffs[b, r, c] = value
+        flip = rng.random(coeffs.shape) < 0.001
+        flip[:3] = False
+        coeffs[flip] = np.where(rng.random(int(flip.sum())) < 0.5, np.inf, -np.inf)
+
+    def coords(n):
+        x = torch.from_numpy(rng.uniform(0.0, n - 1.0, size=(B, p))).to(coord_dtype)
+
+        def at(v):
+            return torch.tensor(v, dtype=coord_dtype)
+
+        def step(v, toward):
+            return torch.nextafter(at(v), at(toward))
+
+        edges = torch.stack([
+            at(0.0), at(n - 1.0), step(0.0, 1.0), step(n - 1.0, 0.0), at(1.0), step(1.0, 0.0),
+            at(max(n - 2.0, 0.0)), step(max(n - 2.0, 0.0), n), at(-0.5), at(n - 0.5), at(-3.0), at(n + 2.0),
+            at(float("nan")), at(float("inf")), at(float("-inf")), at(float(n // 2)), at(n // 2 + 0.5), at(0.25),
+        ])
+        k = min(p, len(edges))
+        x[:, :k] = edges[:k]
+        return x
+
+    rows, cols = coords(h), coords(w)
+    cols[:, :min(p, 18)] = cols[:, :min(p, 18)].flip(1)
+    return torch.from_numpy(coeffs).to(dtype).to(device), rows.to(device), cols.to(device)
+
+
+def spline_phase(cuda) -> Tuple[str, list]:
+    """Phase 29: the spline read kernel against its plain version on the
+    card at ``bench_spline.SHAPES`` in each of ``bench_spline.DTYPES`` at the
+    tracker's coordinates, on :func:`spline_case` (edges, NaN and +-inf),
+    with rtol = atol = 0 and NaN where the plain version has NaN; then each
+    timed beside its byte bound by ``bench_spline.measure``. Returns (the
+    line, the timing records, the north star's float32 first)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels import bench_spline
+    from glimpse_tpu_torch.kernels.spline import bspline_sample, bspline_sample_plain
+
+    held, records = [], []
+    for shape in bench_spline.SHAPES:
+        for dtype in bench_spline.DTYPES:
+            label = f"{'x'.join(map(str, shape))} {str(dtype).removeprefix('torch.')}"
+            coeffs, rows, cols = spline_case(shape, dtype, bench_spline.coord_dtype(dtype), cuda,
+                                             seed=shape[0] + shape[1])
+            before = bspline_sample.launches
+            got = bspline_sample(coeffs, rows, cols)
+            want = bspline_sample_plain(coeffs, rows, cols)
+            if bspline_sample.launches != before + 1 or got.dtype != want.dtype:
+                raise AssertionError(f"spline read {label}: {bspline_sample.launches - before} launches,"
+                                     f" {got.dtype} against {want.dtype}")
+            torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True,
+                                       msg=lambda m: f"spline read {label}: {m}")
+            if not torch.isnan(want).any():
+                raise AssertionError(f"spline read {label}: no NaN to hold")
+            held.append(f"{label} ({int(torch.isnan(want).sum())} NaN)")
+            del coeffs, rows, cols, got, want
+            records.append(bench_spline.measure(shape, dtype))
+    return (
+        "phase 29 spline read bit-equal to its plain version, rtol=atol=0 with equal NaN: " + ", ".join(held)
+        + "; timed: " + "; ".join(
+            f"{'x'.join(map(str, r['shape']))} {r['dtype']} {r['route']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f},"
+            f" {100 * r['bound_share']:.1f} %; plain {r['plain_ms']:.3f} ms)" for r in records)
+    ), records
 
 
 # Tiles that one block's shared memory cannot hold in float32, which the
@@ -1238,12 +1350,10 @@ def lockstep_from_shared_state(card, cpu, images, noise, n_steps: int, valid_log
 
 def objects_to_tracks(cuda, card: str, n14: int = 10240, p14: int = 2048, t14: int = 10):
     """Phase 14 at ``n14`` points x ``p14`` particles x ``t14`` frames;
-    raises on a failed check and returns (the line to print, both kernels'
+    raises on a failed check and returns (the line to print, each kernel's
     launches on this path, the scene, the points)."""
     import torch
 
-    from glimpse_tpu_torch.kernels.highpass import median_highpass
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
     from glimpse_tpu_torch.track import Tracks, feeder
     from glimpse_tpu_torch.track import batch as batch_module
 
@@ -1268,8 +1378,7 @@ def objects_to_tracks(cuda, card: str, n14: int = 10240, p14: int = 2048, t14: i
 
     stream14(images14, 0)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    median_highpass.launches = 0
-    systematic_resample.launches = 0
+    reset_launches()
     runs14, seconds14, velocities14 = [], {}, {}
     for label, images, times in (("forward", images14, datetimes14), ("backward", images14[::-1], datetimes14[::-1])):
         out14, seconds14[label] = stream14(images, 11)
@@ -1284,9 +1393,11 @@ def objects_to_tracks(cuda, card: str, n14: int = 10240, p14: int = 2048, t14: i
         if np.abs(velocities14[label] - OBLIQUE_VELOCITY).max() > 0.3:
             raise AssertionError(f"{label} median velocity {velocities14[label]} is not within 0.3 of {OBLIQUE_VELOCITY}")
         runs14.append(tracks)
-    launches14 = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
-    # Per run: the templates once and the search tiles every step; one resample a step.
-    if launches14["median_highpass"] != 2 * t14 or launches14["systematic_resample"] != 2 * (t14 - 1):
+    launches14 = launch_counts()
+    # Per run: the templates once and the search tiles every step; one
+    # resample and one spline read a step.
+    if launches14 != {"median_highpass": 2 * t14, "systematic_resample": 2 * (t14 - 1),
+                      "bspline_sample": 2 * (t14 - 1)}:
         raise AssertionError(f"the kernels did not carry the object path: launches {launches14}")
     peak14 = torch.cuda.max_memory_allocated()
     fused = Tracks.from_multiple(runs14, ignore_nan=True)
@@ -1326,14 +1437,12 @@ def occluding_viewshed(devices, card: str, n26: int = 10240, p26: int = 2048, t2
     cells is kept and their median velocity is within 0.3 of the truth, each
     lost point's means and sigmas are NaN from its failing step on (finite
     before) with ``Tracks.errors`` set, the kernels launched once a step plus
-    the templates (high-pass) and once a step (resample), and, for up to
+    the templates (high-pass) and once a step (resample, spline read), and, for up to
     ``n_check`` of the lost points, the card follows the CPU at every step
     from the CPU's state within 1e-3 with equal validity flags and loses at
-    least one of them. Returns (the line to print, both kernels' launches)."""
+    least one of them. Returns (the line to print, each kernel's launches)."""
     import torch
 
-    from glimpse_tpu_torch.kernels.highpass import median_highpass
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
     from glimpse_tpu_torch.track import batch as batch_module
     from glimpse_tpu_torch.track import feeder
 
@@ -1342,8 +1451,7 @@ def occluding_viewshed(devices, card: str, n26: int = 10240, p26: int = 2048, t2
     points, paths, labels = occlusion_points(scene, n26, t26, RIDGE)
     tracker = oblique_tracker(scene, points, p26, cuda)
     images = scene["observer"].images
-    median_highpass.launches = 0
-    systematic_resample.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
     _, outputs = feeder.stream_track(tracker, torch.Generator(device=cuda).manual_seed(26), [images],
@@ -1351,8 +1459,8 @@ def occluding_viewshed(devices, card: str, n26: int = 10240, p26: int = 2048, t2
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     peak = torch.cuda.max_memory_allocated()
-    launches = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
-    if launches != {"median_highpass": t26, "systematic_resample": t26 - 1}:
+    launches = launch_counts()
+    if launches != {"median_highpass": t26, "systematic_resample": t26 - 1, "bspline_sample": t26 - 1}:
         raise AssertionError(f"phase 26: the kernels did not carry the run: launches {launches}")
     out = stacked(outputs)
     valid = out["valid"].cpu().numpy() > 0  # (t26 - 1, n26): step t at row t - 1
@@ -1718,7 +1826,7 @@ def wide_cloud_run(scene, points_xy, noise, devices, n_particles: int, n_points:
 
 def host_tracker_phase(scene, points_xy, devices, card: str, n16: int = 64, p16: int = 2048, t16: int = 10):
     """Phase 16; ``devices`` maps "card" and "cpu" to their devices. Raises
-    on a failed check and returns (the line to print, both kernels' launches
+    on a failed check and returns (the line to print, each kernel's launches
     on this path, the high-pass tile shapes the host tracker produced, (f)'s
     largest tile's record)."""
     import copy
@@ -1726,7 +1834,6 @@ def host_tracker_phase(scene, points_xy, devices, card: str, n16: int = 64, p16:
     import torch
 
     from glimpse_tpu_torch.kernels import highpass as highpass_kernel
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
     from glimpse_tpu_torch.track import batch as batch_module
     from glimpse_tpu_torch.track import feeder
 
@@ -1750,8 +1857,7 @@ def host_tracker_phase(scene, points_xy, devices, card: str, n16: int = 64, p16:
     shapes = {}  # the (h, w) of every tile the host tracker high-passes on the card
 
     # (a), (b): the host tracker through Tracker.track, on the card and on the CPU.
-    for name in ("median_highpass", "systematic_resample"):
-        (median_highpass if name == "median_highpass" else systematic_resample).launches = 0
+    reset_launches()
     runs, seconds = {}, {}
     for kind, device in devices.items():
         tracker, motions = host_tracker_objects(scene, points16, p16, noise, device, shapes if kind == "card" else None)
@@ -1790,15 +1896,13 @@ def host_tracker_phase(scene, points_xy, devices, card: str, n16: int = 64, p16:
     on_card = torch.from_numpy(frames).to(cuda)
     batch.track(torch.Generator(device=cuda).manual_seed(0), on_card, dts, noise=noise)  # warm-up
     torch.cuda.synchronize()
-    before = (median_highpass.launches, systematic_resample.launches)
+    before = launch_counts()
     start = time.perf_counter()
     _, out = batch.track(torch.Generator(device=cuda).manual_seed(0), on_card, dts, noise=noise)
     torch.cuda.synchronize()
     seconds["batched"] = time.perf_counter() - start
-    launches16 = {
-        "median_highpass": host_launches + median_highpass.launches - before[0],
-        "systematic_resample": systematic_resample.launches - before[1],
-    }
+    launches16 = {name: count - before[name] for name, count in launch_counts().items()}
+    launches16["median_highpass"] += host_launches
     batched = batch_module.to_tracks(datetimes, scene["day"], out)
     if any(e is not None for e in batched.errors):
         raise AssertionError("the batched tracker of phase 16 lost a point")
@@ -2142,16 +2246,12 @@ def fitted_vectors(images, base, phase: str) -> np.ndarray:
 def streamed_run(tracker, first, frames, n_steps: int, truth_xy, phase: str, **stream) -> dict:
     """One ``track_stream`` of ``frames`` (an iterable of the frames at steps
     1..n_steps - 1) from generator seed 0, timed on the host clock to the
-    card's end, both kernels' launches counted from 0. Raises unless it ran
+    card's end, each kernel's launches counted from 0. Raises unless it ran
     n_steps - 1 steps to finite final means; returns the final RMSE against
     ``truth_xy``, the seconds, the peak memory and the launches."""
     import torch
 
-    from glimpse_tpu_torch.kernels.highpass import median_highpass
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
-
-    median_highpass.launches = 0
-    systematic_resample.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
     _, outputs = tracker.track_stream(torch.Generator(device=tracker.device).manual_seed(0), first, frames,
@@ -2165,7 +2265,7 @@ def streamed_run(tracker, first, frames, n_steps: int, truth_xy, phase: str, **s
     return {
         "rmse": float(np.sqrt(np.mean(np.sum((final[:, 0:2] - truth_xy) ** 2, axis=-1)))), "seconds": seconds,
         "peak": torch.cuda.max_memory_allocated(),
-        "launches": {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches},
+        "launches": launch_counts(),
     }
 
 
@@ -2188,7 +2288,7 @@ def stabilize_then_track(joined, frames, cuda, n_points: int = 10240, n_particle
     the same generator seed: with the fitted cameras (read from the
     ``Image`` objects' cameras into a (T, 1, 20) ``camera_vectors_seq``), with
     none (the nominal camera: the reference's unstabilized run) and with the
-    true cameras. Raises unless every final mean is finite, both kernels
+    true cameras. Raises unless every final mean is finite, the three kernels
     launched in the stabilized run and its RMSE is below the unstabilized
     one; returns (the line's part, the stabilized run's launches)."""
     n_frames = len(frames)
@@ -2299,8 +2399,10 @@ def two_observers(cuda, workdir: str, n_steps: int = 1000, n_points: int = 10240
     stabilized = runs["stabilized"]
     # Each observer's templates once, then one launch a step on the 2 x
     # 10,240 stacked search tiles (both observers are scored every step and
-    # the log likelihood masked); one resample a step.
-    expected = {"median_highpass": 2 + (n_steps - 1), "systematic_resample": n_steps - 1}
+    # the log likelihood masked); one resample and one spline read of the
+    # stacked surfaces a step.
+    expected = {"median_highpass": 2 + (n_steps - 1), "systematic_resample": n_steps - 1,
+                "bspline_sample": n_steps - 1}
     if stabilized["launches"] != expected:
         raise AssertionError(f"phase 25: the kernels did not carry the stabilized run: {stabilized['launches']},"
                              f" expected {expected}")
@@ -2417,8 +2519,6 @@ def mesh_phase(camera, frames, points_xy, cuda, trace_dir: str, n_slices: int = 
     import torch
 
     from glimpse_tpu_torch import parallel, profiling
-    from glimpse_tpu_torch.kernels.highpass import median_highpass
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
 
     n = len(points_xy)
     noise = injected_draws(n, n_particles, n_steps, cuda, seed=20)
@@ -2438,12 +2538,13 @@ def mesh_phase(camera, frames, points_xy, cuda, trace_dir: str, n_slices: int = 
 
     for tracker in trackers.values():
         run(tracker)  # warm-up
-    median_highpass.launches = 0
-    systematic_resample.launches = 0
+    reset_launches()
     out_mesh, seconds_mesh = run(trackers["mesh"])
-    launches = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
-    # One template high-pass a slice, then each step one high-pass and one resample a slice.
-    if launches != {"median_highpass": n_slices * (n_steps + 1), "systematic_resample": n_slices * n_steps}:
+    launches = launch_counts()
+    # One template high-pass a slice, then each step one high-pass, one
+    # resample and one spline read a slice.
+    if launches != {"median_highpass": n_slices * (n_steps + 1), "systematic_resample": n_slices * n_steps,
+                    "bspline_sample": n_slices * n_steps}:
         raise AssertionError(f"the mesh run launched {launches}, not {n_slices} of each kernel a step")
     out_none, seconds_none = run(trackers["none"])
     diffs = {k: float((out_mesh[k] - out_none[k]).abs().max()) for k in out_none}
@@ -2555,8 +2656,6 @@ def process_worker(spec: dict) -> None:
 
     sys.path.insert(0, REPO)
     from glimpse_tpu_torch import parallel
-    from glimpse_tpu_torch.kernels.highpass import median_highpass
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
 
     cuda = torch.device(spec["device"])
     if cuda.index is not None:
@@ -2583,10 +2682,9 @@ def process_worker(spec: dict) -> None:
 
         run()
         torch.cuda.reset_peak_memory_stats(cuda)
-        median_highpass.launches = 0
-        systematic_resample.launches = 0
+        reset_launches()
         out, first = run()
-        launches = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
+        launches = launch_counts()
         out, second = run()
         peak = torch.cuda.max_memory_allocated(cuda)
         means = parallel.gather_points(out["mean"], n, axis=1)
@@ -2640,8 +2738,8 @@ def process_phase(cuda, outdir: str, worlds=(1, 2, 4), widths=tuple(PROCESS_WIDT
     """Phase 21: ``worlds`` processes on the one card, each tracking its
     slice of each width (:func:`process_worker`); the stitched means of
     every world held to the one-process run's as phase 7 holds a free run,
-    the collective's sum equal on every rank, both kernels launched in every
-    process. Returns (the line, each kernel's launches summed over the
+    the collective's sum equal on every rank, the three kernels launched in
+    every process. Returns (the line, each kernel's launches summed over the
     processes of the largest world's first timed pass of the first width)."""
     import torch
 
@@ -2659,7 +2757,8 @@ def process_phase(cuda, outdir: str, worlds=(1, 2, 4), widths=tuple(PROCESS_WIDT
             if any(total != totals[0] for total in totals):
                 raise AssertionError(f"phase 21 {world} processes, {width}: the all_reduce differs by rank: {totals}")
             for rank, r in enumerate(ranks):
-                if r[width]["launches"]["median_highpass"] < t + 1 or r[width]["launches"]["systematic_resample"] != t:
+                counted = r[width]["launches"]
+                if counted["median_highpass"] < t + 1 or counted["systematic_resample"] != t or counted["bspline_sample"] != t:
                     raise AssertionError(f"phase 21 process {rank} of {world}, {width}: launches {r[width]['launches']}")
             means = np.load(os.path.join(outdir, f"{width.replace(' ', '')}_{world}.npy"))
             if means.shape != (t, n, 6) or not np.isfinite(means).all():
@@ -2670,17 +2769,18 @@ def process_phase(cuda, outdir: str, worlds=(1, 2, 4), widths=tuple(PROCESS_WIDT
             # Each pass starts at a barrier: the slowest rank's seconds are the pass's.
             seconds = min(max(r[width]["seconds"][i] for r in ranks) for i in range(2))
             peaks = "/".join(f"{r[width]['peak'] / 2**30:.2f}" for r in ranks)
-            counts = "/".join("{median_highpass}+{systematic_resample}".format(**r[width]["launches"]) for r in ranks)
+            counts = "/".join("{median_highpass}+{systematic_resample}+{bspline_sample}".format(**r[width]["launches"])
+                              for r in ranks)
             parts.append(
                 f"{world} process{'es' if world > 1 else ''} at {width}'s {n}x{p}x{t}:"
                 f" {n * t / seconds:.1f} point-steps/s ({seconds:.3f} s, the slowest rank of the better pass),"
-                f" peak {peaks} GiB a rank, launches (high-pass+resample) a rank {counts},"
+                f" peak {peaks} GiB a rank, launches (high-pass+resample+spline) a rank {counts},"
                 f" against 1 process step 1 {bounds[0]:.3g}, median point {bounds[1]:.3g}, worst point {bounds[2]:.3g},"
                 f" {parting} points apart by over 1e-3"
             )
         parts[-len(widths)] += f" [{wall:.1f} s with the processes' start]"
     largest = found[max(worlds)]
-    launches = {k: sum(r[widths[0]]["launches"][k] for r in largest) for k in ("median_highpass", "systematic_resample")}
+    launches = {k: sum(r[widths[0]]["launches"][k] for r in largest) for k in kernel_wrappers()}
     return "; ".join(parts) + "; the all_reduce'd sum equal on every rank", launches
 
 
@@ -2694,16 +2794,13 @@ def sse_modes_phase(camera, frames, points_xy, cuda, noise, devices, n_particles
     (the line, each kernel's launches in the timed passes of every mode)."""
     import torch
 
-    from glimpse_tpu_torch.kernels.highpass import median_highpass
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
-
     modes = {"einsum": {}, "nearest": {"sse_sample_mode": "nearest", "sse_upsample": 8},
              "bilinear": {"sse_sample_mode": "bilinear", "sse_upsample": 8}}
     n = len(points_xy)
     images = frames[: n_steps + 1, None]
     dts = torch.ones(n_steps, device=cuda)
     means, parts = {}, []
-    launches = {"median_highpass": 0, "systematic_resample": 0}
+    launches = dict.fromkeys(kernel_wrappers(), 0)
     for mode, settings in modes.items():
         tracker = make_tracker(camera, points_xy, n_particles, cuda, **settings)
 
@@ -2715,11 +2812,10 @@ def sse_modes_phase(camera, frames, points_xy, cuda, noise, devices, n_particles
 
         run()
         torch.cuda.reset_peak_memory_stats()
-        median_highpass.launches = 0
-        systematic_resample.launches = 0
+        reset_launches()
         timed = [run() for _ in range(2)]
-        launches["median_highpass"] += median_highpass.launches
-        launches["systematic_resample"] += systematic_resample.launches
+        for name, count in launch_counts().items():
+            launches[name] += count
         peak = torch.cuda.max_memory_allocated()
         means[mode] = timed[-1][0]["mean"].cpu().numpy()
         if not np.isfinite(means[mode]).all():
@@ -2889,8 +2985,6 @@ def precision_trackers(camera, frames, points_xy, cuda, n_particles: int = 2048,
     the float32 run. Returns (the line, {dtype: launches})."""
     import torch
 
-    from glimpse_tpu_torch.kernels.highpass import median_highpass
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
 
     n = len(points_xy)
     parts, launches, last = [], {}, {}
@@ -2899,12 +2993,11 @@ def precision_trackers(camera, frames, points_xy, cuda, n_particles: int = 2048,
         tracker = make_tracker(camera, points_xy, n_particles, cuda, dtype=dtype)
         run_tracker(tracker, frames[: n_steps + 1], seed=0)
         torch.cuda.reset_peak_memory_stats()
-        median_highpass.launches = 0
-        systematic_resample.launches = 0
+        reset_launches()
         out, seconds = run_tracker(tracker, frames[: n_steps + 1], seed=2)
-        launches[name] = {"median_highpass": median_highpass.launches,
-                          "systematic_resample": systematic_resample.launches}
-        if launches[name]["median_highpass"] < n_steps + 1 or launches[name]["systematic_resample"] != n_steps:
+        launches[name] = launch_counts()
+        if (launches[name]["median_highpass"] < n_steps + 1 or launches[name]["systematic_resample"] != n_steps
+                or launches[name]["bspline_sample"] != n_steps):
             raise AssertionError(f"phase 23 {name}: the kernels did not carry the run: {launches[name]}")
         peak = torch.cuda.max_memory_allocated()
         if out["mean"].dtype != dtype or not torch.isfinite(out["mean"]).all():
@@ -2913,8 +3006,9 @@ def precision_trackers(camera, frames, points_xy, cuda, n_particles: int = 2048,
         distance = np.linalg.norm(last[name] - last["float32"], axis=-1)
         parts.append(
             f"{name} {n * n_steps / seconds:.1f} point-steps/s ({seconds:.3f} s), peak {peak / 2**30:.2f} GiB,"
-            f" launches {launches[name]['median_highpass']} high-pass (one a step and the templates') and"
-            f" {launches[name]['systematic_resample']} resample in {n_steps} steps, distance from float32 at step"
+            f" launches {launches[name]['median_highpass']} high-pass (one a step and the templates'),"
+            f" {launches[name]['systematic_resample']} resample and {launches[name]['bspline_sample']} spline read"
+            f" in {n_steps} steps, distance from float32 at step"
             f" {n_steps} median {np.median(distance):.4g} worst {distance.max():.4g}"
         )
         del tracker, out
@@ -3022,15 +3116,13 @@ def graphs_phase(shapes: dict) -> Tuple[List[str], dict]:
     steps a pass, and ``profile`` (the arguments of
     :func:`profile_graphed_step`). Raises unless the two eager runs are
     bit-equal to each other and each graphed run to them (every step's
-    means, sigmas and validity, the final particles and weights), both
-    kernels' launches are equal across the four, and the replay's profile
-    shows both kernels' names where the profiler sees the card. Returns
+    means, sigmas and validity, the final particles and weights), each
+    kernel's launches are equal across the four, and the replay's profile
+    shows the three kernels' names where the profiler sees the card. Returns
     (one line a shape, each kernel's launches in each shape's first graphed
     run)."""
     import torch
 
-    from glimpse_tpu_torch.kernels.highpass import median_highpass
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
     from glimpse_tpu_torch.track.batch import StepProgram
 
     captures = []
@@ -3041,7 +3133,7 @@ def graphs_phase(shapes: dict) -> Tuple[List[str], dict]:
         build(self, *args)
         captures.append(time.perf_counter() - start)
 
-    lines, launches = [], {"median_highpass": {}, "systematic_resample": {}}
+    lines, launches = [], {name: {} for name in kernel_wrappers()}
     StepProgram.__init__ = timed_build
     try:
         for name, spec in shapes.items():
@@ -3056,14 +3148,10 @@ def _graphs_shape(name: str, spec: dict, captures: list, launches: dict) -> str:
     in its first graphed run go into ``launches``."""
     import torch
 
-    from glimpse_tpu_torch.kernels.highpass import median_highpass
-    from glimpse_tpu_torch.kernels.resample import systematic_resample
-
     tracker, run = spec["run"]
     records = []
     for kind in ("eager", "graphed", "graphed", "eager"):
-        median_highpass.launches = 0
-        systematic_resample.launches = 0
+        reset_launches()
         captures.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3078,9 +3166,10 @@ def _graphs_shape(name: str, spec: dict, captures: list, launches: dict) -> str:
             "kind": kind, "seconds": seconds, "peak": torch.cuda.max_memory_allocated() - base, "out": out,
             "captures": list(captures),
             "final": {f: torch.cat([getattr(p, f) for p in parts]) for f in ("particles", "weights")},
-            "launches": (median_highpass.launches, systematic_resample.launches),
+            "launches": tuple(launch_counts().values()),
         })
-    launches["median_highpass"][name], launches["systematic_resample"][name] = records[1]["launches"]
+    for kernel, count in zip(kernel_wrappers(), records[1]["launches"]):
+        launches[kernel][name] = count
 
     def same(a, b):
         return all(torch.equal(a["out"][k], b["out"][k]) for k in a["out"]) and all(
@@ -3104,7 +3193,8 @@ def _graphs_shape(name: str, spec: dict, captures: list, launches: dict) -> str:
         raise AssertionError(f"phase 27 {name}: no cudaGraphLaunch in a replayed step: {replay}")
     if replay["busy_ms"] is not None:
         names = " ".join(replay["kernels"])
-        if "systematic_resample_kernel" not in names or not re.search(r"(separable|generic)\w*_kernel", names):
+        if ("systematic_resample_kernel" not in names or "spline_sample_kernel" not in names
+                or not re.search(r"(separable|generic)\w*_kernel", names)):
             raise AssertionError(f"phase 27 {name}: the kernels are not among the replay's: {replay['kernels'][:20]}")
 
     n, steps = spec["points"], spec["steps"]
@@ -3120,7 +3210,7 @@ def _graphs_shape(name: str, spec: dict, captures: list, launches: dict) -> str:
         + f"; every step's means, sigmas, validity and the final particles and weights bit-equal in all four"
         f" runs (eager against eager too); launches {records[0]['launches']} in each; one eager step:"
         f" {describe_profile(profiles['eager'])}; one replayed step: {describe_profile(replay)}"
-        + ("" if replay["busy_ms"] is None else ", both kernels among its kernels")
+        + ("" if replay["busy_ms"] is None else ", the three kernels among its kernels")
     )
 
 
@@ -3666,14 +3756,14 @@ def main() -> None:
     tracker = make_tracker(camera, points_xy, n_particles, cuda)
     run_tracker(tracker, frames, seed=0)
     torch.cuda.reset_peak_memory_stats()
-    # Best of two timed passes, as bench.py takes; each must launch both kernels.
+    # Best of two timed passes, as bench.py takes; each must launch the three kernels.
     seconds = float("inf")
     for seed in (1, 2):
-        median_highpass.launches = 0
-        systematic_resample.launches = 0
+        reset_launches()
         out, elapsed = run_tracker(tracker, frames, seed=seed)
-        launches = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
-        if launches["median_highpass"] < n_steps + 1 or launches["systematic_resample"] != n_steps:
+        launches = launch_counts()
+        if (launches["median_highpass"] < n_steps + 1 or launches["systematic_resample"] != n_steps
+                or launches["bspline_sample"] != n_steps):
             raise AssertionError(f"the kernels did not carry the main path: launches {launches}")
         seconds = min(seconds, elapsed)
     peak = torch.cuda.max_memory_allocated()
@@ -3788,13 +3878,14 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     seconds8 = float("inf")
     for seed in (1, 2):
-        median_highpass.launches = 0
-        systematic_resample.launches = 0
+        reset_launches()
         outputs8, elapsed = stream(seed)
-        launches8 = {"median_highpass": median_highpass.launches, "systematic_resample": systematic_resample.launches}
+        launches8 = launch_counts()
         # One high-pass per step for both observers' stacked tiles, plus
-        # observer 1's templates at the start and observer 2's at step 10.
-        if launches8["median_highpass"] < t8 - 1 + 2 or launches8["systematic_resample"] != t8 - 1:
+        # observer 1's templates at the start and observer 2's at step 10;
+        # one resample and one spline read of the stacked surfaces a step.
+        if (launches8["median_highpass"] < t8 - 1 + 2 or launches8["systematic_resample"] != t8 - 1
+                or launches8["bspline_sample"] != t8 - 1):
             raise AssertionError(f"the kernels did not carry the Columbia run: launches {launches8}")
         seconds8 = min(seconds8, elapsed)
     peak8 = torch.cuda.max_memory_allocated()
@@ -3983,8 +4074,7 @@ def main() -> None:
     line23b, launches23 = precision_trackers(camera, frames, big_xy, cuda)
     say("phase 23 (b) phase 6's tracker in each dtype: " + line23b, flush=True)
     columbia16 = columbia_tracker(cams, viewshed, starts, p8, cuda, dtype=torch.bfloat16)
-    median_highpass.launches = 0
-    systematic_resample.launches = 0
+    reset_launches()
     start23 = time.perf_counter()
     _, outputs23 = columbia16.track_stream(
         torch.Generator(device=cuda).manual_seed(2), frame(0), (frame(i) for i in range(1, t8)),
@@ -3992,8 +4082,7 @@ def main() -> None:
     )
     torch.cuda.synchronize()
     seconds23 = time.perf_counter() - start23
-    launches23["columbia bfloat16"] = {"median_highpass": median_highpass.launches,
-                                       "systematic_resample": systematic_resample.launches}
+    launches23["columbia bfloat16"] = launch_counts()
     mean23 = torch.cat([o["mean"] for o in outputs23])
     if mean23.dtype != torch.bfloat16 or not torch.isfinite(mean23).all():
         raise AssertionError(f"phase 23 Columbia in bfloat16: means of {mean23.dtype}, finite {torch.isfinite(mean23).all()}")
@@ -4082,6 +4171,10 @@ def main() -> None:
     say(jacobian_programs(cuda, fits17), flush=True)
     say(chunk_programs(frames27, joined["mask"], cuda), flush=True)
 
+    # Phase 29: the spline read kernel at the benchmark cells' shapes.
+    line29, records29 = spline_phase(cuda)
+    say(line29, flush=True)
+
     # The kernels at phase 8's shapes; ``launches`` are phase 20's (the
     # tracker in four mesh slices; phases 18-19 launch neither), and
     # ``launches_by_path`` every main path's, each counted from 0 just before
@@ -4095,11 +4188,16 @@ def main() -> None:
     # once, every output written once) over the device memory rate: the
     # high-pass reads and writes 4 bytes a pixel; the resample reads a
     # float32 threshold and 7 float32 columns and writes 7 columns, 60 bytes
-    # a particle. Their arithmetic is a subtraction a pixel and none, so
-    # bytes bind. No single PyTorch call computes a median filter or this
-    # gather: library_ms null.
+    # a particle; the spline read reads float32 rows and cols and writes a
+    # float32 output, 12 bytes a particle, and reads each coefficient once
+    # (``bench_spline.spline_bytes``). Their arithmetic is a subtraction a
+    # pixel, none, and some 60 operations a particle, so bytes bind. No
+    # single PyTorch call computes a median filter, this gather or a spline
+    # at scattered points: library_ms null. The spline kernel replaces no
+    # Pallas kernel (the reference reads the spline by XLA ops).
     main_hp = hp_times[((20480, 31, 31), (5, 5))]
     main_rs = rs_times[(10240, 2048)]
+    main_sp = next(r for r in records29 if r["shape"] == [20480, 17, 17, 2048] and r["dtype"] == "float32")
     bound_hp = 2 * 20480 * 31 * 31 * 4 / HBM_BYTES_PER_S * 1e3
     bound_rs = 10240 * 2048 * 60 / HBM_BYTES_PER_S * 1e3
     by_path = {
@@ -4108,7 +4206,7 @@ def main() -> None:
                "phase 22": launches22[name], **{f"phase 23 {k}": v[name] for k, v in launches23.items()},
                "phase 24": launches24[name], "phase 25": launches25[name], "phase 26": launches26[name],
                **{f"phase 27 {k}": v for k, v in launches27[name].items()}}
-        for name in ("median_highpass", "systematic_resample")
+        for name in kernel_wrappers()
     }
     if any(count < 1 for counts in by_path.values() for count in counts.values()):
         raise AssertionError(f"a kernel did not launch on a main path: {by_path}")
@@ -4186,6 +4284,14 @@ def main() -> None:
             "launches_by_path": by_path["systematic_resample"], "phase_20_shapes": rs20, "phase_24_shapes": rs24,
             "phase_26_lockstep_shapes": rs26,
             "dtypes": rs_dtypes,
+        },
+        {
+            "name": "bspline_sample", "route": "cuda",
+            "source": "glimpse_tpu_torch/csrc/spline.cu", "replaces": None,
+            "launches": launches20["bspline_sample"], "max_abs_err": 0.0,
+            "ms": main_sp["ms"], "plain_ms": main_sp["plain_ms"], "bound_ms": main_sp["bound_ms"],
+            "bound_by": "bytes", "bound_share": main_sp["bound_share"], "library_ms": None,
+            "shape": main_sp["shape"], "launches_by_path": by_path["bspline_sample"], "dtypes": records29,
         },
     ]}))
     print(json.dumps({

@@ -64,8 +64,9 @@ class Graph:
     it would. ``body()``'s return value is :attr:`outputs`: tensors in the
     graph's pool, which every replay overwrites. ``kernels`` are the port's
     kernel wrappers (``kernels.highpass.median_highpass``,
-    ``kernels.resample.systematic_resample``): each counts the launches made
-    under capture in its ``captured``, and each replay adds them to its
+    ``kernels.resample.systematic_resample``,
+    ``kernels.spline.bspline_sample``): each counts the launches made under
+    capture in its ``captured``, and each replay adds them to its
     ``launches``. ``name`` says in an error what failed to capture.
 
     While :func:`profiling.enabled`, the capture is the span
@@ -90,6 +91,13 @@ class Graph:
                 torch.cuda.device(self.device):
             context = capture_context()
             self.stream, self.pool = context[0], context[2]
+            # capture_begin fills each registered generator's seed and offset
+            # tensors on the capture stream before it captures. Those tensors
+            # are allocated on the caller's stream, maybe in a block that the
+            # caller's queued work still reads (a temporary freed on the host
+            # before the card ran it): the capture stream waits for that work
+            # first, or the fill overwrites it.
+            self.stream.wait_stream(torch.cuda.current_stream())
             # No garbage collection while capturing: a cycle it freed could
             # hold another program's graph, and destroying a graph is not
             # permitted during a capture (it invalidates the capture).

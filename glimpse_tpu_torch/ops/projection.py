@@ -397,10 +397,14 @@ def project_planes(
     xc = R[..., 0, 0] * dx + R[..., 0, 1] * dy + R[..., 0, 2] * dz
     yc = R[..., 1, 0] * dx + R[..., 1, 1] * dy + R[..., 1, 2] * dz
     zc = R[..., 2, 0] * dx + R[..., 2, 1] * dy + R[..., 2, 2] * dz
+    # Each plane is as large as the particles: drop those done with, so the
+    # tracker's step holds a few at a time, not all fifteen.
+    del x, y, z, dx, dy, dz
     behind = zc <= 0
     safe = torch.where(behind, torch.ones_like(zc), zc)
     xn = (xc / safe).masked_fill(behind, math.nan)
     yn = (yc / safe).masked_fill(behind, math.nan)
+    del xc, yc, zc, safe, behind
     k = vector[..., K]
     p = vector[..., P]
     r2 = xn * xn + yn * yn
@@ -408,6 +412,7 @@ def project_planes(
     xty = xn * yn
     dtx = 2 * xty * p[..., 0] + p[..., 1] * (r2 + 2 * xn * xn)
     dty = p[..., 0] * (r2 + 2 * yn * yn) + 2 * xty * p[..., 1]
+    del r2, xty
     f = vector[..., F]
     c = vector[..., C]
     imgsz = vector[..., IMGSZ]

@@ -315,8 +315,9 @@ def report() -> dict:
     spans not read yet read first, waiting for the card. The kernel
     wrappers' own counts come in as
     ``kernel.highpass.launches``, ``kernel.highpass.captured``,
-    ``kernel.resample.launches`` and ``kernel.resample.captured``."""
-    from .kernels import highpass, resample
+    ``kernel.resample.launches``, ``kernel.resample.captured``,
+    ``kernel.spline.launches`` and ``kernel.spline.captured``."""
+    from .kernels import highpass, resample, spline
 
     read_device_spans()
     registry = _REGISTRY
@@ -329,7 +330,8 @@ def report() -> dict:
             "replay_device_s": replay_s, "replay_samples": samples, "eager_device_s": eager_s,
         }
     counters = dict(registry.counters)
-    for label, kernel in (("highpass", highpass.median_highpass), ("resample", resample.systematic_resample)):
+    for label, kernel in (("highpass", highpass.median_highpass), ("resample", resample.systematic_resample),
+                          ("spline", spline.bspline_sample)):
         counters[f"kernel.{label}.launches"] = kernel.launches
         counters[f"kernel.{label}.captured"] = kernel.captured
     return {"spans": spans, "counters": counters}

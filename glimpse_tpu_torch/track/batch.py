@@ -47,6 +47,7 @@ import torch
 from .. import graphs, profiling
 from ..kernels import highpass as highpass_kernel
 from ..kernels import resample as resample_kernel
+from ..kernels import spline as spline_kernel
 from ..kernels.highpass import highpass as routed_highpass
 from ..kernels.resample import systematic_resample
 from ..ops import imageproc, ncc, projection, resampling, sampling
@@ -334,6 +335,9 @@ class BatchMotion:
         N, P = particles.shape[:2]
         a_noise = _normal(noise, "a", (N, P, 3), generator, particles.device)
         a = self.a_mean[:, None, :] + self.a_sigma[:, None, :] * a_noise
+        # Each (N, P, 3) draw is freed once used: the step's peak memory is
+        # the sum of the temporaries alive at once.
+        del a_noise
         # As a JAX array meeting the float64 time step would: torch keeps a
         # tensor's type against a 0-d one.
         a = a.to(torch.promote_types(a.dtype, particles.dtype))
@@ -350,6 +354,7 @@ class BatchMotion:
             a = _zero_z(a)
         dxyz = dt * particles[..., 3:6] + 0.5 * a * dt ** 2
         v = particles[..., 3:6] + dt * a
+        del a
         if not self.tangent:
             return torch.cat([particles[..., 0:3] + dxyz, v], dim=-1)
         # The z offset from the DEM survives resampling: rebuild it from z.
@@ -608,7 +613,7 @@ def _read_spline(coeffs, rows_c, cols_c, cfg: BatchConfig):
     """The cubic B-spline of coefficients (B, oh, ow) at clamped indices
     (B, P), read as ``cfg.sse_sample_mode`` says."""
     if cfg.sse_sample_mode == "einsum":
-        return sampling.bspline_sample(coeffs, rows_c, cols_c)
+        return spline_kernel.bspline_sample(coeffs, rows_c, cols_c)
     if cfg.sse_upsample > 1:
         factor = cfg.sse_upsample
         fine = sampling.bspline_upsample(coeffs, factor)
@@ -664,13 +669,18 @@ def observer_log_likelihoods_multi(images, camera_vectors, corrections, sigmas, 
         for o in range(O)
     ]
     search, cols, rows = (torch.cat(parts, dim=0) for parts in zip(*fronts))
+    # The (O * N, P) planes are the step's largest temporaries: each is
+    # dropped once used, so that few stand at once.
+    del fronts, w_norm
     search = _prepare_search_tiles(search, template_table.reshape(O * N, -1), cfg.highpass_size)
     with profiling.span("ops.sse", particles.device):
         sse = ncc.sse_map_batched(search, templates.reshape(O * N, th, tw)) * (1.0 / (th * tw))
     cols_c = torch.clamp(cols, 0.0, ow - 1.0)
     rows_c = torch.clamp(rows, 0.0, oh - 1.0)
     oob_d2 = (cols - cols_c) ** 2 + (rows - rows_c) ** 2
+    del cols, rows
     sampled = _sample_sse_surface(sse, rows_c, cols_c, cfg)
+    del rows_c, cols_c
     inv_2s2 = _inverse_two_sigma_squared(tuple(float(s) for s in sigmas), particles.device, cfg.dtype)
     ll = sampled.reshape(O, N, P) * inv_2s2[:, None, None] + oob_d2.reshape(O, N, P)
     if obs_mask is not None:
@@ -682,9 +692,11 @@ def particle_moments(particles, weights):
     """Weighted mean and standard deviation over the particle axis: ((N, 6), (N, 6))."""
     w = weights / torch.sum(weights, dim=-1, keepdim=True)
     mean = torch.sum(particles * w[..., None], dim=-2)
-    centered = particles - mean[..., None, :]
-    var = torch.sum(centered * centered * w[..., None], dim=-2)
-    return mean, torch.sqrt(var)
+    # (centered * centered) * w in place: the same products, one (N, P, 6)
+    # temporary where three would stand at once beside the particles.
+    squares = particles - mean[..., None, :]
+    squares.mul_(squares).mul_(w[..., None])
+    return mean, torch.sqrt(torch.sum(squares, dim=-2))
 
 
 def particle_covariances(particles, weights):
@@ -805,7 +817,7 @@ class StepProgram:
     """
 
     #: The kernel wrappers whose launches a replay adds to their counts.
-    KERNELS = (highpass_kernel.median_highpass, resample_kernel.systematic_resample)
+    KERNELS = (highpass_kernel.median_highpass, resample_kernel.systematic_resample, spline_kernel.bspline_sample)
 
     def __init__(self, tracker: "BatchTracker", state: BatchState, inputs: dict) -> None:
         self.tracker = tracker

@@ -16,9 +16,12 @@ from chip_smoke import (
     THIN_TILES,
     highpass_case_tiles,
     highpass_check_cases,
+    spline_case,
 )
 from glimpse_tpu_torch.kernels.highpass import SEPARABLE, covers, kernel_variant, median_highpass, median_highpass_plain
 from glimpse_tpu_torch.kernels.resample import systematic_resample, systematic_resample_plain
+from glimpse_tpu_torch.kernels.spline import bspline_sample, bspline_sample_plain
+from glimpse_tpu_torch.kernels.spline import route as spline_route
 from glimpse_tpu_torch.ops.resampling import systematic_thresholds
 
 
@@ -93,6 +96,55 @@ def test_highpass_kernel_bit_exact_at_columbia_width(cuda) -> None:
     got = median_highpass(tiles, (5, 5))
     assert median_highpass.launches == before + 1
     assert torch.equal(got, median_highpass_plain(tiles, (5, 5)))
+
+
+# The spline read: the benchmark cells' stacks (cut to fewer surfaces), a
+# non-square surface, the smallest ones, and surfaces whose folded table no
+# block's shared memory holds (read from device memory): (B, h, w, P).
+SPLINE_CARD_SHAPES = ((20480, 17, 17, 2048), (1024, 27, 27, 2048), (37, 9, 23, 1000), (8, 1, 2, 300),
+                      (8, 2, 1, 300), (3, 250, 250, 5000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coords", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["float32", "bfloat16", "float16", "float64"])
+@pytest.mark.parametrize("shape", SPLINE_CARD_SHAPES, ids=["x".join(map(str, s)) for s in SPLINE_CARD_SHAPES])
+def test_spline_kernel_equals_its_plain_version(cuda, shape, name, coords) -> None:
+    """Edges, points just inside them and outside, NaN and +-inf coordinates
+    and coefficients (``chip_smoke.spline_case``), every coefficient type at
+    each coordinate type the kernel takes: one launch, the plain version's output type, and
+    its values with rtol = atol = 0 and NaN where it has NaN."""
+    dtype, coord_dtype = getattr(torch, name), getattr(torch, coords)
+    coeffs, rows, cols = spline_case(shape, dtype, coord_dtype, cuda, seed=sum(shape))
+    before = bspline_sample.launches
+    got = bspline_sample(coeffs, rows, cols)
+    assert bspline_sample.launches == before + 1
+    want = bspline_sample_plain(coeffs, rows, cols)
+    assert got.dtype == want.dtype
+    assert torch.isnan(want).any()
+    route = spline_route(shape[1:3], dtype)
+    assert route == ("global" if shape[1] == 250 else "staged")
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True, msg=lambda m: f"{route}: {m}")
+
+
+@pytest.mark.cuda
+def test_spline_kernel_captured_equals_eager(cuda) -> None:
+    """A call captured in a CUDA graph counts in ``captured``; each replay
+    adds one launch and writes what an eager call writes."""
+    from glimpse_tpu_torch import graphs
+
+    coeffs, rows, cols = spline_case((1024, 27, 27, 2048), torch.float32, torch.float32, cuda, seed=5)
+    eager = bspline_sample(coeffs, rows, cols)
+    captured, launches = bspline_sample.captured, bspline_sample.launches
+    graph = graphs.Graph(lambda: bspline_sample(coeffs, rows, cols), cuda, "the spline read",
+                         kernels=(bspline_sample,))
+    assert bspline_sample.captured == captured + 1 and bspline_sample.launches == launches
+    for replay in range(1, 3):
+        graph.outputs.zero_()
+        out = graph.replay()
+        torch.cuda.synchronize()
+        assert bspline_sample.launches == launches + replay
+        torch.testing.assert_close(out, eager, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
@@ -723,7 +775,8 @@ def test_graphed_run_equals_the_step_loop_on_card(cuda, monkeypatch, entry, name
         out = {k: torch.cat([o[k] for o in outputs]) for k in outputs[0]}
     assert (median_highpass.launches - before[0], systematic_resample.launches - before[1]) == want_launches
     assert len(seen["built"]) == 1 and seen["built"][0].graph is not None and seen["calls"] == T - 3
-    assert seen["built"][0].graph.launches == (1, 1)
+    # One high-pass, one resample and, in the einsum mode, one spline read a replay.
+    assert seen["built"][0].graph.launches == (1, 1, 1 if mode == "einsum" else 0)
     for k in want:
         assert torch.equal(out[k], want[k]), k
     for field in batch.STATE_FIELDS:
@@ -773,6 +826,27 @@ def test_span_events_leave_replays_bit_equal_and_time_each_span_on_card(cuda) ->
     assert spans["graph.capture"]["programs"] == ["the tracking step"] and spans["graph.capture"]["parent"] == "entry.call"
     assert counters["graph.captures"] == 1 and counters["entry.calls"] == 1
     assert counters["entry.eager_steps"] == 2 and counters["entry.replays"] == T - 3
+
+
+@pytest.mark.cuda
+def test_capture_waits_for_the_callers_queued_work(cuda) -> None:
+    """capture_begin fills a registered generator's seed and offset on the
+    capture stream, in tensors allocated on the caller's stream: the capture
+    stream first waits for the caller's queued work, so an event recorded on
+    it after the capture is not done while the caller's stream still runs."""
+    from glimpse_tpu_torch import graphs
+
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    shift = torch.zeros(16, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # about a second of the caller's stream
+    graph = graphs.Graph(lambda: torch.rand(16, generator=generator, device=cuda) + shift, cuda, "a probe",
+                         generators=(generator,))
+    captured = torch.cuda.Event()
+    captured.record(graph.stream)
+    waited = not captured.query()
+    torch.cuda.synchronize()
+    assert waited
 
 
 @pytest.mark.cuda
