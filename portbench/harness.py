@@ -8,7 +8,9 @@ tracking runs back to back, each one ``track`` or ``track_stream`` call with
 a generator of its own drawn from the seed, until ``seconds`` have passed,
 the last one completed. A traced run profiles one whole tracking run
 instead. Afterwards the reference tracks a sample of the runs and points,
-drawn from the seed, and :mod:`portbench.reference.compare` decides.
+drawn from the seed, and :mod:`portbench.reference.compare` decides. The
+program module, the reference and the compared numbers are the cell
+configuration's (:func:`portbench.cells.parts`).
 """
 import json
 import os
@@ -20,9 +22,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from portbench import cells, program
+from portbench import cells
 from portbench.metrics import _reader
-from portbench.reference import compare, filter as reference
+from portbench.reference import compare
 
 ROOT = Path(__file__).resolve().parent
 #: Modules that may not be loaded in a run, by top-level name.
@@ -76,22 +78,23 @@ def reference_run(cell: dict, scene, run_seed: int, steps: int, rows, device, pr
         frame = lambda t: torch.as_tensor(frames[t], device=device)  # noqa: E731
     else:
         frame = frames.__getitem__
-    problem = program.problem(cell["config"], cell["traffic"], scene)
-    return reference.track(problem, frame, steps, run_seed, rows, device, precision)
+    parts = cells.parts(cell["config"])
+    problem = parts.program.problem(cell["config"], cell["traffic"], scene)
+    return parts.reference.track(problem, frame, steps, run_seed, rows, device, precision)
 
 
 def check(cell: dict, scene, seed: int, outputs: list, seeds: list, device) -> dict:
     """The compared numbers over the runs and points the check samples from
     ``seed``: ``outputs[k]`` came from a generator seeded ``seeds[k]``."""
     spec = cell["traffic"]["check"]
+    numbers = cells.parts(cell["config"]).numbers
     runs, rows = sample(spec, len(outputs), len(scene.points_xy), seed)
     readings = []
     for k in runs:
         steps = outputs[k]["mean"].shape[0]
         want = reference_run(cell, scene, seeds[k], steps, rows, device)
         got = {"mean": outputs[k]["mean"][:, torch.as_tensor(rows, device=outputs[k]["mean"].device)]}
-        readings.append(compare.numbers(got, want, scene.truth[1: steps + 1, rows], spec["early_steps"],
-                                        spec["quantile"]))
+        readings.append(numbers(got, want, scene.truth[1: steps + 1, rows], spec["early_steps"], spec["quantile"]))
     return compare.worst(readings)
 
 
@@ -103,6 +106,7 @@ def window(tracker, cell: dict, scene, seed: int, seconds: float, device):
     """Whole tracking runs back to back until ``seconds`` have passed, the
     last one completed: (generator seeds, outputs, end-to-end values)."""
     steps = cell["config"]["images"] - 1
+    program = cells.parts(cell["config"]).program
     seeds, outputs = [], []
     start = time.perf_counter()
     while not outputs or time.perf_counter() - start < seconds:
@@ -118,6 +122,7 @@ def traced(tracker, cell: dict, scene, seed: int, device):
     """One tracking run under ``torch.profiler``, its Chrome trace read back:
     (generator seeds, outputs, the :class:`_reader.Trace`, its wall seconds)."""
     steps = cell["config"]["images"] - 1
+    program = cells.parts(cell["config"]).program
     seeds = [derived_seed(seed, 3, 0)]
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -143,10 +148,9 @@ def run(name: str, seed: int, seconds: float, trace: bool, device, chips: int = 
     process's start."""
     started = time.perf_counter() if started is None else started
     device = torch.device(device)
-    cell = cells.load_cell(name)
-    for part, values in (overrides or {}).items():
-        cell[part] = {**cell[part], **values}
+    cell = cells.load_cell(name, overrides)
     traffic = cell["traffic"]
+    program = cells.parts(cell["config"]).program
     scene = cells.build_scene(cell, derived_seed(seed, SCENE), device)
     tracker = program.build_tracker(cell["config"], traffic, scene, device)
     program.tracking_run(tracker, traffic, scene, derived_seed(seed, WARM_UP), traffic["warmup_steps"])

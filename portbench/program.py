@@ -4,7 +4,8 @@ Builds ``glimpse_tpu_torch``'s ``BatchTracker`` from a configuration and a
 scene, and runs one tracking run as the cell's traffic says:
 ``track_stream`` on frames streamed from host memory chunk by chunk, or
 ``track`` on frames held in device memory. Nothing else of the program is
-used here.
+used here. It drives every configuration that names no ``"program"`` of its
+own (:func:`portbench.cells.parts`).
 """
 import numpy as np
 import torch

@@ -17,6 +17,10 @@ them, and for the rest of the run against the truth, as the reference's are:
 - ``lost_point_steps``: point-steps of the whole window whose mean is not
   finite or whose point was marked invalid (every point of these scenes
   stays visible, so none may be lost).
+
+:func:`numbers` compares the runs of every configuration whose reference
+brings no ``numbers`` of its own (:func:`portbench.cells.parts`); the rest of
+this module serves them all.
 """
 from typing import Dict
 

@@ -8,24 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import cells, harness
-from portbench.reference import compare
+from portbench import calibrate, cells, harness
 from portbench.tests.conftest import SMALL, small
 
 
 def control_readings(name, precision, device, seed):
-    cell = cells.load_cell(name)
-    for part, values in small(name).items():
-        cell[part] = {**cell[part], **values}
-    scene = cells.build_scene(cell, harness.derived_seed(seed, harness.SCENE), device)
-    steps = cell["config"]["images"] - 1
-    spec = cell["traffic"]["check"]
-    _, rows = harness.sample(spec, 1, len(scene.points_xy), seed)
-    run_seed = harness.derived_seed(seed, 3, 0)
-    want = harness.reference_run(cell, scene, run_seed, steps, rows, device)
-    got = harness.reference_run(cell, scene, run_seed, steps, rows, device, precision)
-    readings = compare.numbers(got, want, scene.truth[1: steps + 1, rows], spec["early_steps"], spec["quantile"])
-    return readings, spec["limits"]
+    """``portbench/calibrate.py``'s readings of the control at the cell's small size."""
+    cell = cells.load_cell(name, small(name))
+    return calibrate.control_readings(cell, seed, [precision], device)[precision], cell["traffic"]["check"]["limits"]
 
 
 def failed(readings, limits):
