@@ -39,6 +39,10 @@ seconds of one replayed step summed over the calls (``replay_device_s``,
 one sample a call and program in ``replay_samples``) and of its eager runs
 (``eager_device_s``, launch gaps included). ``report()["counters"]`` holds
 the counters and the kernel wrappers' own ``launches`` and ``captured``.
+A tracker whose motion carries a DEM prior (a DEM sigma, cartesian or
+cylindrical motion) also times the prior in each step, the span
+``step.prior``, and counts its tracking calls in
+``motion.informative_calls``; without a DEM sigma neither appears.
 :func:`reset` clears the registry; :func:`tracing` turns the records on or
 off whatever the profiler does.
 """

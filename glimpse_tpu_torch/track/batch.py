@@ -873,11 +873,15 @@ class StepProgram:
 
 def _entry_call(method):
     """A tracking call (:meth:`BatchTracker.track`, ``track_stream``): the
-    span ``entry.call``, counted in ``entry.calls``."""
+    span ``entry.call``, counted in ``entry.calls``, and in
+    ``motion.informative_calls`` where the motion's DEM prior weighs the
+    steps (:attr:`BatchMotion.informative`)."""
 
     @functools.wraps(method)
     def call(self, *args, **kwargs):
         profiling.count("entry.calls")
+        if self.motion.informative:
+            profiling.count("motion.informative_calls")
         with profiling.span("entry.call"):
             return method(self, *args, **kwargs)
 
@@ -1046,8 +1050,10 @@ class BatchTracker:
 
         The step is the span ``step``, and its stages the spans
         ``step.evolve``, ``step.validity``, ``step.template``,
-        ``step.weights``, ``step.resample`` and the ops' (``ops.*``), each
-        timed on the card (:mod:`..profiling`).
+        ``step.prior`` (the motion's DEM prior, only where
+        :attr:`BatchMotion.informative`), ``step.weights``,
+        ``step.resample`` and the ops' (``ops.*``), each timed on the card
+        (:mod:`..profiling`).
         """
         with profiling.span("step", self.device):
             return self._step(state, images, dt, noise, camera_vectors, obs_mask, init_template_for)
@@ -1082,7 +1088,11 @@ class BatchTracker:
                     )
         if obs_mask is not None:
             obs_mask = _as_tensor(obs_mask, self.device, cfg.dtype)
-        ll = self.motion.log_likelihoods(particles).to(cfg.dtype) + observer_log_likelihoods_multi(
+        # Only a prior that can be nonzero is a span: without one the step's graph keeps its nodes.
+        with profiling.span("step.prior", self.device) if self.motion.informative else contextlib.nullcontext():
+            ll = self.motion.log_likelihoods(particles).to(cfg.dtype)
+        # Rebinding ll frees the prior's (N, P) plane once it is added.
+        ll = ll + observer_log_likelihoods_multi(
             images, cams, self.corrections, self.sigmas, particles, templates, template_table,
             template_duv, state.weights, cfg, obs_mask=obs_mask,
         )

@@ -829,6 +829,48 @@ def test_span_events_leave_replays_bit_equal_and_time_each_span_on_card(cuda) ->
 
 
 @pytest.mark.cuda
+def test_dem_prior_replays_equal_the_step_loop_on_card(cuda) -> None:
+    """A motion on a DEM with a sigma raster, so each step's weights carry
+    the prior's two bilinear reads a particle, with the program's spans
+    recording (``step.prior``'s event nodes in the captured graph): ``track``
+    equals the eager step loop bit for bit, outputs, state and the
+    generator's next draw, and the prior has device time in the replayed
+    step."""
+    import dataclasses
+
+    from glimpse_tpu_torch import profiling
+    from glimpse_tpu_torch.track import batch, convert
+
+    flat, frames, masks, mask0, _ = _graph_scene(cuda)
+    rng = np.random.default_rng(17)
+    grid = {"x0": -128.0, "y0": 256.0, "dx": 24.0, "dy": -24.0}
+    motion = dataclasses.replace(
+        flat.motion, use_dem_sigma=True,
+        dem=convert.raster_from_numpy(dict(grid, array=rng.normal(size=(16, 16)) * 2), cuda),
+        dem_sigma=convert.raster_from_numpy(dict(grid, array=rng.uniform(0.3, 1.5, size=(16, 16))), cuda),
+    )
+    tracker = batch.BatchTracker(flat.camera_vectors, [None] * 2, [0.3] * 2, motion, flat.config, device=cuda,
+                                 viewshed=flat.viewshed)
+    assert tracker.motion.informative
+    T = len(frames)
+    generators = [torch.Generator(device=cuda).manual_seed(23) for _ in range(2)]
+    profiling.reset()
+    with profiling.tracing(True):
+        want_state, want, _ = _step_loop(tracker, generators[1], frames, masks, mask0)
+        state, out = tracker.track(generators[0], frames, np.ones(T - 1), obs_masks=masks, obs_mask0=mask0)
+    report = profiling.report()
+    profiling.reset()
+    for k in want:
+        assert torch.equal(out[k], want[k]), k
+    for field in batch.STATE_FIELDS:
+        assert torch.equal(getattr(state, field), getattr(want_state, field)), field
+    assert torch.equal(*(torch.randn(7, generator=g, device=cuda) for g in generators))
+    prior = report["spans"]["step.prior"]
+    assert prior["parent"] == "step" and prior["replay_samples"] == 1 and prior["replay_device_s"] > 0
+    assert report["counters"]["motion.informative_calls"] == 1
+
+
+@pytest.mark.cuda
 def test_capture_waits_for_the_callers_queued_work(cuda) -> None:
     """capture_begin fills a registered generator's seed and offset on the
     capture stream, in tensors allocated on the caller's stream: the capture

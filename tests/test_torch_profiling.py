@@ -82,11 +82,13 @@ CPU_SPANS = {
 }
 
 
-def _two_observer_run(device="cpu", n: int = 8, p: int = 64, T: int = 5, size: int = 96):
+def _two_observer_run(device="cpu", n: int = 8, p: int = 64, T: int = 5, size: int = 96, prior: bool = False):
     """A tracker of ``n`` points x ``p`` particles and two observers, the
     second late (masked at steps 1-2, its template cut at step 3), and a
     function that runs ``track`` and then ``track_stream`` (frame by frame)
-    from one seed: (outputs of both, in order)."""
+    from one seed: (outputs of both, in order). On a flat DEM, or with
+    ``prior`` on an 8 x 8 DEM of a few units' relief with a sigma raster,
+    which the steps' weights then carry."""
     import numpy as np
     import scipy.ndimage
 
@@ -99,11 +101,16 @@ def _two_observer_run(device="cpu", n: int = 8, p: int = 64, T: int = 5, size: i
     cam = np.zeros(20, np.float32)
     cam[0:3], cam[3:6], cam[6:10] = (size / 2, size / 2, size), (0, -90, 0), size
     flat = {"array": [[0.0]], "x0": 0.0, "y0": 0.0, "dx": 1e30, "dy": 1e30}
+    dem = dem_sigma = flat
+    if prior:
+        grid = {"x0": 0.0, "y0": float(size), "dx": size / 8, "dy": -size / 8}
+        dem = dict(grid, array=rng.normal(size=(8, 8)))
+        dem_sigma = dict(grid, array=rng.uniform(0.3, 0.8, size=(8, 8)))
     motion = convert.motion_from_numpy({
         "kind": "cartesian", "xy": rng.uniform(36, 60, size=(n, 2)), "xy_sigma": np.ones((n, 2)),
         "v_mean": np.zeros((n, 3)), "v_sigma": np.tile([1.0, 1.0, 0.0], (n, 1)), "a_mean": np.zeros((n, 3)),
-        "a_sigma": np.tile([0.1, 0.1, 0.0], (n, 1)), "slope_sigma": np.zeros(n), "dem": flat, "dem_sigma": flat,
-        "use_dem_sigma": False}, device)
+        "a_sigma": np.tile([0.1, 0.1, 0.0], (n, 1)), "slope_sigma": np.zeros(n), "dem": dem, "dem_sigma": dem_sigma,
+        "use_dem_sigma": prior}, device)
     config = batch.BatchConfig(n_particles=p, template_size=(11, 11), search_size=(25, 25))
     tracker = batch.BatchTracker(np.stack([cam, cam]), [None] * 2, [0.3] * 2, motion, config, device=device)
     masks = np.ones((T - 1, 2), np.float32)
@@ -183,6 +190,37 @@ def test_tracing_records_every_span_nested_under_its_parent(tmp_path) -> None:
     assert all(s["replay_samples"] == 0 and s["eager_device_s"] == 0 for s in spans.values())
     profiling.reset()
     assert profiling.report()["spans"] == {} and "entry.calls" not in profiling.report()["counters"]
+
+
+@pytest.mark.parametrize("prior", [True, False], ids=["dem_sigma", "flat"])
+def test_the_dem_prior_is_a_span_and_a_counter_only_where_it_weighs(tmp_path, prior) -> None:
+    """With a DEM sigma, each step's prior is the span ``step.prior`` inside
+    ``step``, in eager steps and in the step program's alike, and each
+    tracking call counts in ``motion.informative_calls``; on a flat DEM
+    neither appears, so the step records what it recorded before."""
+    profiling.reset()
+    run, _ = _two_observer_run(prior=prior)
+    with profiling.device_trace(tmp_path):
+        run()
+    report = profiling.report()
+    spans, counters = report["spans"], report["counters"]
+    assert set(spans) == set(CPU_SPANS) | ({"step.prior"} if prior else set())
+    if not prior:
+        assert "motion.informative_calls" not in counters
+        return
+    assert counters["motion.informative_calls"] == 2 == counters["entry.calls"]
+    assert spans["step.prior"]["parent"] == "step" and spans["step.prior"]["calls"] == spans["step"]["calls"] == 8
+    marks: dict = {}
+    for e in _annotations(tmp_path / "trace.json"):
+        marks.setdefault(e["name"], []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+
+    def inside(name, parent):
+        return [any(s <= start and end <= e for s, e in marks[parent]) for start, end in marks[name]]
+
+    assert all(inside("step.prior", "step"))
+    # Four steps of the eight run eagerly, four through the step program.
+    assert sum(inside("step.prior", "entry.eager_step")) == 4 == sum(inside("step.prior", "entry.replay"))
+    profiling.reset()
 
 
 def test_tracing_leaves_the_outputs_bit_equal() -> None:
