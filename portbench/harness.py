@@ -85,7 +85,8 @@ def reference_run(cell: dict, scene, run_seed: int, steps: int, rows, device, pr
 
 def check(cell: dict, scene, seed: int, outputs: list, seeds: list, device) -> dict:
     """The compared numbers over the runs and points the check samples from
-    ``seed``: ``outputs[k]`` came from a generator seeded ``seeds[k]``."""
+    ``seed``: ``outputs[k]`` came from a generator seeded ``seeds[k]``, on
+    the host or on ``device``; the sampled points' means go to ``device``."""
     spec = cell["traffic"]["check"]
     numbers = cells.parts(cell["config"]).numbers
     runs, rows = sample(spec, len(outputs), len(scene.points_xy), seed)
@@ -93,7 +94,8 @@ def check(cell: dict, scene, seed: int, outputs: list, seeds: list, device) -> d
     for k in runs:
         steps = outputs[k]["mean"].shape[0]
         want = reference_run(cell, scene, seeds[k], steps, rows, device)
-        got = {"mean": outputs[k]["mean"][:, torch.as_tensor(rows, device=outputs[k]["mean"].device)]}
+        mean = outputs[k]["mean"]
+        got = {"mean": mean[:, torch.as_tensor(rows, device=mean.device)].to(device)}
         readings.append(numbers(got, want, scene.truth[1: steps + 1, rows], spec["early_steps"], spec["quantile"]))
     return compare.worst(readings)
 
@@ -104,16 +106,22 @@ def device_kind(device: torch.device) -> str:
 
 def window(tracker, cell: dict, scene, seed: int, seconds: float, device):
     """Whole tracking runs back to back until ``seconds`` have passed, the
-    last one completed: (generator seeds, outputs, end-to-end values)."""
+    last one completed: (generator seeds, outputs, end-to-end values).
+
+    Each finished run's ``mean`` and ``valid`` are copied to host memory,
+    inside the window, and nothing else of it is kept, so each run starts on
+    a card that holds the scene and the tracker alone: the peak is one run's
+    own, however many runs the window completes."""
     steps = cell["config"]["images"] - 1
     program = cells.parts(cell["config"]).program
     seeds, outputs = [], []
     start = time.perf_counter()
     while not outputs or time.perf_counter() - start < seconds:
         seeds.append(derived_seed(seed, 3, len(seeds)))
-        _, out = program.tracking_run(tracker, cell["traffic"], scene, seeds[-1], steps)
+        out = program.tracking_run(tracker, cell["traffic"], scene, seeds[-1], steps)[1]
         synchronize(device)
-        outputs.append({"mean": out["mean"], "valid": out["valid"]})
+        outputs.append({"mean": out["mean"].cpu(), "valid": out["valid"].cpu()})
+        del out
     point_steps = len(outputs) * cell["traffic"]["points"] * steps
     return seeds, outputs, {"point_steps_per_s": point_steps / (time.perf_counter() - start)}
 
