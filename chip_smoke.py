@@ -220,7 +220,7 @@ each:
     (eager against eager first: the path is deterministic), each kernel's
     launches equal; then one eager and one replayed step under the
     profiler: idle share, host ``cudaLaunchKernel`` and ``cudaGraphLaunch``
-    calls a step, and the three kernels' names among the replay's kernels.
+    calls a step, and the four kernels' names among the replay's kernels.
 
 28. calibration and stabilization programs against eager: each runs eager,
     graphed, graphed, eager in one process: (a) phase 18's ``ObserverCameras``
@@ -243,6 +243,14 @@ each:
     version has it (edges, NaN and +-inf coefficients and coordinates), then
     both timed beside the byte bound by ``kernels/bench_spline.measure``
     (:func:`spline_phase`).
+30. the observer front-end kernel (``kernels/project.py``) against its
+    plain version at the benchmark cells' front ends, (2, 10,240), (1,
+    1,024) and (1, 10,240) observers x points x 2,048 particles, in the four
+    particle types: tiles, cols and rows bit-equal where the corners agree,
+    a corner moved only at a half-pixel tie of the plain mean (particles
+    behind the camera and at NaN, corners clamped at all four edges,
+    distortion, an elevation correction), then timed beside the byte bound
+    by ``kernels/bench_project.measure`` (:func:`project_phase`).
 
 Every phase that runs ``track`` or ``track_stream`` runs it graphed; every
 phase that detects, matches, refines, fits an ``ObserverCameras`` or takes
@@ -379,10 +387,10 @@ def highpass_mismatch(got, want) -> float:
 def kernel_wrappers() -> dict:
     """The port's kernel wrappers by name, the order of the ``kernels``
     JSON line; each counts its launches in ``launches``."""
-    from glimpse_tpu_torch.kernels import highpass, resample, spline
+    from glimpse_tpu_torch.kernels import highpass, project, resample, spline
 
     return {"median_highpass": highpass.median_highpass, "systematic_resample": resample.systematic_resample,
-            "bspline_sample": spline.bspline_sample}
+            "bspline_sample": spline.bspline_sample, "project_extract": project.project_extract}
 
 
 def reset_launches() -> None:
@@ -479,6 +487,30 @@ def spline_phase(cuda) -> Tuple[str, list]:
             f"{'x'.join(map(str, r['shape']))} {r['dtype']} {r['route']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f},"
             f" {100 * r['bound_share']:.1f} %; plain {r['plain_ms']:.3f} ms)" for r in records)
     ), records
+
+
+def project_phase() -> Tuple[str, list]:
+    """Phase 30: the observer front-end kernel against its plain version on
+    the card at ``bench_project.SHAPES`` (the benchmark cells' front ends) in
+    each of ``bench_project.DTYPES``, on ``bench_project.inputs`` (particles
+    behind the camera and at NaN, corners clamped at all four edges,
+    distortion and an elevation correction): one launch, tiles, cols and rows
+    bit-equal where the corners agree, a corner moved only at a half-pixel
+    tie of the plain mean (``bench_project.check``); then the launch alone,
+    the wrapper and the plain version timed beside the byte bound
+    (``bench_project.measure``). Returns (the line, the records, the north
+    star's float32 first)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels import bench_project
+
+    records = []
+    for shape in bench_project.SHAPES:
+        for dtype in bench_project.DTYPES:
+            records.append(bench_project.measure(shape, dtype))
+            torch.cuda.empty_cache()
+    return "phase 30 observer front end against its plain version: " + "; ".join(
+        bench_project.describe(r) for r in records), records
 
 
 # Tiles that one block's shared memory cannot hold in float32, which the
@@ -1395,9 +1427,9 @@ def objects_to_tracks(cuda, card: str, n14: int = 10240, p14: int = 2048, t14: i
         runs14.append(tracks)
     launches14 = launch_counts()
     # Per run: the templates once and the search tiles every step; one
-    # resample and one spline read a step.
+    # resample, one spline read and one front end a step.
     if launches14 != {"median_highpass": 2 * t14, "systematic_resample": 2 * (t14 - 1),
-                      "bspline_sample": 2 * (t14 - 1)}:
+                      "bspline_sample": 2 * (t14 - 1), "project_extract": 2 * (t14 - 1)}:
         raise AssertionError(f"the kernels did not carry the object path: launches {launches14}")
     peak14 = torch.cuda.max_memory_allocated()
     fused = Tracks.from_multiple(runs14, ignore_nan=True)
@@ -1460,7 +1492,8 @@ def occluding_viewshed(devices, card: str, n26: int = 10240, p26: int = 2048, t2
     seconds = time.perf_counter() - start
     peak = torch.cuda.max_memory_allocated()
     launches = launch_counts()
-    if launches != {"median_highpass": t26, "systematic_resample": t26 - 1, "bspline_sample": t26 - 1}:
+    if launches != {"median_highpass": t26, "systematic_resample": t26 - 1, "bspline_sample": t26 - 1,
+                    "project_extract": t26 - 1}:
         raise AssertionError(f"phase 26: the kernels did not carry the run: launches {launches}")
     out = stacked(outputs)
     valid = out["valid"].cpu().numpy() > 0  # (t26 - 1, n26): step t at row t - 1
@@ -2400,9 +2433,9 @@ def two_observers(cuda, workdir: str, n_steps: int = 1000, n_points: int = 10240
     # Each observer's templates once, then one launch a step on the 2 x
     # 10,240 stacked search tiles (both observers are scored every step and
     # the log likelihood masked); one resample and one spline read of the
-    # stacked surfaces a step.
+    # stacked surfaces a step, and one front end for both observers.
     expected = {"median_highpass": 2 + (n_steps - 1), "systematic_resample": n_steps - 1,
-                "bspline_sample": n_steps - 1}
+                "bspline_sample": n_steps - 1, "project_extract": n_steps - 1}
     if stabilized["launches"] != expected:
         raise AssertionError(f"phase 25: the kernels did not carry the stabilized run: {stabilized['launches']},"
                              f" expected {expected}")
@@ -2542,9 +2575,9 @@ def mesh_phase(camera, frames, points_xy, cuda, trace_dir: str, n_slices: int = 
     out_mesh, seconds_mesh = run(trackers["mesh"])
     launches = launch_counts()
     # One template high-pass a slice, then each step one high-pass, one
-    # resample and one spline read a slice.
+    # resample, one spline read and one front end a slice.
     if launches != {"median_highpass": n_slices * (n_steps + 1), "systematic_resample": n_slices * n_steps,
-                    "bspline_sample": n_slices * n_steps}:
+                    "bspline_sample": n_slices * n_steps, "project_extract": n_slices * n_steps}:
         raise AssertionError(f"the mesh run launched {launches}, not {n_slices} of each kernel a step")
     out_none, seconds_none = run(trackers["none"])
     diffs = {k: float((out_mesh[k] - out_none[k]).abs().max()) for k in out_none}
@@ -2758,7 +2791,8 @@ def process_phase(cuda, outdir: str, worlds=(1, 2, 4), widths=tuple(PROCESS_WIDT
                 raise AssertionError(f"phase 21 {world} processes, {width}: the all_reduce differs by rank: {totals}")
             for rank, r in enumerate(ranks):
                 counted = r[width]["launches"]
-                if counted["median_highpass"] < t + 1 or counted["systematic_resample"] != t or counted["bspline_sample"] != t:
+                if (counted["median_highpass"] < t + 1 or counted["systematic_resample"] != t
+                        or counted["bspline_sample"] != t or counted["project_extract"] != t):
                     raise AssertionError(f"phase 21 process {rank} of {world}, {width}: launches {r[width]['launches']}")
             means = np.load(os.path.join(outdir, f"{width.replace(' ', '')}_{world}.npy"))
             if means.shape != (t, n, 6) or not np.isfinite(means).all():
@@ -2769,12 +2803,12 @@ def process_phase(cuda, outdir: str, worlds=(1, 2, 4), widths=tuple(PROCESS_WIDT
             # Each pass starts at a barrier: the slowest rank's seconds are the pass's.
             seconds = min(max(r[width]["seconds"][i] for r in ranks) for i in range(2))
             peaks = "/".join(f"{r[width]['peak'] / 2**30:.2f}" for r in ranks)
-            counts = "/".join("{median_highpass}+{systematic_resample}+{bspline_sample}".format(**r[width]["launches"])
-                              for r in ranks)
+            counts = "/".join("{median_highpass}+{systematic_resample}+{bspline_sample}+{project_extract}".format(
+                **r[width]["launches"]) for r in ranks)
             parts.append(
                 f"{world} process{'es' if world > 1 else ''} at {width}'s {n}x{p}x{t}:"
                 f" {n * t / seconds:.1f} point-steps/s ({seconds:.3f} s, the slowest rank of the better pass),"
-                f" peak {peaks} GiB a rank, launches (high-pass+resample+spline) a rank {counts},"
+                f" peak {peaks} GiB a rank, launches (high-pass+resample+spline+front end) a rank {counts},"
                 f" against 1 process step 1 {bounds[0]:.3g}, median point {bounds[1]:.3g}, worst point {bounds[2]:.3g},"
                 f" {parting} points apart by over 1e-3"
             )
@@ -2997,7 +3031,7 @@ def precision_trackers(camera, frames, points_xy, cuda, n_particles: int = 2048,
         out, seconds = run_tracker(tracker, frames[: n_steps + 1], seed=2)
         launches[name] = launch_counts()
         if (launches[name]["median_highpass"] < n_steps + 1 or launches[name]["systematic_resample"] != n_steps
-                or launches[name]["bspline_sample"] != n_steps):
+                or launches[name]["bspline_sample"] != n_steps or launches[name]["project_extract"] != n_steps):
             raise AssertionError(f"phase 23 {name}: the kernels did not carry the run: {launches[name]}")
         peak = torch.cuda.max_memory_allocated()
         if out["mean"].dtype != dtype or not torch.isfinite(out["mean"]).all():
@@ -3073,6 +3107,10 @@ def eager_steps(tracker):
             del part._advance
 
 
+#: Seconds a profiled step waits after the profiler starts (:func:`profile_graphed_step`).
+PROFILE_LEAD_S = 0.2
+
+
 def profile_graphed_step(tracker, first, frame, dt, init=None, **kwargs) -> dict:
     """One eager ``step`` and one replayed step (``_advance`` after its
     warm-up step and capture) from ``first``'s state under the profiler:
@@ -3086,6 +3124,11 @@ def profile_graphed_step(tracker, first, frame, dt, init=None, **kwargs) -> dict
     def profiled(fn):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # A profile opened late in a process that has profiled before can
+            # miss the records of the first kernels it sees, more of them the
+            # longer the process has run; with this lead, every profiled replay
+            # of phase 27 kept all of its kernels (PERF.md, sections 6 and 7).
+            time.sleep(PROFILE_LEAD_S)
             start = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -3118,7 +3161,7 @@ def graphs_phase(shapes: dict) -> Tuple[List[str], dict]:
     bit-equal to each other and each graphed run to them (every step's
     means, sigmas and validity, the final particles and weights), each
     kernel's launches are equal across the four, and the replay's profile
-    shows the three kernels' names where the profiler sees the card. Returns
+    shows the four kernels' names where the profiler sees the card. Returns
     (one line a shape, each kernel's launches in each shape's first graphed
     run)."""
     import torch
@@ -3193,9 +3236,11 @@ def _graphs_shape(name: str, spec: dict, captures: list, launches: dict) -> str:
         raise AssertionError(f"phase 27 {name}: no cudaGraphLaunch in a replayed step: {replay}")
     if replay["busy_ms"] is not None:
         names = " ".join(replay["kernels"])
-        if ("systematic_resample_kernel" not in names or "spline_sample_kernel" not in names
-                or not re.search(r"(separable|generic)\w*_kernel", names)):
-            raise AssertionError(f"phase 27 {name}: the kernels are not among the replay's: {replay['kernels'][:20]}")
+        missing = [k for k in (r"project_extract_kernel", r"systematic_resample_kernel", r"spline_sample_kernel",
+                               r"(separable|generic)\w*_kernel") if not re.search(k, names)]
+        if missing:
+            raise AssertionError(f"phase 27 {name}: {missing} not among the replay's {len(replay['kernels'])} kernels:"
+                                 f" {[kernel_label(k) for k in replay['kernels']]}")
 
     n, steps = spec["points"], spec["steps"]
 
@@ -3210,7 +3255,7 @@ def _graphs_shape(name: str, spec: dict, captures: list, launches: dict) -> str:
         + f"; every step's means, sigmas, validity and the final particles and weights bit-equal in all four"
         f" runs (eager against eager too); launches {records[0]['launches']} in each; one eager step:"
         f" {describe_profile(profiles['eager'])}; one replayed step: {describe_profile(replay)}"
-        + ("" if replay["busy_ms"] is None else ", the three kernels among its kernels")
+        + ("" if replay["busy_ms"] is None else ", the four kernels among its kernels")
     )
 
 
@@ -3763,7 +3808,7 @@ def main() -> None:
         out, elapsed = run_tracker(tracker, frames, seed=seed)
         launches = launch_counts()
         if (launches["median_highpass"] < n_steps + 1 or launches["systematic_resample"] != n_steps
-                or launches["bspline_sample"] != n_steps):
+                or launches["bspline_sample"] != n_steps or launches["project_extract"] != n_steps):
             raise AssertionError(f"the kernels did not carry the main path: launches {launches}")
         seconds = min(seconds, elapsed)
     peak = torch.cuda.max_memory_allocated()
@@ -3885,7 +3930,7 @@ def main() -> None:
         # observer 1's templates at the start and observer 2's at step 10;
         # one resample and one spline read of the stacked surfaces a step.
         if (launches8["median_highpass"] < t8 - 1 + 2 or launches8["systematic_resample"] != t8 - 1
-                or launches8["bspline_sample"] != t8 - 1):
+                or launches8["bspline_sample"] != t8 - 1 or launches8["project_extract"] != t8 - 1):
             raise AssertionError(f"the kernels did not carry the Columbia run: launches {launches8}")
         seconds8 = min(seconds8, elapsed)
     peak8 = torch.cuda.max_memory_allocated()
@@ -4175,6 +4220,10 @@ def main() -> None:
     line29, records29 = spline_phase(cuda)
     say(line29, flush=True)
 
+    # Phase 30: the observer front-end kernel at the benchmark cells' shapes.
+    line30, records30 = project_phase()
+    say(line30, flush=True)
+
     # The kernels at phase 8's shapes; ``launches`` are phase 20's (the
     # tracker in four mesh slices; phases 18-19 launch neither), and
     # ``launches_by_path`` every main path's, each counted from 0 just before
@@ -4194,10 +4243,15 @@ def main() -> None:
     # pixel, none, and some 60 operations a particle, so bytes bind. No
     # single PyTorch call computes a median filter, this gather or a spline
     # at scattered points: library_ms null. The spline kernel replaces no
-    # Pallas kernel (the reference reads the spline by XLA ops).
+    # Pallas kernel (the reference reads the spline by XLA ops). The front
+    # end reads x, y, z and the weight, writes each observer's cols, rows
+    # and tiles and reads each frame once (``bench_project.project_bytes``);
+    # some 100 instructions a particle and observer, under the bytes; no PyTorch
+    # call computes it; it replaces no Pallas kernel either.
     main_hp = hp_times[((20480, 31, 31), (5, 5))]
     main_rs = rs_times[(10240, 2048)]
     main_sp = next(r for r in records29 if r["shape"] == [20480, 17, 17, 2048] and r["dtype"] == "float32")
+    main_pe = records30[0]
     bound_hp = 2 * 20480 * 31 * 31 * 4 / HBM_BYTES_PER_S * 1e3
     bound_rs = 10240 * 2048 * 60 / HBM_BYTES_PER_S * 1e3
     by_path = {
@@ -4292,6 +4346,16 @@ def main() -> None:
             "ms": main_sp["ms"], "plain_ms": main_sp["plain_ms"], "bound_ms": main_sp["bound_ms"],
             "bound_by": "bytes", "bound_share": main_sp["bound_share"], "library_ms": None,
             "shape": main_sp["shape"], "launches_by_path": by_path["bspline_sample"], "dtypes": records29,
+        },
+        {
+            "name": "project_extract", "route": "cuda",
+            "source": "glimpse_tpu_torch/csrc/project.cu", "replaces": None,
+            "launches": launches20["project_extract"],
+            "max_abs_err": max(r["max_abs_err"] for r in records30), "ties": sum(r["ties"] for r in records30),
+            "points": sum(r["points"] for r in records30),
+            "ms": main_pe["ms"], "plain_ms": main_pe["plain_ms"], "bound_ms": main_pe["bound_ms"],
+            "bound_by": "bytes", "bound_share": main_pe["bound_share"], "library_ms": None,
+            "shape": main_pe["shape"], "launches_by_path": by_path["project_extract"], "dtypes": records30,
         },
     ]}))
     print(json.dumps({

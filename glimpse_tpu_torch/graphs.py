@@ -65,9 +65,10 @@ class Graph:
     graph's pool, which every replay overwrites. ``kernels`` are the port's
     kernel wrappers (``kernels.highpass.median_highpass``,
     ``kernels.resample.systematic_resample``,
-    ``kernels.spline.bspline_sample``): each counts the launches made under
-    capture in its ``captured``, and each replay adds them to its
-    ``launches``. ``name`` says in an error what failed to capture.
+    ``kernels.spline.bspline_sample``, ``kernels.project.project_extract``):
+    each counts the launches made under capture in its ``captured``, and
+    each replay adds them to its ``launches``. ``name`` says in an error
+    what failed to capture.
 
     While :func:`profiling.enabled`, the capture is the span
     ``graph.capture`` (``name`` its program) and counts in

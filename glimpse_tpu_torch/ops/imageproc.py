@@ -1,5 +1,5 @@
-"""Tile processing on tensors: grayscale, normalization, histogram matching
-and the median high-pass.
+"""Tile processing on tensors: tile extraction, grayscale, normalization,
+histogram matching and the median high-pass.
 
 The counterpart of :mod:`glimpse_tpu.ops.imageproc`. Every function works on
 the device of the tensor it is given and returns its dtype (float32,
@@ -12,6 +12,14 @@ also those outside the kernel's domain.
 from typing import Tuple
 
 import torch
+
+
+def extract_tiles(image, corners, size: Tuple[int, int]):
+    """Tiles (N, th, tw) of an image (H, W) at integer upper-left corners (N, 2)."""
+    th, tw = size
+    rows = corners[:, 0, None] + torch.arange(th, device=image.device)
+    cols = corners[:, 1, None] + torch.arange(tw, device=image.device)
+    return image[rows[:, :, None], cols[:, None, :]]
 
 
 def grayscale(tile):

@@ -320,8 +320,9 @@ def report() -> dict:
     wrappers' own counts come in as
     ``kernel.highpass.launches``, ``kernel.highpass.captured``,
     ``kernel.resample.launches``, ``kernel.resample.captured``,
-    ``kernel.spline.launches`` and ``kernel.spline.captured``."""
-    from .kernels import highpass, resample, spline
+    ``kernel.spline.launches``, ``kernel.spline.captured``,
+    ``kernel.project.launches`` and ``kernel.project.captured``."""
+    from .kernels import highpass, project, resample, spline
 
     read_device_spans()
     registry = _REGISTRY
@@ -335,7 +336,7 @@ def report() -> dict:
         }
     counters = dict(registry.counters)
     for label, kernel in (("highpass", highpass.median_highpass), ("resample", resample.systematic_resample),
-                          ("spline", spline.bspline_sample)):
+                          ("spline", spline.bspline_sample), ("project", project.project_extract)):
         counters[f"kernel.{label}.launches"] = kernel.launches
         counters[f"kernel.{label}.captured"] = kernel.captured
     return {"spans": spans, "counters": counters}

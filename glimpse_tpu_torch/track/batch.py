@@ -5,8 +5,9 @@ The counterpart of :mod:`glimpse_tpu.track.batch` on one device. One step:
 1. evolve the particles (cartesian, cylindrical, tangent or
    tangent-cylindrical motion) and latch each point's validity (all finite,
    and on visible viewshed cells when there is a viewshed);
-2. per observer, project the particles through its camera and cut a search
-   tile at each point's weighted-mean projection;
+2. for every observer, project the particles through its camera and cut a
+   search tile at each point's weighted-mean projection (kernel
+   ``project_extract``, one launch for all observers);
 3. on the (O*N) tiles stacked observer-major: normalize, match each tile's
    histogram to its template's quantile table and take the median high-pass
    (kernel ``median_highpass``, one launch for all observers, for the
@@ -46,6 +47,7 @@ import torch
 
 from .. import graphs, profiling
 from ..kernels import highpass as highpass_kernel
+from ..kernels import project as project_kernel
 from ..kernels import resample as resample_kernel
 from ..kernels import spline as spline_kernel
 from ..kernels.highpass import highpass as routed_highpass
@@ -488,14 +490,6 @@ def _gather_rows(particles, weights, idx):
     return pw[..., :6].contiguous(), pw[..., 6].contiguous()
 
 
-def _extract_tiles(image, corners, size: Tuple[int, int]):
-    """Tiles (N, th, tw) of an image (H, W) at integer upper-left corners (N, 2)."""
-    th, tw = size
-    rows = corners[:, 0, None] + torch.arange(th, device=image.device)
-    cols = corners[:, 1, None] + torch.arange(tw, device=image.device)
-    return image[rows[:, :, None], cols[:, None, :]]
-
-
 @functools.lru_cache(maxsize=8)
 def _quantile_taps(n: int, K: int, device, dtype):
     """Two-tap linear interpolation of a K-entry quantile table of ``dtype``
@@ -563,39 +557,6 @@ def _prepare_template_tiles(tiles, highpass_size, n_quantiles: int):
     return routed_highpass(t, highpass_size), values[:, _template_quantile_index(h * w, n_quantiles, tiles.device)]
 
 
-def _project_and_extract(image, camera_vector, correction, particles, template_duv, w_norm,
-                         cfg: BatchConfig):
-    """One observer's front end: project the particles, cut each point's
-    search tile around its weighted-mean projection.
-
-    Returns (search tiles (N, sh, sw), fractional SSE-surface indices cols
-    and rows (N, P)). A particle behind the camera projects far outside
-    (-1e6) before the box corners are clamped into the image.
-    """
-    with profiling.span("ops.project_extract", particles.device):
-        th, tw = cfg.template_size
-        sh, sw = cfg.search_size
-        H, W = image.shape
-        u, v = projection.project_planes(
-            camera_vector, particles[..., 0], particles[..., 1], particles[..., 2],
-            correction=correction,
-        )
-        u = torch.nan_to_num(u, nan=-1e6)
-        v = torch.nan_to_num(v, nan=-1e6)
-        u_mean = torch.sum(u * w_norm, dim=1)
-        v_mean = torch.sum(v * w_norm, dim=1)
-        # torch.round rounds half to even, as the reference's jnp.round.
-        corner_col = torch.round(u_mean - sw * 0.5).long().clamp(0, W - sw)
-        corner_row = torch.round(v_mean - sh * 0.5).long().clamp(0, H - sh)
-        search = _extract_tiles(image, torch.stack([corner_row, corner_col], dim=-1), (sh, sw))
-        # SSE surface origin in image coordinates (cell centers at +0.5).
-        sse_left = corner_col.to(cfg.dtype) + (tw * 0.5 - 0.5) + template_duv[:, 0]
-        sse_top = corner_row.to(cfg.dtype) + (th * 0.5 - 0.5) + template_duv[:, 1]
-        cols = u - sse_left[:, None] - 0.5
-        rows = v - sse_top[:, None] - 0.5
-        return search, cols, rows
-
-
 def _sample_sse_surface(sse, rows_c, cols_c, cfg: BatchConfig):
     """SSE surfaces (B, oh, ow) at clamped indices (B, P): the cubic
     B-spline read as ``cfg.sse_sample_mode`` says (order 3), or bilinear
@@ -645,9 +606,10 @@ def observer_log_likelihoods_multi(images, camera_vectors, corrections, sigmas, 
                                    obs_mask=None):
     """Sum over observers of the per-particle negative log likelihood (N, P).
 
-    The front end (projection, search corners, tile extraction) runs per
-    observer; the tile pipeline (histogram match, high-pass, SSE, spline)
-    runs once on the (O*N) tiles stacked observer-major. Particles whose
+    The front end (projection, search corners, tile extraction) is one call
+    of ``kernels.project.project_extract`` for all observers, one launch on a
+    card; the tile pipeline (histogram match, high-pass, SSE, spline) runs
+    once on the (O*N) tiles it stacks observer-major. Particles whose
     SSE index falls outside the surface are clamped to it and pay a
     quadratic distance penalty. ``obs_mask`` (O,) multiplies each observer's
     term: 0 for an observer without an image this step.
@@ -661,17 +623,13 @@ def observer_log_likelihoods_multi(images, camera_vectors, corrections, sigmas, 
     th, tw = cfg.template_size
     sh, sw = cfg.search_size
     oh, ow = sh - th + 1, sw - tw + 1
-    w_norm = weights / torch.sum(weights, dim=-1, keepdim=True)
-    fronts = [
-        _project_and_extract(
-            images[o], camera_vectors[o], corrections[o], particles, template_duv[o], w_norm, cfg
+    with profiling.span("ops.project_extract", particles.device):
+        search, cols, rows = project_kernel.project_extract(
+            images, camera_vectors, corrections, particles, weights, template_duv, cfg.template_size,
+            cfg.search_size,
         )
-        for o in range(O)
-    ]
-    search, cols, rows = (torch.cat(parts, dim=0) for parts in zip(*fronts))
     # The (O * N, P) planes are the step's largest temporaries: each is
     # dropped once used, so that few stand at once.
-    del fronts, w_norm
     search = _prepare_search_tiles(search, template_table.reshape(O * N, -1), cfg.highpass_size)
     with profiling.span("ops.sse", particles.device):
         sse = ncc.sse_map_batched(search, templates.reshape(O * N, th, tw)) * (1.0 / (th * tw))
@@ -817,7 +775,8 @@ class StepProgram:
     """
 
     #: The kernel wrappers whose launches a replay adds to their counts.
-    KERNELS = (highpass_kernel.median_highpass, resample_kernel.systematic_resample, spline_kernel.bspline_sample)
+    KERNELS = (highpass_kernel.median_highpass, resample_kernel.systematic_resample, spline_kernel.bspline_sample,
+               project_kernel.project_extract)
 
     def __init__(self, tracker: "BatchTracker", state: BatchState, inputs: dict) -> None:
         self.tracker = tracker
@@ -972,7 +931,7 @@ class BatchTracker:
         corner_col = torch.round(uv[:, 0] - tw * 0.5).long().clamp(0, W - tw)
         corner_row = torch.round(uv[:, 1] - th * 0.5).long().clamp(0, H - th)
         corners = torch.stack([corner_row, corner_col], dim=-1)
-        tiles = _extract_tiles(image, corners, (th, tw))
+        tiles = imageproc.extract_tiles(image, corners, (th, tw))
         hp, table = _prepare_template_tiles(tiles, cfg.highpass_size, cfg.n_quantiles)
         offset = torch.tensor([tw * 0.5, th * 0.5], dtype=cfg.dtype, device=image.device)
         # uv is float32 (the cameras' type) or wider, so the offsets are too,

@@ -775,8 +775,8 @@ def test_graphed_run_equals_the_step_loop_on_card(cuda, monkeypatch, entry, name
         out = {k: torch.cat([o[k] for o in outputs]) for k in outputs[0]}
     assert (median_highpass.launches - before[0], systematic_resample.launches - before[1]) == want_launches
     assert len(seen["built"]) == 1 and seen["built"][0].graph is not None and seen["calls"] == T - 3
-    # One high-pass, one resample and, in the einsum mode, one spline read a replay.
-    assert seen["built"][0].graph.launches == (1, 1, 1 if mode == "einsum" else 0)
+    # One high-pass, one resample, in the einsum mode one spline read, and one front end a replay.
+    assert seen["built"][0].graph.launches == (1, 1, 1 if mode == "einsum" else 0, 1)
     for k in want:
         assert torch.equal(out[k], want[k]), k
     for field in batch.STATE_FIELDS:
@@ -1239,3 +1239,78 @@ def test_uncapturable_programs_raise_on_card(cuda) -> None:
     for _ in range(3):
         assert torch.equal(later(), x * 2)
     assert later.graph is not None
+
+
+# The front end: the benchmark cells' (cut to fewer points), a particle count
+# past one block's (taken in chunks) and a small odd one: (O, N, P, H, W,
+# th, tw, sh, sw).
+PROJECT_CARD_SHAPES = ((2, 2048, 2048, 512, 512, 15, 15, 31, 31), (1, 1024, 2048, 1024, 1024, 15, 15, 41, 41),
+                       (1, 2048, 2048, 512, 512, 15, 15, 41, 41), (2, 64, 5000, 128, 96, 5, 7, 21, 17),
+                       (3, 37, 100, 40, 50, 3, 3, 9, 11))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["float32", "bfloat16", "float16", "float64"])
+@pytest.mark.parametrize("shape", PROJECT_CARD_SHAPES, ids=["x".join(map(str, s[:3])) for s in PROJECT_CARD_SHAPES])
+def test_project_kernel_equals_its_plain_version(cuda, shape, name) -> None:
+    """Particles behind the camera and at NaN, corners clamped at all four
+    edges, distortion and an elevation correction
+    (``bench_project.inputs``), in each particle type: one launch, and
+    ``bench_project.check``: tiles, cols and rows bit-equal to the plain
+    version where the corners agree, a corner moved only at a half-pixel
+    tie of the plain mean (the two sum the weighted means in other orders)."""
+    from glimpse_tpu_torch.kernels import bench_project, project
+
+    args = bench_project.inputs(shape, getattr(torch, name), cuda, seed=sum(shape))
+    before = project.project_extract.launches
+    got = project.project_extract(**args)
+    assert project.project_extract.launches == before + 1
+    want = project.project_extract_plain(**args)
+    means = bench_project.plain_means(**args)
+    held = bench_project.check(got, want, means, args["search_size"])
+    assert held["ties"] <= max(1, held["points"] // 1000)
+    O, H, W = args["images"].shape
+    sh, sw = args["search_size"]
+    assert (means[:, 0] < sw / 2).any() and (means[:, 0] > W - sw / 2).any()
+    assert (means[:, 1] < sh / 2).any() and (means[:, 1] > H - sh / 2).any()
+    assert (want[1] < -1e5).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, duv", [("bfloat16", "bfloat16"), ("float16", "float16"), ("float32", "float32")])
+def test_project_kernel_takes_narrow_offsets(cuda, name, duv) -> None:
+    """Template offsets of the particles' own type (a 16-bit tracker whose
+    observers all start late holds them so), as the plain version promotes
+    them."""
+    from glimpse_tpu_torch.kernels import bench_project, project
+
+    shape = (2, 512, 700, 200, 160, 7, 9, 17, 19)
+    args = bench_project.inputs(shape, getattr(torch, name), cuda, seed=11, duv_dtype=getattr(torch, duv))
+    got = project.project_extract(**args)
+    want = project.project_extract_plain(**args)
+    assert got[1].dtype == project.compute_dtype(getattr(torch, name))
+    held = bench_project.check(got, want, bench_project.plain_means(**args), args["search_size"])
+    assert held["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_project_kernel_captured_equals_eager(cuda) -> None:
+    """A call captured in a CUDA graph counts in ``captured``; each replay
+    adds one launch and writes what an eager call writes."""
+    from glimpse_tpu_torch import graphs
+    from glimpse_tpu_torch.kernels import bench_project, project
+
+    args = bench_project.inputs(PROJECT_CARD_SHAPES[0], torch.float32, cuda, seed=5)
+    eager = project.project_extract(**args)
+    captured, launches = project.project_extract.captured, project.project_extract.launches
+    graph = graphs.Graph(lambda: project.project_extract(**args), cuda, "the front end",
+                         kernels=(project.project_extract,))
+    assert project.project_extract.captured == captured + 1 and project.project_extract.launches == launches
+    for replay in range(1, 3):
+        for out in graph.outputs:
+            out.zero_()
+        outs = graph.replay()
+        torch.cuda.synchronize()
+        assert project.project_extract.launches == launches + replay
+        for out, want in zip(outs, eager):
+            assert torch.equal(out, want)

@@ -173,18 +173,19 @@ def test_tracing_records_every_span_nested_under_its_parent(tmp_path) -> None:
                 parent if isinstance(parent, tuple) else (parent,)) for s, e in by_name[p]), name
     # Two calls of 4 steps: in each the key's first step and the late
     # observer's template step (step 3) run eagerly, steps 2 and 4 through
-    # the step program; two observers each project in every step.
+    # the step program; one front end projects both observers every step.
     counters = report["counters"]
     assert counters["entry.calls"] == 2 and spans["entry.call"]["calls"] == 2
     assert counters["entry.eager_steps"] == 4 == spans["entry.eager_step"]["calls"]
     assert counters["entry.replays"] == 4 == spans["entry.replay"]["calls"]
-    assert spans["step"]["calls"] == 8 and spans["ops.project_extract"]["calls"] == 16
+    assert spans["step"]["calls"] == 8 and spans["ops.project_extract"]["calls"] == 8
     assert spans["step.template"]["calls"] == 2 and spans["entry.collect"]["calls"] == 1
     assert counters["feeder.uploads"] == 5 == spans["feeder.upload"]["calls"]
     assert counters["feeder.bytes"] == frames.nbytes
     assert "graph.captures" not in counters  # no graph on the CPU
     for key in ("kernel.highpass.launches", "kernel.highpass.captured", "kernel.resample.launches",
-                "kernel.resample.captured", "kernel.spline.launches", "kernel.spline.captured"):
+                "kernel.resample.captured", "kernel.spline.launches", "kernel.spline.captured",
+                "kernel.project.launches", "kernel.project.captured"):
         assert key in counters
     # Nothing ran on a card: no device time.
     assert all(s["replay_samples"] == 0 and s["eager_device_s"] == 0 for s in spans.values())
