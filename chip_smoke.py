@@ -385,12 +385,12 @@ def highpass_mismatch(got, want) -> float:
 
 
 def kernel_wrappers() -> dict:
-    """The port's kernel wrappers by name, the order of the ``kernels``
-    JSON line; each counts its launches in ``launches``."""
-    from glimpse_tpu_torch.kernels import highpass, project, resample, spline
+    """The port's registered kernel wrappers by name, in the registry's
+    order, the order of the ``kernels`` JSON line; each counts its launches
+    in ``launches``."""
+    from glimpse_tpu_torch.kernels import _build
 
-    return {"median_highpass": highpass.median_highpass, "systematic_resample": resample.systematic_resample,
-            "bspline_sample": spline.bspline_sample, "project_extract": project.project_extract}
+    return {kernel.wrapper.__name__: kernel.wrapper for kernel in _build.KERNELS.values()}
 
 
 def reset_launches() -> None:

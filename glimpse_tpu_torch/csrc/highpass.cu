@@ -1114,13 +1114,6 @@ extern "C" int glimpse_median_highpass_typed(const void* in, void* out, int n, i
   return glimpse_median_highpass_route(in, out, n, h, w, kh, kw, dtype, kAuto, stream);
 }
 
-// The float32 entry, with the signature every build before the typed entry
-// exported (kernels/bench_highpass.py times sources through the typed one).
-extern "C" int glimpse_median_highpass(const float* in, float* out, int n, int h, int w, int kh, int kw,
-                                       void* stream) {
-  return glimpse_median_highpass_typed(in, out, n, h, w, kh, kw, kFloat32, stream);
-}
-
 extern "C" const char* glimpse_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

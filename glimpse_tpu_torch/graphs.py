@@ -26,6 +26,7 @@ from typing import Callable, Iterable
 import torch
 
 from . import profiling
+from .kernels import _build
 
 #: Per thread, per card: the side stream every program captures and replays
 #: on, and the first graph captured there, whose memory pool the later ones
@@ -62,13 +63,11 @@ class Graph:
     (:func:`capture_context`), with ``generators`` registered so that a
     replay draws what the eager body would and leaves each generator where
     it would. ``body()``'s return value is :attr:`outputs`: tensors in the
-    graph's pool, which every replay overwrites. ``kernels`` are the port's
-    kernel wrappers (``kernels.highpass.median_highpass``,
-    ``kernels.resample.systematic_resample``,
-    ``kernels.spline.bspline_sample``, ``kernels.project.project_extract``):
-    each counts the launches made under capture in its ``captured``, and
-    each replay adds them to its ``launches``. ``name`` says in an error
-    what failed to capture.
+    graph's pool, which every replay overwrites. :attr:`launches` holds, by
+    label, the launches each registered kernel (``kernels._build.KERNELS``)
+    counted in its wrapper's ``captured`` during the capture, and each
+    replay adds them to the wrapper's ``launches``. ``name`` says in an
+    error what failed to capture.
 
     While :func:`profiling.enabled`, the capture is the span
     ``graph.capture`` (``name`` its program) and counts in
@@ -78,14 +77,13 @@ class Graph:
     replays.
     """
 
-    def __init__(self, body: Callable, device, name: str, kernels: Iterable = (), generators: Iterable = ()) -> None:
+    def __init__(self, body: Callable, device, name: str, generators: Iterable = ()) -> None:
         self.device = torch.device(device)
-        self.kernels = tuple(kernels)
         self.graph = torch.cuda.CUDAGraph()
         for generator in generators:
             self.graph.register_generator_state(generator)
         self.replays = 0
-        before = [kernel.captured for kernel in self.kernels]
+        before = {label: kernel.wrapper.captured for label, kernel in _build.KERNELS.items()}
         collecting = gc.isenabled()
         profiling.count("graph.captures")
         with profiling.span("graph.capture", program=name), profiling.capturing() as self.spans, \
@@ -111,7 +109,8 @@ class Graph:
                     gc.enable()
             if context[1] is None:
                 context[1] = self.graph
-        self.launches = tuple(kernel.captured - n for kernel, n in zip(self.kernels, before))
+        self.launches = {label: kernel.wrapper.captured - before.get(label, 0)
+                         for label, kernel in _build.KERNELS.items()}
 
     def _capture(self, body: Callable, name: str, context: list) -> None:
         """``body()`` captured on the current stream into ``context``'s
@@ -145,8 +144,8 @@ class Graph:
                 self.graph.replay()
             current.wait_stream(self.stream)
         self.replays += 1
-        for kernel, n in zip(self.kernels, self.launches):
-            kernel.launches += n
+        for label, n in self.launches.items():
+            _build.KERNELS[label].wrapper.launches += n
         return self.outputs
 
 

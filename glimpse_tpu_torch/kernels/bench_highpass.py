@@ -25,7 +25,6 @@ global staged, on the same tiles of each of ROUTE_CASES, each output checked
 against the plain version; one line per case.
 """
 import ctypes
-import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -42,31 +41,10 @@ SHAPES = ((20480, 31, 31), (10240, 41, 41), (10240, 15, 15), (1024, 41, 41), (10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
 
 
-def _load(source: Path):
-    """The entry ``glimpse_median_highpass_typed`` of the library built from
-    ``source``."""
-    if source.resolve() == (_build.SOURCE_DIR / "highpass.cu").resolve():
-        lib = highpass._entry()[0]
-    else:
-        digest = hashlib.sha256(source.read_bytes() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-        path = _build.BUILD_DIR / "bench" / f"lib{source.stem}-{digest}.so"
-        if not path.exists():
-            path.parent.mkdir(parents=True, exist_ok=True)
-            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(path), str(source)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-        lib = ctypes.CDLL(str(path))
-    fn = lib.glimpse_median_highpass_typed
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _time(fn, tiles, out, reps: int = 20) -> float:
     n, h, w = tiles.shape
     stream = torch.cuda.current_stream().cuda_stream
-    code = highpass.DTYPE_CODES[tiles.dtype]
+    code = _build.DTYPE_CODES[tiles.dtype]
     return _time_launch(lambda: fn(tiles.data_ptr(), out.data_ptr(), n, h, w, 5, 5, code, stream), reps)
 
 
@@ -150,12 +128,9 @@ def pipe_rates(iters: int = 4096) -> dict:
     during each, the median block's cycles over the launch's event time (a
     lower bound: the launch's own time is in the denominator)."""
     source = _build.BUILD_DIR / "bench" / "pipe.cu"
-    lib = source.with_name("libpipe.so")
     source.parent.mkdir(parents=True, exist_ok=True)
     source.write_text(_PIPE_SOURCE)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)], check=True, capture_output=True)
-    run = ctypes.CDLL(str(lib)).pipe_run
-    run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    run = _build.load("pipe", source).pipe_run  # int pipe_run(int, void*, long long*, int, int)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     data = torch.rand(2 * (16 + 1024), device="cuda").view(torch.float64).abs()  # finite doubles in (0, 1)
     cycles = torch.zeros(sms, dtype=torch.int64, device="cuda")
@@ -164,7 +139,7 @@ def pipe_rates(iters: int = 4096) -> dict:
         for _ in range(2):  # the first launch warms up
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            code = run(kind, data.data_ptr(), cycles.data_ptr(), iters, sms)
+            code = run(kind, ctypes.c_void_p(data.data_ptr()), ctypes.c_void_p(cycles.data_ptr()), iters, sms)
             end.record()
             if code != 0:
                 raise RuntimeError(f"pipe_run({name}) failed: CUDA error {code}")
@@ -195,10 +170,7 @@ STAGED, GLOBAL = 1, 2  # csrc/highpass.cu's Route
 def time_routes(cases=ROUTE_CASES) -> None:
     """One line per case: both routes' ms in turns, each output held to the
     plain version bit for bit, beside the byte bound."""
-    lib = highpass._entry()[0]
-    fn = lib.glimpse_median_highpass_route
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("highpass", "glimpse_median_highpass_route")
     rng = np.random.default_rng(0)
     stream = torch.cuda.current_stream().cuda_stream
     for shape, size, dtype in cases:
@@ -208,7 +180,7 @@ def time_routes(cases=ROUTE_CASES) -> None:
         for route in (STAGED, GLOBAL, GLOBAL, STAGED):
             out = torch.empty_like(tiles)
             times[route].append(_time_launch(
-                lambda: fn(tiles.data_ptr(), out.data_ptr(), *shape, *size, highpass.DTYPE_CODES[dtype], route, stream)))
+                lambda: fn(tiles.data_ptr(), out.data_ptr(), *shape, *size, _build.DTYPE_CODES[dtype], route, stream)))
             if not torch.equal(out, want):
                 raise AssertionError(f"route {route} differs from the plain version at {shape} {size} {dtype}")
         bound = 2 * tiles.numel() * tiles.element_size() / HBM_BYTES_PER_S * 1e3
@@ -242,7 +214,7 @@ def main(argv) -> None:
         time_routes()
         return
     sources = [Path(a) for a in argv] or [_build.SOURCE_DIR / "highpass.cu"]
-    fns = [_load(s) for s in sources]
+    fns = [_build.entry("highpass", source=s) for s in sources]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"{card}; sources in order: {', '.join(map(str, sources))}", flush=True)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..ops import projection
-from . import project
+from . import _build, project
 from .bench_highpass import HBM_BYTES_PER_S, _time_launch
 
 #: The benchmark cells' front ends, (O, N, P, H, W, th, tw, sh, sw):
@@ -156,21 +156,13 @@ def check(got, want, means, search_size) -> dict:
 
 
 def _launcher(args: dict, outputs):
-    """A call of the kernel's C entry on ``args``, writing ``outputs``: its launch alone."""
-    lib, fn = project._entry()
-    tiles, cols, rows = outputs
-    images, cams, particles = args["images"], args["camera_vectors"], args["particles"]
-    weights, duv = args["weights"], args["template_duv"]
-    O, H, W = images.shape
-    N, P = weights.shape
-    (th, tw), (sh, sw) = args["template_size"], args["search_size"]
-    corrections = project._correction_constants(args["corrections"], cols.dtype)
-    totals = torch.sum(weights, dim=-1)
+    """A call of the kernel's C entry on the arguments
+    :func:`project.project_extract` launches it with, writing ``outputs``:
+    its launch alone."""
+    fn = _build.entry("project")
+    launch_args = project.launch_args(outputs, **args)
     stream = torch.cuda.current_stream().cuda_stream
-    return lambda: fn(particles.data_ptr(), weights.data_ptr(), totals.data_ptr(), cams.data_ptr(), duv.data_ptr(),
-                      images.data_ptr(), tiles.data_ptr(), cols.data_ptr(), rows.data_ptr(), N, O, P,
-                      particles.shape[2], H, W, th, tw, sh, sw, project.DTYPE_CODES[particles.dtype],
-                      images.element_size(), int(duv.dtype != particles.dtype), corrections, stream)
+    return lambda: fn(*_build.c_arguments(launch_args), stream)
 
 
 def measure(shape, dtype: torch.dtype) -> dict:

@@ -19,9 +19,6 @@ gives each source's times in order beside the bound
 checkout's kernel through its wrapper alone (chip_smoke phase 29).
 """
 import argparse
-import ctypes
-import hashlib
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -50,24 +47,6 @@ def spline_bytes(shape, dtype: torch.dtype) -> int:
     and each coefficient read once."""
     B, h, w, p = shape
     return B * p * 3 * coord_dtype(dtype).itemsize + B * h * w * dtype.itemsize
-
-
-def _entry(source: Path):
-    """The entry ``glimpse_spline_sample`` of the library built from ``source``."""
-    if source.resolve() == (_build.SOURCE_DIR / "spline.cu").resolve():
-        return spline._entry()[1]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = _build.BUILD_DIR / "bench" / f"lib{source.stem}-{digest}.so"
-    if not path.exists():
-        path.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(path), str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-    fn = ctypes.CDLL(str(path)).glimpse_spline_sample
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def inputs(shape, dtype, device, seed: int = 0):
@@ -104,7 +83,7 @@ def measure(shape, dtype: torch.dtype) -> dict:
 
 
 def bench(sources, dtypes) -> None:
-    entries = [_entry(Path(s)) for s in sources]
+    entries = [_build.entry("spline", source=Path(s)) for s in sources]
     print(torch.cuda.get_device_name(0), flush=True)
     for dtype in dtypes:
         for shape in SHAPES:
@@ -113,7 +92,7 @@ def bench(sources, dtypes) -> None:
             want = spline.bspline_sample_plain(coeffs, rows, cols)
             outs = [torch.empty_like(want) for _ in entries]
             stream = torch.cuda.current_stream().cuda_stream
-            codes = spline.DTYPE_CODES[coeffs.dtype], spline.DTYPE_CODES[rows.dtype]
+            codes = _build.DTYPE_CODES[coeffs.dtype], _build.DTYPE_CODES[rows.dtype]
 
             def launcher(fn, out):
                 return lambda: fn(coeffs.data_ptr(), rows.data_ptr(), cols.data_ptr(), out.data_ptr(), B, h, w, p,

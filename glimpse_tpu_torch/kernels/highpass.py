@@ -25,42 +25,23 @@ for each width: 16-bit tiles two to a register by packed min/max
 (``separable_packed``), float64 tiles without NaN tests and with NaN carried
 in a flag (``separable_nanflag``); the global route widens 16-bit tiles to
 float. Tiles are float32, float64, float16 or bfloat16, and the output has
-the input's type.
-
-``median_highpass.launches`` counts the kernel's launches. A call made while
-its stream is being captured into a CUDA graph launches nothing: it adds to
-``median_highpass.captured`` instead, and whoever replays the graph adds its
-captured launches to ``launches`` at each replay
-(:class:`glimpse_tpu_torch.track.batch.StepProgram`).
+the input's type. ``median_highpass.launches`` and ``.captured`` count
+the kernel's launches as :mod:`._build` says.
 """
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
 from ..ops.imageproc import highpass as median_highpass_plain
 from . import _build
+from ._build import DTYPE_CODES
 
 MAX_TAPS = 49
 # The windows with a kernel of their own (GLIMPSE_SEPARABLE_WINDOWS in
 # csrc/highpass.cu); the other windows run the generic kernel with their taps
 # padded to 9, 25 or 49.
 SEPARABLE = frozenset({(3, 3), (5, 5), (7, 7), (3, 7), (9, 5)})
-#: The element types the kernel takes, by the code csrc/highpass.cu's Dtype
-#: gives each.
-DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
-
-
-@functools.cache
-def _entry():
-    lib = _build.load("highpass")
-    fn = lib.glimpse_median_highpass_typed
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.glimpse_median_highpass_variant_typed.argtypes = [ctypes.c_int] * 6
-    lib.glimpse_median_highpass_variant_typed.restype = ctypes.c_char_p
-    return lib, fn
 
 
 def kernel_variant(size: Tuple[int, int], dtype: torch.dtype, shape: Tuple[int, int, int]) -> str:
@@ -70,8 +51,8 @@ def kernel_variant(size: Tuple[int, int], dtype: torch.dtype, shape: Tuple[int, 
     after the family on the route that reads from device memory, and
     ``_packed`` (16 bits) or ``_nanflag`` (float64) after a staged separable
     kernel's family (builds the library on first use)."""
-    lib, _ = _entry()
-    return lib.glimpse_median_highpass_variant_typed(*shape, *size, DTYPE_CODES[dtype]).decode()
+    variant = _build.entry("highpass", "glimpse_median_highpass_variant_typed")
+    return variant(*shape, *size, DTYPE_CODES[dtype]).decode()
 
 
 def covers(size: Tuple[int, int]) -> bool:
@@ -94,6 +75,13 @@ def highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torch.Tenso
     return median_highpass_plain(tiles, size)
 
 
+@_build.kernel(
+    "highpass", "glimpse_median_highpass_typed", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    entries={
+        "glimpse_median_highpass_variant_typed": (ctypes.c_char_p, [ctypes.c_int] * 6),
+        "glimpse_median_highpass_route": (ctypes.c_int, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    },
+)
 def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torch.Tensor:
     """``tile - median_{kh x kw}(tile)`` over a stack (N, h, w) of tiles of
     float32, float64, float16 or bfloat16, in the input's type.
@@ -120,23 +108,8 @@ def median_highpass(tiles: torch.Tensor, size: Tuple[int, int] = (5, 5)) -> torc
     N, h, w = tiles.shape
     if h == 0 or w == 0:
         raise ValueError(f"median_highpass takes tiles of at least one pixel, got {h}x{w}")
-    if tiles.device.type == "cpu":
+    if not _build.runs_kernel("highpass", tiles.device):
         return median_highpass_plain(tiles, size)
-    if tiles.device.type != "cuda":
-        raise ValueError(f"median_highpass runs on cpu or cuda, got {tiles.device}")
-    lib, fn = _entry()
     out = torch.empty_like(tiles)
-    with torch.cuda.device(tiles.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(tiles.data_ptr(), out.data_ptr(), N, h, w, kh, kw, DTYPE_CODES[tiles.dtype], stream)
-        capturing = torch.cuda.is_current_stream_capturing()
-    _build.check(lib, code, "median_highpass")
-    if capturing:
-        median_highpass.captured += 1
-    else:
-        median_highpass.launches += 1
+    _build.launch("highpass", tiles.device, tiles, out, N, h, w, kh, kw, DTYPE_CODES[tiles.dtype])
     return out
-
-
-median_highpass.launches = 0
-median_highpass.captured = 0

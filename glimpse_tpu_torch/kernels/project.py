@@ -23,16 +23,10 @@ weighted means are block reductions, summed in another order than
 ``torch.sum``'s, so a point's corner may differ from the plain version's
 on the card where the plain mean lies within float rounding of a half-pixel
 tie (round half to even); wherever the corners agree, tiles, cols and rows
-are bit-equal to it.
-
-``project_extract.launches`` counts the kernel's launches. A call made while
-its stream is being captured into a CUDA graph launches nothing: it adds to
-``project_extract.captured`` instead, and whoever replays the graph adds its
-captured launches to ``launches`` at each replay
-(:class:`glimpse_tpu_torch.track.batch.StepProgram`).
+are bit-equal to it. ``project_extract.launches`` and ``.captured`` count
+the kernel's launches as :mod:`._build` says.
 """
 import ctypes
-import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,22 +34,10 @@ import torch
 
 from ..ops import imageproc, projection
 from . import _build
+from ._build import DTYPE_CODES
 
-#: The particle (and weight) types the kernel takes, by the code
-#: csrc/project.cu's Dtype gives each.
-DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
 #: The most observers one launch takes (their corrections pass by value).
 MAX_OBSERVERS = 64
-
-
-@functools.cache
-def _entry():
-    lib = _build.load("project")
-    fn = lib.glimpse_project_extract
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 12
-                   + [ctypes.POINTER(ctypes.c_double), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib, fn
 
 
 def projections(camera_vector, correction, particles):
@@ -122,6 +104,11 @@ def _correction_constants(corrections: Sequence[Optional[Tuple[float, float]]], 
     return (ctypes.c_double * max(len(values), 1))(*values)
 
 
+@_build.kernel(
+    "project", "glimpse_project_extract",
+    [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 12
+    + [ctypes.POINTER(ctypes.c_double), ctypes.c_void_p],
+)
 def project_extract(images: torch.Tensor, camera_vectors: torch.Tensor, corrections, particles: torch.Tensor,
                     weights: torch.Tensor, template_duv: torch.Tensor, template_size: Tuple[int, int],
                     search_size: Tuple[int, int]):
@@ -146,7 +133,6 @@ def project_extract(images: torch.Tensor, camera_vectors: torch.Tensor, correcti
         )
     O, H, W = images.shape
     N, P = weights.shape
-    th, tw = template_size
     sh, sw = search_size
     if O > MAX_OBSERVERS:
         raise ValueError(f"project_extract takes at most {MAX_OBSERVERS} observers, got {O}")
@@ -165,39 +151,35 @@ def project_extract(images: torch.Tensor, camera_vectors: torch.Tensor, correcti
                          f" got {template_duv.dtype}")
     if len({t.device for t in (images, camera_vectors, particles, weights, template_duv)}) != 1:
         raise ValueError("project_extract takes tensors on one device")
-    if particles.device.type == "cpu":
+    if not _build.runs_kernel("project", particles.device):
         return project_extract_plain(images, camera_vectors, corrections, particles, weights, template_duv,
                                      template_size, search_size)
-    if particles.device.type != "cuda":
-        raise ValueError(f"project_extract runs on cpu or cuda, got {particles.device}")
     device = particles.device
     tiles = torch.empty((O * N, sh, sw), dtype=images.dtype, device=device)
     cols = torch.empty((O * N, P), dtype=dtype, device=device)
     rows = torch.empty((O * N, P), dtype=dtype, device=device)
     if O * N == 0:
         return tiles, cols, rows
+    _build.launch("project", device, *launch_args((tiles, cols, rows), images, camera_vectors, corrections,
+                                                  particles, weights, template_duv, template_size, search_size))
+    return tiles, cols, rows
+
+
+def launch_args(outputs, images, camera_vectors, corrections, particles, weights, template_duv, template_size,
+                search_size) -> tuple:
+    """The kernel's arguments, the stream aside, as :func:`_build.launch`
+    takes them (a tensor for each pointer), for a call of
+    :func:`project_extract` that writes ``outputs`` (tiles, cols, rows)."""
+    tiles, cols, rows = outputs
     images, camera_vectors, particles, weights, template_duv = (
         t.contiguous() for t in (images, camera_vectors, particles, weights, template_duv))
     # The weights' totals as the plain version sums them: summed in another
     # order, a 16-bit total could round to another value and move every
     # normalized weight.
     totals = torch.sum(weights, dim=-1)
-    lib, fn = _entry()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(particles.data_ptr(), weights.data_ptr(), totals.data_ptr(), camera_vectors.data_ptr(),
-                  template_duv.data_ptr(), images.data_ptr(), tiles.data_ptr(), cols.data_ptr(), rows.data_ptr(),
-                  N, O, P, particles.shape[2], H, W, th, tw, sh, sw, DTYPE_CODES[particles.dtype],
-                  images.element_size(),
-                  int(template_duv.dtype != particles.dtype), _correction_constants(corrections, dtype), stream)
-        capturing = torch.cuda.is_current_stream_capturing()
-    _build.check(lib, code, "project_extract")
-    if capturing:
-        project_extract.captured += 1
-    else:
-        project_extract.launches += 1
-    return tiles, cols, rows
-
-
-project_extract.launches = 0
-project_extract.captured = 0
+    O, H, W = images.shape
+    N, P = weights.shape
+    return (particles, weights, totals, camera_vectors, template_duv, images, tiles, cols, rows, N, O, P,
+            particles.shape[2], H, W, *template_size, *search_size, DTYPE_CODES[particles.dtype],
+            images.element_size(), int(template_duv.dtype != particles.dtype),
+            _correction_constants(corrections, cols.dtype))

@@ -5,16 +5,10 @@ Replaces the TPU kernel ``glimpse_tpu/kernels/resample_pallas.py``
 picks by device alone: a CPU tensor runs :func:`systematic_resample_plain`;
 a CUDA tensor launches the kernel, or raises. The thresholds are float32;
 particles and weights share one type of float32, float64, float16 or
-bfloat16 and are copied bit for bit.
-
-``systematic_resample.launches`` counts the kernel's launches. A call made
-while its stream is being captured into a CUDA graph launches nothing: it
-adds to ``systematic_resample.captured`` instead, and whoever replays the
-graph adds its captured launches to ``launches`` at each replay
-(:class:`glimpse_tpu_torch.track.batch.StepProgram`).
+bfloat16 and are copied bit for bit. ``systematic_resample.launches`` and
+``.captured`` count the kernel's launches as :mod:`._build` says.
 """
 import ctypes
-import functools
 
 import torch
 
@@ -26,15 +20,6 @@ MAX_PARTICLES = 232448 // 4  # one float32 threshold row per block's shared memo
 PAYLOAD_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
 
 
-@functools.cache
-def _entry():
-    lib = _build.load("resample")
-    fn = lib.glimpse_systematic_resample
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
 def systematic_resample_plain(t, particles, weights):
     """searchsorted-left on ``t``, clamped to P - 1, then a row gather."""
     idx = resampling.systematic_indices(t)
@@ -42,6 +27,8 @@ def systematic_resample_plain(t, particles, weights):
     return new_particles, weights.gather(1, idx)
 
 
+@_build.kernel("resample", "glimpse_systematic_resample",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 def systematic_resample(t: torch.Tensor, particles: torch.Tensor, weights: torch.Tensor):
     """Resample particles (N, P, 6) and weights (N, P) by a threshold table t (N, P).
 
@@ -72,27 +59,9 @@ def systematic_resample(t: torch.Tensor, particles: torch.Tensor, weights: torch
         raise ValueError(
             f"{P} particles do not fit one block's shared memory (at most {MAX_PARTICLES})"
         )
-    if t.device.type == "cpu":
+    if not _build.runs_kernel("resample", t.device):
         return systematic_resample_plain(t, particles, weights)
-    if t.device.type != "cuda":
-        raise ValueError(f"systematic_resample runs on cpu or cuda, got {t.device}")
-    lib, fn = _entry()
     out_particles = torch.empty_like(particles)
     out_weights = torch.empty_like(weights)
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(
-            t.data_ptr(), particles.data_ptr(), weights.data_ptr(),
-            out_particles.data_ptr(), out_weights.data_ptr(), N, P, particles.element_size(), stream,
-        )
-        capturing = torch.cuda.is_current_stream_capturing()
-    _build.check(lib, code, "systematic_resample")
-    if capturing:
-        systematic_resample.captured += 1
-    else:
-        systematic_resample.launches += 1
+    _build.launch("resample", t.device, t, particles, weights, out_particles, out_weights, N, P, particles.element_size())
     return out_particles, out_weights
-
-
-systematic_resample.launches = 0
-systematic_resample.captured = 0

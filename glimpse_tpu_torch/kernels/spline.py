@@ -15,25 +15,17 @@ it. A surface whose
 folded table one block's shared memory holds (about 238 x 238 cells in
 float32) is staged there; a larger one is read from device memory with the
 same arithmetic (:func:`route`). Both are bit-equal to the plain version on
-the card.
-
-``bspline_sample.launches`` counts the kernel's launches. A call made while
-its stream is being captured into a CUDA graph launches nothing: it adds to
-``bspline_sample.captured`` instead, and whoever replays the graph adds its
-captured launches to ``launches`` at each replay
-(:class:`glimpse_tpu_torch.track.batch.StepProgram`).
+the card. ``bspline_sample.launches`` and ``.captured`` count the kernel's
+launches as :mod:`._build` says.
 """
 import ctypes
-import functools
 
 import torch
 
 from ..ops.sampling import bspline_sample as bspline_sample_plain
 from . import _build
+from ._build import DTYPE_CODES
 
-#: The coefficient types the kernel takes, by the code csrc/spline.cu's
-#: Dtype gives each.
-DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
 #: The coordinate types it takes.
 COORD_DTYPES = (torch.float32, torch.float64)
 #: The most particles a surface may have: the kernel's grid splits a
@@ -41,25 +33,18 @@ COORD_DTYPES = (torch.float32, torch.float64)
 MAX_PARTICLES = 65535 * 2048
 
 
-@functools.cache
-def _entry():
-    lib = _build.load("spline")
-    fn = lib.glimpse_spline_sample
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.glimpse_spline_route.argtypes = [ctypes.c_int] * 3
-    lib.glimpse_spline_route.restype = ctypes.c_char_p
-    return lib, fn
-
-
 def route(shape, dtype: torch.dtype) -> str:
     """``'staged'`` or ``'global'``: the route a CUDA call on surfaces of
     this (h, w) shape and coefficient type takes (builds the library on
     first use)."""
-    lib, _ = _entry()
-    return lib.glimpse_spline_route(*shape, DTYPE_CODES[dtype]).decode()
+    return _build.entry("spline", "glimpse_spline_route")(*shape, DTYPE_CODES[dtype]).decode()
 
 
+@_build.kernel(
+    "spline", "glimpse_spline_sample",
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    entries={"glimpse_spline_route": (ctypes.c_char_p, [ctypes.c_int] * 3)},
+)
 def bspline_sample(coeffs: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """The cubic B-spline of coefficients (B, H, W) at fractional indices
     rows and cols (B, P): (B, P), equal to
@@ -87,28 +72,13 @@ def bspline_sample(coeffs: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor)
         )
     if len({coeffs.device, rows.device, cols.device}) != 1:
         raise ValueError("bspline_sample takes tensors on one device")
-    if coeffs.device.type == "cpu":
+    if not _build.runs_kernel("spline", coeffs.device):
         return bspline_sample_plain(coeffs, rows, cols)
-    if coeffs.device.type != "cuda":
-        raise ValueError(f"bspline_sample runs on cpu or cuda, got {coeffs.device}")
     coeffs, rows, cols = coeffs.contiguous(), rows.contiguous(), cols.contiguous()
     wide = torch.float64 in (coeffs.dtype, rows.dtype)
     out = torch.empty(rows.shape, dtype=torch.float64 if wide else torch.float32, device=rows.device)
     if out.numel() == 0:
         return out
-    lib, fn = _entry()
-    with torch.cuda.device(coeffs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(coeffs.data_ptr(), rows.data_ptr(), cols.data_ptr(), out.data_ptr(), B, H, W, P,
-                  DTYPE_CODES[coeffs.dtype], DTYPE_CODES[rows.dtype], stream)
-        capturing = torch.cuda.is_current_stream_capturing()
-    _build.check(lib, code, "bspline_sample")
-    if capturing:
-        bspline_sample.captured += 1
-    else:
-        bspline_sample.launches += 1
+    _build.launch("spline", coeffs.device, coeffs, rows, cols, out, B, H, W, P, DTYPE_CODES[coeffs.dtype],
+                  DTYPE_CODES[rows.dtype])
     return out
-
-
-bspline_sample.launches = 0
-bspline_sample.captured = 0

@@ -316,13 +316,11 @@ def report() -> dict:
     """{"spans": {name: {"calls", "host_s", "parent", "call", "programs",
     "replay_device_s", "replay_samples", "eager_device_s"}}, "counters":
     {name: n}}: what was recorded since the last :func:`reset`, the device
-    spans not read yet read first, waiting for the card. The kernel
-    wrappers' own counts come in as
-    ``kernel.highpass.launches``, ``kernel.highpass.captured``,
-    ``kernel.resample.launches``, ``kernel.resample.captured``,
-    ``kernel.spline.launches``, ``kernel.spline.captured``,
-    ``kernel.project.launches`` and ``kernel.project.captured``."""
-    from .kernels import highpass, project, resample, spline
+    spans not read yet read first, waiting for the card. Each registered
+    kernel's wrapper's own counts (``kernels._build.KERNELS``) come in as
+    ``kernel.<label>.launches`` and ``kernel.<label>.captured``: labels
+    ``highpass``, ``resample``, ``spline`` and ``project``."""
+    from .kernels import _build
 
     read_device_spans()
     registry = _REGISTRY
@@ -335,10 +333,9 @@ def report() -> dict:
             "replay_device_s": replay_s, "replay_samples": samples, "eager_device_s": eager_s,
         }
     counters = dict(registry.counters)
-    for label, kernel in (("highpass", highpass.median_highpass), ("resample", resample.systematic_resample),
-                          ("spline", spline.bspline_sample), ("project", project.project_extract)):
-        counters[f"kernel.{label}.launches"] = kernel.launches
-        counters[f"kernel.{label}.captured"] = kernel.captured
+    for label, kernel in _build.KERNELS.items():
+        counters[f"kernel.{label}.launches"] = kernel.wrapper.launches
+        counters[f"kernel.{label}.captured"] = kernel.wrapper.captured
     return {"spans": spans, "counters": counters}
 
 

@@ -46,9 +46,7 @@ import numpy as np
 import torch
 
 from .. import graphs, profiling
-from ..kernels import highpass as highpass_kernel
 from ..kernels import project as project_kernel
-from ..kernels import resample as resample_kernel
 from ..kernels import spline as spline_kernel
 from ..kernels.highpass import highpass as routed_highpass
 from ..kernels.resample import systematic_resample
@@ -394,7 +392,7 @@ class BatchConfig:
 
     ``dtype`` is the type of the state, the frames and the outputs:
     ``torch.float32`` (the default), ``torch.bfloat16``, ``torch.float16`` or
-    ``torch.float64``; both kernels take each. Camera, motion and DEM
+    ``torch.float64``; every kernel takes each. Camera, motion and DEM
     parameters stay float32 and the systematic resampler's threshold table
     is float32 in every dtype, as the reference's Pallas route builds it.
     The projection, the motion step and the spline read of the SSE surface
@@ -404,16 +402,12 @@ class BatchConfig:
     and upsample) accumulates in float32, as cuBLAS does by default and as
     the reference's XLA keeps float32 inside its fusions.
 
-    What the port measured (one NVIDIA H100 80GB HBM3, 700.00 W,
-    ``chip_smoke.py`` phase 23, ``PERF.md``): at 10,240 x 2,048,
-    121,815 point-steps/s in float32, 124,079 in bfloat16, 124,293 in
-    float16 and 88,029 in float64; after 10 steps the median point is 1.581
-    px from the float32 run in bfloat16, 0.094 in float16, 0.017 in
-    float64. bfloat16 holds a coordinate near 300 px to 2 px, so motion
-    under that a step is lost: the Columbia recipe (0.06 px a frame) ends
-    at 4.5458 px RMSE against float32's 0.1066. The reference's own note,
-    measured on a TPU, is about 7x worse accuracy in bfloat16 with no speed
-    gain there (``glimpse_tpu/track/batch.py:393-395``).
+    ``chip_smoke.py`` phase 23 measures each dtype's speed on the card and
+    its distance from the float32 run. bfloat16 holds a coordinate near
+    300 px to 2 px, so motion under that a step is lost, as in the Columbia
+    recipe (0.06 px a frame). The reference's own note, measured on a TPU,
+    is about 7x worse accuracy in bfloat16 with no speed gain there
+    (``glimpse_tpu/track/batch.py:393-395``).
 
     ``sse_sample_mode`` chooses how the cubic spline of the SSE surface is
     read at the particles (``interpolation_order`` 3): ``'einsum'``, the
@@ -758,9 +752,8 @@ class StepProgram:
     registered so that a replay draws what an eager step would and leaves
     the generator where it would; the new state is copied back into the
     state's buffers at the end of the captured region (at 10,240 x 2,048
-    the particles' copy moves about 1 GB, some 0.3 ms of a step of about 84
-    ms; ping-ponging between two captures would need ``step`` to write into
-    given tensors). A call copies the inputs into the buffers, replays,
+    the particles' copy moves about 1 GB; ping-ponging between two captures
+    would need ``step`` to write into given tensors). A call copies the inputs into the buffers, replays,
     copies the outputs out of the graph's pool (the next replay overwrites
     it) and returns the state, whose tensors are the buffers. On the CPU,
     where there is no graph, the same object copies into its buffers and
@@ -768,15 +761,12 @@ class StepProgram:
 
     Capture needs a step that reads nothing on the host: a step that does
     raises here with the reason, and nothing falls back to the eager loop.
-    Each kernel wrapper counts the launches it captured; each replay adds
-    them to the kernels' ``launches``. A call is the span ``entry.replay``
+    The graph takes the launches each kernel captured from the registry
+    (``kernels._build.KERNELS``), and each replay adds them to the kernel
+    wrappers' ``launches``. A call is the span ``entry.replay``
     and counts in ``entry.replays`` (:mod:`..profiling`; on the CPU the
     call runs the step's body).
     """
-
-    #: The kernel wrappers whose launches a replay adds to their counts.
-    KERNELS = (highpass_kernel.median_highpass, resample_kernel.systematic_resample, spline_kernel.bspline_sample,
-               project_kernel.project_extract)
 
     def __init__(self, tracker: "BatchTracker", state: BatchState, inputs: dict) -> None:
         self.tracker = tracker
@@ -791,8 +781,7 @@ class StepProgram:
         }
         self.graph = None
         if self.device.type == "cuda":
-            self.graph = graphs.Graph(self._body, self.device, "the tracking step", kernels=self.KERNELS,
-                                      generators=(self.generator,))
+            self.graph = graphs.Graph(self._body, self.device, "the tracking step", generators=(self.generator,))
 
     def _body(self) -> dict:
         """The eager step on the buffers, its new state copied back into them."""

@@ -136,8 +136,7 @@ def test_spline_kernel_captured_equals_eager(cuda) -> None:
     coeffs, rows, cols = spline_case((1024, 27, 27, 2048), torch.float32, torch.float32, cuda, seed=5)
     eager = bspline_sample(coeffs, rows, cols)
     captured, launches = bspline_sample.captured, bspline_sample.launches
-    graph = graphs.Graph(lambda: bspline_sample(coeffs, rows, cols), cuda, "the spline read",
-                         kernels=(bspline_sample,))
+    graph = graphs.Graph(lambda: bspline_sample(coeffs, rows, cols), cuda, "the spline read")
     assert bspline_sample.captured == captured + 1 and bspline_sample.launches == launches
     for replay in range(1, 3):
         graph.outputs.zero_()
@@ -776,7 +775,8 @@ def test_graphed_run_equals_the_step_loop_on_card(cuda, monkeypatch, entry, name
     assert (median_highpass.launches - before[0], systematic_resample.launches - before[1]) == want_launches
     assert len(seen["built"]) == 1 and seen["built"][0].graph is not None and seen["calls"] == T - 3
     # One high-pass, one resample, in the einsum mode one spline read, and one front end a replay.
-    assert seen["built"][0].graph.launches == (1, 1, 1 if mode == "einsum" else 0, 1)
+    assert seen["built"][0].graph.launches == {"highpass": 1, "resample": 1, "spline": 1 if mode == "einsum" else 0,
+                                               "project": 1}
     for k in want:
         assert torch.equal(out[k], want[k]), k
     for field in batch.STATE_FIELDS:
@@ -1303,8 +1303,7 @@ def test_project_kernel_captured_equals_eager(cuda) -> None:
     args = bench_project.inputs(PROJECT_CARD_SHAPES[0], torch.float32, cuda, seed=5)
     eager = project.project_extract(**args)
     captured, launches = project.project_extract.captured, project.project_extract.launches
-    graph = graphs.Graph(lambda: project.project_extract(**args), cuda, "the front end",
-                         kernels=(project.project_extract,))
+    graph = graphs.Graph(lambda: project.project_extract(**args), cuda, "the front end")
     assert project.project_extract.captured == captured + 1 and project.project_extract.launches == launches
     for replay in range(1, 3):
         for out in graph.outputs:

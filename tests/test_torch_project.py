@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from glimpse_tpu_torch.kernels import bench_project, project
+from glimpse_tpu_torch.kernels import _build, bench_project, project
 from glimpse_tpu_torch.ops import projection
 from glimpse_tpu_torch.track import batch
 
@@ -79,10 +79,11 @@ def test_wrapper_equals_the_per_observer_front_end(shape, name, duv) -> None:
 
 def test_a_cpu_tensor_never_reaches_the_kernel(monkeypatch) -> None:
     """The CPU path builds and launches nothing and counts no launch."""
-    def refuse():
+    def refuse(*args):
         raise AssertionError("the kernel's library was asked for on the CPU")
 
-    monkeypatch.setattr(project, "_entry", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "launch", refuse)
     launches, captured = project.project_extract.launches, project.project_extract.captured
     args = bench_project.inputs(SHAPES[1], torch.float32, "cpu")
     tiles, cols, rows = project.project_extract(**args)
@@ -134,7 +135,7 @@ def test_wrapper_refuses(changes) -> None:
 def test_the_tracker_calls_the_front_end_once_a_step(monkeypatch) -> None:
     """A replay adds the captured front-end launches to the wrapper's count,
     and observer_log_likelihoods_multi makes one call for all observers."""
-    assert project.project_extract in batch.StepProgram.KERNELS
+    assert _build.KERNELS["project"].wrapper is project.project_extract
     calls = []
     plain = project.project_extract
 

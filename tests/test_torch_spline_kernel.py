@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chip_smoke import spline_case
-from glimpse_tpu_torch.kernels import spline
+from glimpse_tpu_torch.kernels import _build, spline
 from glimpse_tpu_torch.ops import sampling
 from glimpse_tpu_torch.track import batch
 
@@ -134,7 +134,7 @@ def test_wrapper_refuses(call) -> None:
 def test_the_step_program_counts_the_spline_kernel(monkeypatch) -> None:
     """A replay adds the captured spline launches to the wrapper's count,
     and the einsum read goes through the wrapper; the other modes do not."""
-    assert spline.bspline_sample in batch.StepProgram.KERNELS
+    assert _build.KERNELS["spline"].wrapper is spline.bspline_sample
     coeffs = torch.randn(3, 7, 7)
     rows, cols = torch.rand(3, 16) * 6, torch.rand(3, 16) * 6
     calls = []
