@@ -251,6 +251,13 @@ each:
     behind the camera and at NaN, corners clamped at all four edges,
     distortion, an elevation correction), then timed beside the byte bound
     by ``kernels/bench_project.measure`` (:func:`project_phase`).
+31. the DEM prior kernel (``kernels/prior.py``) against its plain version
+    at oblique-3d's 640 x 640 rasters, 10,240 and 1,024 points x 2,048
+    particles, in the four particle types: bit-equal, NaN where the plain
+    version has NaN, then timed beside the byte bound by
+    ``kernels/bench_prior.measure`` (:func:`prior_phase`). It launches on
+    the paths whose motion carries a DEM sigma, phases 14, 16 (c) and 26
+    (:data:`PRIOR_PATHS`), and on no other.
 
 Every phase that runs ``track`` or ``track_stream`` runs it graphed; every
 phase that detects, matches, refines, fits an ``ObserverCameras`` or takes
@@ -384,6 +391,13 @@ def highpass_mismatch(got, want) -> float:
     return float(torch.where(same, 0.0, (got - want).abs().nan_to_num(float("inf"))).max())
 
 
+#: The kernels that launch only where the motion's DEM prior weighs (a DEM
+#: sigma), and the main paths whose motion carries one: phase 14's, phase 16
+#: (c)'s and phase 26's host ``CartesianMotion`` with a 0.5 m sigma.
+PRIOR_KERNELS = ("dem_prior",)
+PRIOR_PATHS = ("phase 14", "phase 16", "phase 26")
+
+
 def kernel_wrappers() -> dict:
     """The port's registered kernel wrappers by name, in the registry's
     order, the order of the ``kernels`` JSON line; each counts its launches
@@ -511,6 +525,29 @@ def project_phase() -> Tuple[str, list]:
             torch.cuda.empty_cache()
     return "phase 30 observer front end against its plain version: " + "; ".join(
         bench_project.describe(r) for r in records), records
+
+
+def prior_phase() -> Tuple[str, list]:
+    """Phase 31: the DEM prior kernel against its plain version on the card
+    at ``bench_prior.SHAPES`` (oblique-3d's rasters at 10,240 and 1,024
+    points) in each of ``bench_prior.DTYPES``, on ``bench_prior.inputs``
+    (points inside and outside the rasters, a NaN DEM cell, sigma cells at
+    or below 0 and at NaN, particles at +-inf): one launch,
+    bit-equal (``bench_prior.check``); then the launch alone, the wrapper
+    and the plain version timed beside the byte bound
+    (``bench_prior.measure``). Returns (the line, the records, oblique-3d's
+    float32 first)."""
+    import torch
+
+    from glimpse_tpu_torch.kernels import bench_prior
+
+    records = []
+    for shape in bench_prior.SHAPES:
+        for dtype in bench_prior.DTYPES:
+            records.append(bench_prior.measure(shape, dtype))
+            torch.cuda.empty_cache()
+    return "phase 31 DEM prior against its plain version: " + "; ".join(
+        bench_prior.describe(r) for r in records), records
 
 
 # Tiles that one block's shared memory cannot hold in float32, which the
@@ -1427,9 +1464,10 @@ def objects_to_tracks(cuda, card: str, n14: int = 10240, p14: int = 2048, t14: i
         runs14.append(tracks)
     launches14 = launch_counts()
     # Per run: the templates once and the search tiles every step; one
-    # resample, one spline read and one front end a step.
+    # resample, one spline read, one front end and one DEM prior a step.
     if launches14 != {"median_highpass": 2 * t14, "systematic_resample": 2 * (t14 - 1),
-                      "bspline_sample": 2 * (t14 - 1), "project_extract": 2 * (t14 - 1)}:
+                      "bspline_sample": 2 * (t14 - 1), "project_extract": 2 * (t14 - 1),
+                      "dem_prior": 2 * (t14 - 1)}:
         raise AssertionError(f"the kernels did not carry the object path: launches {launches14}")
     peak14 = torch.cuda.max_memory_allocated()
     fused = Tracks.from_multiple(runs14, ignore_nan=True)
@@ -1493,7 +1531,7 @@ def occluding_viewshed(devices, card: str, n26: int = 10240, p26: int = 2048, t2
     peak = torch.cuda.max_memory_allocated()
     launches = launch_counts()
     if launches != {"median_highpass": t26, "systematic_resample": t26 - 1, "bspline_sample": t26 - 1,
-                    "project_extract": t26 - 1}:
+                    "project_extract": t26 - 1, "dem_prior": t26 - 1}:
         raise AssertionError(f"phase 26: the kernels did not carry the run: launches {launches}")
     out = stacked(outputs)
     valid = out["valid"].cpu().numpy() > 0  # (t26 - 1, n26): step t at row t - 1
@@ -2433,9 +2471,10 @@ def two_observers(cuda, workdir: str, n_steps: int = 1000, n_points: int = 10240
     # Each observer's templates once, then one launch a step on the 2 x
     # 10,240 stacked search tiles (both observers are scored every step and
     # the log likelihood masked); one resample and one spline read of the
-    # stacked surfaces a step, and one front end for both observers.
+    # stacked surfaces a step, and one front end for both observers; a flat
+    # DEM without a sigma, so no DEM prior.
     expected = {"median_highpass": 2 + (n_steps - 1), "systematic_resample": n_steps - 1,
-                "bspline_sample": n_steps - 1, "project_extract": n_steps - 1}
+                "bspline_sample": n_steps - 1, "project_extract": n_steps - 1, "dem_prior": 0}
     if stabilized["launches"] != expected:
         raise AssertionError(f"phase 25: the kernels did not carry the stabilized run: {stabilized['launches']},"
                              f" expected {expected}")
@@ -2575,9 +2614,10 @@ def mesh_phase(camera, frames, points_xy, cuda, trace_dir: str, n_slices: int = 
     out_mesh, seconds_mesh = run(trackers["mesh"])
     launches = launch_counts()
     # One template high-pass a slice, then each step one high-pass, one
-    # resample, one spline read and one front end a slice.
+    # resample, one spline read and one front end a slice; no DEM prior.
     if launches != {"median_highpass": n_slices * (n_steps + 1), "systematic_resample": n_slices * n_steps,
-                    "bspline_sample": n_slices * n_steps, "project_extract": n_slices * n_steps}:
+                    "bspline_sample": n_slices * n_steps, "project_extract": n_slices * n_steps,
+                    "dem_prior": 0}:
         raise AssertionError(f"the mesh run launched {launches}, not {n_slices} of each kernel a step")
     out_none, seconds_none = run(trackers["none"])
     diffs = {k: float((out_mesh[k] - out_none[k]).abs().max()) for k in out_none}
@@ -3228,7 +3268,8 @@ def _graphs_shape(name: str, spec: dict, captures: list, launches: dict) -> str:
         if not same(graphed, records[0]):
             raise AssertionError(f"phase 27 {name}: a graphed run parts from the eager runs by"
                                  f" {spread(graphed, records[0])}")
-    if len({r["launches"] for r in records}) != 1 or min(records[0]["launches"]) < 1:
+    engaged = [n for kernel, n in zip(kernel_wrappers(), records[0]["launches"]) if kernel not in PRIOR_KERNELS]
+    if len({r["launches"] for r in records}) != 1 or min(engaged) < 1:
         raise AssertionError(f"phase 27 {name}: launches {[r['launches'] for r in records]}")
     profiles = profile_graphed_step(tracker, *spec["profile"][0], **spec["profile"][1])
     replay = profiles["graphed"]
@@ -4224,8 +4265,13 @@ def main() -> None:
     line30, records30 = project_phase()
     say(line30, flush=True)
 
+    # Phase 31: the DEM prior kernel at oblique-3d's shapes.
+    line31, records31 = prior_phase()
+    say(line31, flush=True)
+
     # The kernels at phase 8's shapes; ``launches`` are phase 20's (the
-    # tracker in four mesh slices; phases 18-19 launch neither), and
+    # tracker in four mesh slices; phases 18-19 launch neither; the DEM
+    # prior's phase 14's, the first path whose motion carries a sigma), and
     # ``launches_by_path`` every main path's, each counted from 0 just before
     # its run (phase 5's and phase 8's counts are one timed pass's; phase
     # 21's the four processes' first timed pass at phase 6's width, summed;
@@ -4247,11 +4293,15 @@ def main() -> None:
     # end reads x, y, z and the weight, writes each observer's cols, rows
     # and tiles and reads each frame once (``bench_project.project_bytes``);
     # some 100 instructions a particle and observer, under the bytes; no PyTorch
-    # call computes it; it replaces no Pallas kernel either.
+    # call computes it; it replaces no Pallas kernel either. Nor does the DEM
+    # prior, which reads x, y and z, writes the prior and reads both rasters
+    # once (``bench_prior.prior_bytes``), some 150 instructions a particle;
+    # no PyTorch call computes it, and it launches only on PRIOR_PATHS.
     main_hp = hp_times[((20480, 31, 31), (5, 5))]
     main_rs = rs_times[(10240, 2048)]
     main_sp = next(r for r in records29 if r["shape"] == [20480, 17, 17, 2048] and r["dtype"] == "float32")
     main_pe = records30[0]
+    main_pr = records31[0]
     bound_hp = 2 * 20480 * 31 * 31 * 4 / HBM_BYTES_PER_S * 1e3
     bound_rs = 10240 * 2048 * 60 / HBM_BYTES_PER_S * 1e3
     by_path = {
@@ -4262,8 +4312,13 @@ def main() -> None:
                **{f"phase 27 {k}": v for k, v in launches27[name].items()}}
         for name in kernel_wrappers()
     }
-    if any(count < 1 for counts in by_path.values() for count in counts.values()):
+    engaged = {name: {path: count for path, count in counts.items()
+                      if name not in PRIOR_KERNELS or path in PRIOR_PATHS}
+               for name, counts in by_path.items()}
+    if any(count < 1 for counts in engaged.values() for count in counts.values()):
         raise AssertionError(f"a kernel did not launch on a main path: {by_path}")
+    if any(count != 0 for name in PRIOR_KERNELS for path, count in by_path[name].items() if path not in PRIOR_PATHS):
+        raise AssertionError(f"a DEM prior launched on a path without a DEM sigma: {by_path}")
     hp14 = [
         {"shape": list(shape), "ms": hp_times[(shape, (5, 5))][0], "plain_ms": hp_times[(shape, (5, 5))][1],
          "bound_ms": 2 * int(np.prod(shape)) * 4 / HBM_BYTES_PER_S * 1e3}
@@ -4356,6 +4411,14 @@ def main() -> None:
             "ms": main_pe["ms"], "plain_ms": main_pe["plain_ms"], "bound_ms": main_pe["bound_ms"],
             "bound_by": "bytes", "bound_share": main_pe["bound_share"], "library_ms": None,
             "shape": main_pe["shape"], "launches_by_path": by_path["project_extract"], "dtypes": records30,
+        },
+        {
+            "name": "dem_prior", "route": "cuda",
+            "source": "glimpse_tpu_torch/csrc/prior.cu", "replaces": None,
+            "launches": launches14["dem_prior"], "max_abs_err": max(r["max_abs_err"] for r in records31),
+            "ms": main_pr["ms"], "plain_ms": main_pr["plain_ms"], "bound_ms": main_pr["bound_ms"],
+            "bound_by": "bytes", "bound_share": main_pr["bound_share"], "library_ms": None,
+            "shape": main_pr["shape"], "launches_by_path": engaged["dem_prior"], "dtypes": records31,
         },
     ]}))
     print(json.dumps({

@@ -9,3 +9,4 @@ from .highpass import median_highpass
 from .resample import systematic_resample
 from .spline import bspline_sample
 from .project import project_extract
+from .prior import dem_prior

@@ -4,7 +4,9 @@ The counterpart of :mod:`glimpse_tpu.track.batch` on one device. One step:
 
 1. evolve the particles (cartesian, cylindrical, tangent or
    tangent-cylindrical motion) and latch each point's validity (all finite,
-   and on visible viewshed cells when there is a viewshed);
+   and on visible viewshed cells when there is a viewshed); where the
+   motion carries a DEM sigma, its DEM prior (kernel ``dem_prior``, one
+   launch: both bilinear raster reads a particle and the prior);
 2. for every observer, project the particles through its camera and cut a
    search tile at each point's weighted-mean projection (kernel
    ``project_extract``, one launch for all observers);
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import graphs, profiling
+from ..kernels import prior as prior_kernel
 from ..kernels import project as project_kernel
 from ..kernels import spline as spline_kernel
 from ..kernels.highpass import highpass as routed_highpass
@@ -367,15 +370,11 @@ class BatchMotion:
         return torch.cat([xy, z[..., None], v], dim=-1)
 
     def log_likelihoods(self, particles):
-        """DEM-distance prior (N, P), or zeros where it does not apply."""
+        """DEM-distance prior (N, P) (kernel ``dem_prior``), or zeros where it
+        does not apply."""
         if not self.informative:
             return torch.zeros(particles.shape[:2], dtype=particles.dtype, device=particles.device)
-        xy = particles[..., 0:2]
-        z = self.dem.sample(xy)
-        z_sigma = self.dem_sigma.sample(xy)
-        safe = torch.where(z_sigma > 0, z_sigma, 1.0)
-        ll = (z - particles[..., 2]) ** 2 / (2 * safe * safe)
-        return torch.where(z_sigma > 0, ll, 0.0)
+        return prior_kernel.dem_prior(particles, self.dem, self.dem_sigma)
 
 
 # ---- Configuration and state ---- #

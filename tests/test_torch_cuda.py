@@ -774,9 +774,10 @@ def test_graphed_run_equals_the_step_loop_on_card(cuda, monkeypatch, entry, name
         out = {k: torch.cat([o[k] for o in outputs]) for k in outputs[0]}
     assert (median_highpass.launches - before[0], systematic_resample.launches - before[1]) == want_launches
     assert len(seen["built"]) == 1 and seen["built"][0].graph is not None and seen["calls"] == T - 3
-    # One high-pass, one resample, in the einsum mode one spline read, and one front end a replay.
+    # One high-pass, one resample, in the einsum mode one spline read, and one front end a replay; on a
+    # flat DEM without a sigma no DEM prior.
     assert seen["built"][0].graph.launches == {"highpass": 1, "resample": 1, "spline": 1 if mode == "einsum" else 0,
-                                               "project": 1}
+                                               "project": 1, "prior": 0}
     for k in want:
         assert torch.equal(out[k], want[k]), k
     for field in batch.STATE_FIELDS:
@@ -835,10 +836,12 @@ def test_dem_prior_replays_equal_the_step_loop_on_card(cuda) -> None:
     recording (``step.prior``'s event nodes in the captured graph): ``track``
     equals the eager step loop bit for bit, outputs, state and the
     generator's next draw, and the prior has device time in the replayed
-    step."""
+    step. The prior kernel launches once a step, eager or replayed, and once
+    under the graph's capture."""
     import dataclasses
 
     from glimpse_tpu_torch import profiling
+    from glimpse_tpu_torch.kernels.prior import dem_prior
     from glimpse_tpu_torch.track import batch, convert
 
     flat, frames, masks, mask0, _ = _graph_scene(cuda)
@@ -856,8 +859,12 @@ def test_dem_prior_replays_equal_the_step_loop_on_card(cuda) -> None:
     generators = [torch.Generator(device=cuda).manual_seed(23) for _ in range(2)]
     profiling.reset()
     with profiling.tracing(True):
+        launches = dem_prior.launches
         want_state, want, _ = _step_loop(tracker, generators[1], frames, masks, mask0)
+        assert dem_prior.launches == launches + T - 1
+        launches, captured = dem_prior.launches, dem_prior.captured
         state, out = tracker.track(generators[0], frames, np.ones(T - 1), obs_masks=masks, obs_mask0=mask0)
+    assert dem_prior.captured == captured + 1 and dem_prior.launches == launches + T - 1
     report = profiling.report()
     profiling.reset()
     for k in want:

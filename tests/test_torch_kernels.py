@@ -146,12 +146,14 @@ def test_import_needs_no_jax_and_no_nvcc() -> None:
     code = (
         "import sys, torch\n"
         "import glimpse_tpu_torch\n"
-        "from glimpse_tpu_torch.kernels import _build, bench_project, highpass, project, resample, spline\n"
+        "from glimpse_tpu_torch.kernels import _build, bench_prior, bench_project, highpass, prior, project, resample,"
+        " spline\n"
         "assert 'jax' not in sys.modules and 'glimpse_tpu' not in sys.modules\n"
         "highpass.median_highpass(torch.zeros(2, 9, 9))\n"
         "resample.systematic_resample(torch.zeros(2, 8), torch.zeros(2, 8, 6), torch.ones(2, 8))\n"
         "spline.bspline_sample(torch.zeros(2, 5, 5), torch.ones(2, 8), torch.ones(2, 8))\n"
         "project.project_extract(**bench_project.inputs((2, 4, 8, 16, 16, 3, 3, 7, 7), torch.float32, 'cpu'))\n"
+        "prior.dem_prior(**bench_prior.inputs((8, 16, 12, 10), torch.float32, 'cpu'))\n"
         "assert _build._load.cache_info().currsize == _build.entry.cache_info().currsize == 0\n"
         "assert set(_build.KERNELS) == {source.stem for source in _build.SOURCE_DIR.glob('*.cu')}\n"
         "assert all(k.wrapper.launches == k.wrapper.captured == 0 for k in _build.KERNELS.values())\n"

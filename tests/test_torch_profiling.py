@@ -185,7 +185,7 @@ def test_tracing_records_every_span_nested_under_its_parent(tmp_path) -> None:
     assert "graph.captures" not in counters  # no graph on the CPU
     for key in ("kernel.highpass.launches", "kernel.highpass.captured", "kernel.resample.launches",
                 "kernel.resample.captured", "kernel.spline.launches", "kernel.spline.captured",
-                "kernel.project.launches", "kernel.project.captured"):
+                "kernel.project.launches", "kernel.project.captured", "kernel.prior.launches", "kernel.prior.captured"):
         assert key in counters
     # Nothing ran on a card: no device time.
     assert all(s["replay_samples"] == 0 and s["eager_device_s"] == 0 for s in spans.values())
